@@ -2,26 +2,41 @@
 
     python3 chip_smoke.py
 
-Builds the fused-sweep CUDA kernel from ``src/repro_torch/csrc`` at first
-use, holds it against its plain-torch twin on the card at the main path's
-shapes, drives the port's main path — ``explore()`` over the full-width
-``mega_sweep`` space (all 5 Ed-Gaze + 3 Rhythmic variants, 1.26e7 design
-points, ``chunk_size=2**18``, ``k=3``) — through the kernel, checks the
-result against the twin lane, the int64 index path and the scalar
-``estimate_energy`` oracle, times the kernel, and prints its findings as
-JSON lines.  The last line is the run's verdict::
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+per source, all started together): K1 ``fused_sweep.cu``, K2
+``grid_decode.cu``, K3a/K3b ``stream_reduce.cu`` and K4
+``category_reduce.cu``.  Holds each kernel against its plain-torch twin
+on the card at the main paths' shapes, then drives every engine of
+``explore()`` at full width, each with the launch counters zeroed just
+before it and read just after:
+
+* fused (the main path) — the ``mega_sweep`` space (all 5 Ed-Gaze + 3
+  Rhythmic variants, 1.26e7 design points, ``chunk_size=2**18``,
+  ``k=3``) through K1, checked against the twin lane, the int64 index
+  path and the scalar ``estimate_energy`` oracle;
+* staged — the same space through K2 -> banked evaluator -> K3a, equal
+  to the fused result;
+* chunked (through ``auto``) — Ed-Gaze over the mega grids without
+  ``active_fraction_scale`` (1.57e6 points) through K4, equal to fused;
+* monolithic (through ``auto``) — the ``design_sweep`` grids of
+  ``benchmarks/run.py`` (21,504 points) through K4, equal to fused, the
+  winner against the scalar oracle.
+
+It times every kernel, prints its findings as JSON lines, and ends with
+the ``kernels`` line and the run's verdict::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
 Every check raises on failure, so the script exits nonzero and prints no
 verdict; it also exits nonzero without a CUDA device or without the
 repository's ``src/`` beside it.  It imports nothing of ``jax`` or of the
-JAX package ``repro``.  A last ``torch.profiler`` pass over one
-main-path sweep reports device time by kernel and the device's busy
-share, and writes its chrome trace to ``build/traces/trace_main_path.json``.
+JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
+engine reports device time by kernel and the device's busy share, and
+writes chrome traces to ``build/traces/``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -57,6 +72,24 @@ WIDE_GRIDS = {"variant": ["3d_in"],
               "frame_rate": list(np.linspace(15.0, 120.0, 1500)),
               "active_fraction_scale": list(np.linspace(0.1, 1.0, 1000))}
 WIDE_POINTS = 1500 * 1500 * 1000
+
+# the chunked lane: Ed-Gaze over the mega grids without the gating axis,
+# 5 x 314,496 = 1,572,480 points, which `auto` sends to `chunked`
+CHUNKED_GRIDS = {k: v for k, v in MEGA_GRIDS.items()
+                 if k != "active_fraction_scale"}
+CHUNKED_POINTS = 5 * 13 * 3 * 8 * 8 * 6 * 3 * 7
+# the monolithic lane: the design_sweep grids of benchmarks/run.py over
+# Ed-Gaze + Rhythmic, 8 x 2,688 = 21,504 points
+DESIGN_GRIDS = {"cis_node": [130., 110., 90., 65., 45., 32., 28.],
+                "frame_rate": [15.0, 30.0, 60.0, 120.0],
+                "sys_rows": [4.0, 8.0, 16.0, 32.0],
+                "sys_cols": [8.0, 16.0, 32.0],
+                "mem_tech": ["sram_hp", "stt"],
+                "active_fraction_scale": [0.25, 1.0],
+                "pixel_pitch_um": [3.0, 5.0]}
+DESIGN_POINTS = 8 * 7 * 4 * 4 * 3 * 2 * 2 * 2
+KERNEL_SOURCES = ("fused_sweep", "grid_decode", "stream_reduce",
+                  "category_reduce")
 
 REL = 1e-6          # the reference's parity tolerance (values, top-k)
 REL_SUM = 1e-5      # block sums: 4096 f32 terms summed in another order
@@ -161,6 +194,87 @@ def synthetic_case(fs):
 
 
 # ---------------------------------------------------------------------------
+# K2, K3a, K3b, K4 vs their twins
+# ---------------------------------------------------------------------------
+def decode_case(gd, prep, *, name, start, chunk, idx_dtype=torch.int32):
+    """K2 against its twin: axis values and variant ids bit-equal."""
+    kw = dict(shape=prep.vgrids[0].shape, n_var=prep.n_var,
+              total=prep.total, chunk=chunk, lmax=prep.lmax,
+              idx_dtype=idx_dtype)
+    kv, kid = gd.grid_decode(prep.table2, start, **kw)
+    torch.cuda.synchronize()
+    tv, tid = gd.grid_decode_torch(prep.table2, start, **kw)
+    check(torch.equal(kv, tv) and torch.equal(kid, tid),
+          f"{name}: grid_decode differs from its twin")
+    rec = dict(case=name, points=chunk, start=int(start),
+               past_total=max(0, start + chunk - prep.total),
+               max_abs_err=float((kv - tv).abs().max()))
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def stats_case(sr, *, name, values, mask, bp, variant=None, n_variants=0):
+    """K3a/K3b against their twins: min, argmin and counts exact, sums
+    at rel 1e-5."""
+    if variant is None:
+        ker = sr.block_stats(values, mask, bp)
+        torch.cuda.synchronize()
+        twin = sr.block_stats_torch(values, mask, bp)
+    else:
+        ker = sr.block_stats_banked(values, mask, variant, n_variants, bp)
+        torch.cuda.synchronize()
+        twin = sr.block_stats_banked_torch(values, mask, variant,
+                                           n_variants, bp)
+    km, ka, ks, kc = (t.cpu().numpy() for t in ker)
+    tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
+    check(np.array_equal(km, tm) and np.array_equal(ka, ta),
+          f"{name}: min/argmin differ from the twin")
+    check(np.array_equal(kc, tc), f"{name}: counts differ")
+    ks, ts = ks.astype(np.float64), ts.astype(np.float64)
+    sum_rel = float(np.max(np.abs(ks - ts)
+                           / np.maximum(np.abs(ts), 1e-30)))
+    check(sum_rel <= REL_SUM, f"{name}: sums rel err {sum_rel}")
+    rec = dict(case=name, points=int(values.numel()), blocks=int(km.size),
+               empty_blocks=int((tc == 0).sum()),
+               max_abs_err=float(np.max(np.abs(ks - ts))),
+               sums_max_rel_err=sum_rel)
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def reduce_case(cr, *, name, e, w):
+    """K4 against its twin: bit-equal."""
+    ker = cr.category_reduce(e, w)
+    torch.cuda.synchronize()
+    twin = cr.category_reduce_torch(e, w)
+    check(torch.equal(ker, twin), f"{name}: category_reduce differs from "
+          f"its twin by {float((ker - twin).abs().max())}")
+    rec = dict(case=name, rows=int(e.shape[0]), units=int(e.shape[1]),
+               cols=int(w.shape[1]), max_abs_err=0.0)
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def stats_inputs(n, seed, *, ties=False, empty_block=None):
+    # positive, energy-like values: block sums without cancellation
+    rng = np.random.default_rng(seed)
+    vals = (rng.choice(np.float32([0.5, 1.25, 2.0]), n) if ties
+            else rng.uniform(0.5, 2.0, n).astype(np.float32))
+    mask = rng.uniform(size=n) > 0.3
+    if empty_block is not None:
+        mask[empty_block[0]:empty_block[1]] = False
+    return (torch.from_numpy(vals).cuda(), torch.from_numpy(mask).cuda())
+
+
+def reduce_inputs(b, u, c, seed):
+    rng = np.random.default_rng(seed)
+    e = rng.uniform(1e-12, 1e-6, size=(b, u)).astype(np.float32)
+    w = (rng.uniform(size=(u, c)) > 0.5).astype(np.float32)
+    w[:, c - 2] = 1.0
+    return torch.from_numpy(e).cuda(), torch.from_numpy(w).cuda()
+
+
+# ---------------------------------------------------------------------------
 # roofline bound of one launch
 # ---------------------------------------------------------------------------
 def ops_per_point(dims, knots):
@@ -213,6 +327,24 @@ def time_ms(fn, reps=20):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, needle, reps=20):
+    """Device time per launch of the kernels named ``*needle*`` over
+    ``reps`` back-to-back calls of ``fn``, from ``torch.profiler`` (the
+    CUDA-event time of such a loop also holds the host's per-launch
+    work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and needle in e.name)
+    return us * 1e-3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -274,10 +406,10 @@ def compare_results(name, a, b):
     return worst
 
 
-def profile_main_path(explore, space) -> None:
-    """torch.profiler over one main-path sweep: device time by kernel
+def profile_path(name, run) -> dict:
+    """torch.profiler over one sweep ``run()``: device time by kernel
     name and the device's busy share of the sweep's wall time; writes
-    the chrome trace to build/traces/trace_main_path.json."""
+    the chrome trace to build/traces/trace_<name>.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = Path(__file__).resolve().parent / "build" / "traces"
@@ -285,15 +417,15 @@ def profile_main_path(explore, space) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = explore(space, engine="fused", chunk_size=CHUNK, k=3)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(str(out / "trace_main_path.json"))
+    prof.export_chrome_trace(str(out / f"trace_{name}.json"))
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     by_name, busy, reach = {}, 0.0, None
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    for start, end, kname in spans:
+        by_name[kname] = by_name.get(kname, 0.0) + (end - start)
         if reach is None or start >= reach:
             busy += end - start
             reach = end
@@ -301,11 +433,30 @@ def profile_main_path(explore, space) -> None:
             busy += end - reach
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"profile_main_path": {
-        "wall_s": wall, "eval_s": res.eval_s, "device_kernels": len(spans),
-        "device_busy_s": busy * 1e-6,
-        "device_busy_share_of_wall": busy * 1e-6 / wall,
-        "device_s_by_kernel": {name[:80]: us * 1e-6 for name, us in top}}})
+    rec = {"wall_s": wall, "eval_s": res.eval_s,
+           "device_kernels": len(spans), "device_busy_s": busy * 1e-6,
+           "device_busy_share_of_wall": busy * 1e-6 / wall,
+           "device_s_by_kernel": {k[:80]: us * 1e-6 for k, us in top}}
+    emit({f"profile_{name}": rec})
+    return rec
+
+
+def count_syncs(run) -> int:
+    """Host syncs of one ``run()``, under the sync debug mode (which
+    slows every op, so never in a timed run)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def reset_all(mods) -> None:
+    for mod in mods:
+        mod.reset_counts()
 
 
 def main() -> int:
@@ -315,9 +466,14 @@ def main() -> int:
         return 2
     from repro_torch.core.batch import build_coeff_compute, interp_tables
     from repro_torch.core.shard_sweep import _prepare_stream
+    from repro_torch.core.sweep import scalar_point
     from repro_torch.explore import DesignSpace, explore
     from repro_torch.kernels import cuda_build
-    from repro_torch.kernels import fused_sweep as fs
+    fs = importlib.import_module("repro_torch.kernels.fused_sweep")
+    gd = importlib.import_module("repro_torch.kernels.grid_decode")
+    sr = importlib.import_module("repro_torch.kernels.stream_reduce")
+    cr = importlib.import_module("repro_torch.kernels.category_reduce")
+    kernel_mods = (fs, gd, sr, cr)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -331,15 +487,19 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
-    # ----- 1. build ---------------------------------------------------------
+    # ----- 1. build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    fs.load_kernel_library()
-    info = cuda_build.build_info("fused_sweep")
-    emit({"build": {"seconds": time.perf_counter() - t0,
-                    "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                              if "registers" in ln or "spill" in ln]}})
+    cuda_build.build_libraries(KERNEL_SOURCES)
+    for mod in kernel_mods:
+        mod.load_kernel_library()
+    emit({"build": {
+        "seconds": time.perf_counter() - t0,
+        "ptxas": {name: [ln.strip() for ln in
+                         cuda_build.build_info(name)["log"].splitlines()
+                         if "registers" in ln or "spill" in ln]
+                  for name in KERNEL_SOURCES}}})
 
-    # ----- 2. kernel vs twin on the card ------------------------------------
+    # ----- 2. each kernel vs its twin on the card ---------------------------
     prep = _prepare_stream(["edgaze", "rhythmic"], MEGA_GRIDS, device="cuda")
     check(prep.total == MEGA_POINTS, f"mega space has {prep.total} points")
     compute = build_coeff_compute(prep.bank.dims)
@@ -372,24 +532,41 @@ def main() -> int:
                          limit=WIDE_POINTS, chunk=CHUNK, bp=4096, kk=4,
                          idx_dtype=torch.int64))
 
-    # ----- 3. the main path at full width -----------------------------------
+    k2 = [decode_case(gd, prep, name="decode_main_chunk",
+                      start=2 * n_var + CHUNK, chunk=CHUNK),
+          decode_case(gd, prep, name="decode_tail_past_total",
+                      start=prep.total - 1000, chunk=4099),
+          decode_case(gd, wide, name="decode_int64_beyond_2^31",
+                      start=WIDE_POINTS - 70_000, chunk=CHUNK,
+                      idx_dtype=torch.int64)]
+    check(k2[1]["past_total"] > 0, "decode tail does not cross total")
+    vals, mask = stats_inputs(CHUNK, 1, empty_block=(5 * 4096, 6 * 4096))
+    k3a = [stats_case(sr, name="stats_main_chunk", values=vals, mask=mask,
+                      bp=4096)]
+    rvals, rmask = stats_inputs(CHUNK - 1234, 2, ties=True)
+    k3a.append(stats_case(sr, name="stats_ragged_ties", values=rvals,
+                          mask=rmask, bp=4096))
+    check(k3a[0]["empty_blocks"] >= 1, "no all-masked block in the case")
+    vid = (torch.arange(CHUNK, device="cuda") % 8).to(torch.int32)
+    vid[-5000:] = -1                          # padding rows
+    k3b = [stats_case(sr, name="stats_banked_8_variants", values=vals,
+                      mask=mask, bp=4096, variant=vid, n_variants=8)]
+    e_main, w_main = reduce_inputs(CHUNK, 11, 10, 3)
+    e_rag, w_rag = reduce_inputs(100_003, 11, 10, 4)
+    k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main),
+          reduce_case(cr, name="reduce_ragged", e=e_rag, w=w_rag)]
+
+    # ----- 3. the main path at full width: fused ----------------------------
     space = DesignSpace(["edgaze", "rhythmic"], MEGA_GRIDS)
     explore(space, engine="fused", chunk_size=CHUNK, k=3)   # warm-up
-    fs.reset_counts()
+    reset_all(kernel_mods)
     res = explore(space, engine="fused", chunk_size=CHUNK, k=3)
     launches = fs.COUNTS["kernel_launches"]
     twin_calls = fs.COUNTS["twin_calls"]
-    # count the host syncs of an identical sweep (the debug mode slows
-    # every op, so not in the timed one): folding stays on the device,
-    # so only prep and finalize may synchronise, never once per chunk
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            explore(space, engine="fused", chunk_size=CHUNK, k=3)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # folding stays on the device, so only prep and finalize may
+    # synchronise, never once per chunk
+    syncs = count_syncs(lambda: explore(space, engine="fused",
+                                        chunk_size=CHUNK, k=3))
     check(syncs < launches, f"main path: {syncs} host syncs for "
           f"{launches} kernel launches")
     check(res.n_points == MEGA_POINTS, f"swept {res.n_points} points")
@@ -437,16 +614,86 @@ def main() -> int:
     emit({"int64_path": {"points": w_ker.n_points, "launches": w_launches,
                          "best_index": w_ker.topk[0]["index"]}})
 
-    # ----- 4. timing at the main-path shape ---------------------------------
+    # ----- 4. staged at full width: K2 -> banked evaluator -> K3a -----------
+    def staged():
+        return explore(space, engine="staged", chunk_size=CHUNK, k=3)
+    staged()                                  # warm-up
+    reset_all(kernel_mods)
+    st = staged()
+    st_counts = dict(decode=gd.COUNTS["kernel_launches"],
+                     stats=sr.COUNTS["kernel_launches"],
+                     twins=sum(m.COUNTS[k] for m in kernel_mods
+                               for k in m.COUNTS if "twin" in k))
+    st_syncs = count_syncs(staged)
+    n_chunks = 8 * cpv
+    check(st.engine == "staged" and st.dispatches == n_chunks,
+          f"staged: engine {st.engine}, {st.dispatches} dispatches")
+    check(st_counts["decode"] == n_chunks and st_counts["stats"] == n_chunks
+          and st_counts["twins"] == 0, f"staged: launches {st_counts}")
+    check(st_syncs < st_counts["decode"], f"staged: {st_syncs} host syncs "
+          f"for {st_counts['decode']} chunks")
+    st_worst = compare_results("staged_vs_fused", st, res)
+    emit({"staged_path": {
+        "points": st.n_points, "eval_s": st.eval_s,
+        "points_per_s": st.points_per_sec, "dispatches": st.dispatches,
+        "grid_decode_launches": st_counts["decode"],
+        "block_stats_launches": st_counts["stats"],
+        "twin_calls": st_counts["twins"], "host_syncs": st_syncs,
+        "vs_fused_max_rel_err": st_worst}})
+
+    # ----- 5. chunked through auto: K4 --------------------------------------
+    ch_space = DesignSpace(["edgaze"], CHUNKED_GRIDS)
+    check(ch_space.n_points == CHUNKED_POINTS, "chunked space size")
+    reset_all(kernel_mods)
+    ch = explore(ch_space, k=3)
+    ch_counts = (cr.COUNTS["kernel_launches"], cr.COUNTS["twin_calls"])
+    check(ch.engine == "chunked" and ch.chunk_size == CHUNK,
+          f"auto picked {ch.engine} / chunk {ch.chunk_size}")
+    check(ch_counts == (10, 0), f"chunked: K4 launches/twin {ch_counts}")
+    ch_fused = explore(ch_space, engine="fused", chunk_size=CHUNK, k=3)
+    ch_worst = compare_results("chunked_vs_fused", ch, ch_fused)
+    emit({"chunked_path": {
+        "points": ch.n_points, "eval_s": ch.eval_s, "wall_s": ch.wall_s,
+        "points_per_s": ch.points_per_sec, "dispatches": ch.dispatches,
+        "category_reduce_launches": ch_counts[0],
+        "twin_calls": ch_counts[1], "vs_fused_max_rel_err": ch_worst}})
+
+    # ----- 6. monolithic through auto: K4 -----------------------------------
+    mo_space = DesignSpace(["edgaze", "rhythmic"], DESIGN_GRIDS)
+    check(mo_space.n_points == DESIGN_POINTS, "design_sweep space size")
+    reset_all(kernel_mods)
+    mo = explore(mo_space, k=3)
+    mo_counts = (cr.COUNTS["kernel_launches"], cr.COUNTS["twin_calls"])
+    check(mo.engine == "monolithic", f"auto picked {mo.engine}")
+    check(mo_counts == (8, 0), f"monolithic: K4 launches/twin {mo_counts}")
+    mo_fused = explore(mo_space, engine="fused", chunk_size=CHUNK, k=3)
+    mo_worst = compare_results("monolithic_vs_fused", mo, mo_fused)
+    win = mo.topk[0]
+    sp = scalar_point(win["algorithm"], win["variant"], **{
+        ax: win[ax] for ax in ("cis_node", "soc_node", "mem_tech",
+                               "sys_rows", "sys_cols", "frame_rate",
+                               "active_fraction_scale", "pixel_pitch_um")})
+    mo_oracle = abs(win["total_j"] - sp["total_j"]) / abs(sp["total_j"])
+    check(mo_oracle <= 5e-4, f"monolithic winner vs scalar oracle "
+          f"{mo_oracle}")
+    emit({"monolithic_path": {
+        "points": mo.n_points, "eval_s": mo.eval_s, "wall_s": mo.wall_s,
+        "points_per_s": mo.points_per_sec, "dispatches": mo.dispatches,
+        "category_reduce_launches": mo_counts[0],
+        "twin_calls": mo_counts[1], "vs_fused_max_rel_err": mo_worst,
+        "scalar_oracle_rel_err": mo_oracle}})
+
+    # ----- 7. timing at the main paths' shapes ------------------------------
     kw = dict(compute=compute, metric="total_j",
               axis_names=tuple(prep.vgrids[0].names),
               shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
               chunk=CHUNK, lmax=prep.lmax, block_points=4096, kk=3)
     row = prep.bank.fused[2]
     start = 2 * n_var + CHUNK
-    fs.reset_counts()
-    kernel_ms = time_ms(lambda: fs.fused_sweep_block(
-        prep.table2, row, start, 0, 3 * n_var, **kw))
+    def k1():
+        return fs.fused_sweep_block(prep.table2, row, start, 0, 3 * n_var,
+                                    **kw)
+    kernel_ms = time_ms(k1)
     twin_ms = time_ms(lambda: fs.fused_sweep_block_torch(
         prep.table2, row, start, 0, 3 * n_var, **kw), reps=5)
     knots = tuple(len(xs) for xs, _ in interp_tables())
@@ -455,19 +702,80 @@ def main() -> int:
         + n_blocks * (3 * 8 + 8)
     b_ms, b_by, fp, sfu = bound_ms(CHUNK, prep.bank.dims, knots,
                                    bytes_moved)
-    profile_main_path(explore, space)          # after the timed loops
-    emit({"kernels": [{
+
+    dkw = dict(shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
+               chunk=CHUNK, lmax=prep.lmax)
+    n_axes = len(prep.vgrids[0].shape)
+    timed = {
+        "grid_decode": (
+            lambda: gd.grid_decode(prep.table2, start, **dkw),
+            lambda: gd.grid_decode_torch(prep.table2, start, **dkw),
+            None, 4 * prep.table2.numel() + CHUNK * 4 * (n_axes + 1), 0),
+        "block_stats": (
+            lambda: sr.block_stats(vals, mask, 4096),
+            lambda: sr.block_stats_torch(vals, mask, 4096),
+            None, CHUNK * 5 + n_blocks * 16, CHUNK * 3),
+        "block_stats_banked": (
+            lambda: sr.block_stats_banked(vals, mask, vid, 8, 4096),
+            lambda: sr.block_stats_banked_torch(vals, mask, vid, 8, 4096),
+            None, CHUNK * 9 + n_blocks * 8 * 16, CHUNK * 3),
+        "category_reduce": (
+            lambda: cr.category_reduce(e_main, w_main),
+            lambda: cr.category_reduce_torch(e_main, w_main),
+            lambda: torch.matmul(e_main, w_main),
+            4 * (CHUNK * 11 + 11 * 10 + CHUNK * 10), 2 * CHUNK * 11 * 10),
+    }
+    times = {}
+    for name, (ker, plain, lib, nbytes, nops) in timed.items():
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = nops / PEAK_FP32
+        times[name] = dict(
+            ms=time_ms(ker), device_ms=device_ms(ker, f"{name}_kernel"),
+            plain_ms=time_ms(plain, reps=5),
+            library_ms=time_ms(lib) if lib is not None else None,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, operations=nops)
+
+    profile_path("main_path", lambda: explore(space, engine="fused",
+                                              chunk_size=CHUNK, k=3))
+    profile_path("staged", staged)
+    profile_path("chunked", lambda: explore(ch_space, k=3))
+    profile_path("monolithic", lambda: explore(mo_space, k=3))
+
+    src = "src/repro_torch/csrc/"
+    power = smi[0] if smi else None
+    entries = [{
         "name": "fused_sweep", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_sweep.cu",
+        "source": src + "fused_sweep.cu",
         "replaces": "src/repro/kernels/fused_sweep.py:47",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "max_rel_err": max(r["max_rel_err"] for r in recs),
         "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": b_ms,
-        "bound_by": b_by,
+        "bound_by": b_by, "device_ms": device_ms(k1, "fused_sweep_kernel"),
         "library_ms": None, "points": CHUNK, "fp32_ops_per_point": fp,
-        "sfu_calls_per_point": sfu, "power_limit": smi[0] if smi else None,
-    }]})
+        "sfu_calls_per_point": sfu, "power_limit": power,
+    }]
+    for name, source, replaces, n_launch, cases, path in (
+            ("grid_decode", "grid_decode.cu",
+             "src/repro/kernels/grid_decode.py:73", st_counts["decode"], k2,
+             "staged"),
+            ("block_stats", "stream_reduce.cu",
+             "src/repro/kernels/stream_reduce.py:30", st_counts["stats"],
+             k3a, "staged"),
+            ("block_stats_banked", "stream_reduce.cu",
+             "src/repro/kernels/stream_reduce.py:79", 0, k3b,
+             "none (direct check only)"),
+            ("category_reduce", "category_reduce.cu",
+             "src/repro/kernels/category_reduce.py:22",
+             ch_counts[0] + mo_counts[0], k4, "chunked + monolithic")):
+        entries.append(dict(
+            name=name, route="cuda", source=src + source,
+            replaces=replaces, launches=n_launch, path=path,
+            max_abs_err=max(r["max_abs_err"] for r in cases),
+            points=CHUNK, power_limit=power, **times[name]))
+    emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,13 @@ Torch-side counterpart of the reference's ``repro/core/sweep.py:58-228``
 (``ChunkedGrid``, ``build_variant``, ``lower_variant``,
 ``_normalize_grids``, ``variant_grid``, ``axis_tables``), running on the
 port's own copy of ``plan.lower``.  Everything here is host-side numpy:
-the grids only ever reach the device as the ``(n_axes, V * Lmax)`` f32
-axis table the fused megakernel decodes flat indices against.
+the grid engines walk :meth:`ChunkedGrid.chunks` on the host, and the
+streaming engines only ever see the grids as the ``(n_axes, V * Lmax)``
+f32 axis table the kernels decode flat indices against.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -45,11 +46,25 @@ class ChunkedGrid:
     def __len__(self) -> int:
         return self.n_points
 
+    def chunk(self, start: int, stop: int) -> Dict[str, np.ndarray]:
+        """Axis values for flat grid indices ``[start, stop)``."""
+        idx = np.arange(start, min(stop, self.n_points))
+        multi = np.unravel_index(idx, self.shape)
+        return {n: v[m] for n, v, m in zip(self.names, self.values, multi)}
+
     def point(self, i: int) -> Dict[str, float]:
         """Axis values of one flat grid index."""
         multi = np.unravel_index(int(i), self.shape)
         return {n: float(v[m])
                 for n, v, m in zip(self.names, self.values, multi)}
+
+    def chunks(self, chunk_size: Optional[int]
+               ) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        """Yield ``(start, axis-values)`` walking the grid in order."""
+        step = self.n_points if chunk_size is None else int(chunk_size)
+        step = max(step, 1)
+        for start in range(0, self.n_points, step):
+            yield start, self.chunk(start, start + step)
 
 
 def build_variant(algorithm: str, variant: str, *, cis_node: int = 65,

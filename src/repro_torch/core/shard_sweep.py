@@ -1,27 +1,33 @@
-"""Fused streaming sweep engine of the port: one megakernel launch per chunk.
+"""Streaming sweep engines of the port: fused (one megakernel launch per
+chunk) and staged (decode -> evaluate -> reduce, three passes per chunk).
 
-Torch counterpart of the reference's fused engine
-(``repro/core/shard_sweep.py:284-1060``):
+Torch counterpart of the reference's streaming engines
+(``repro/core/shard_sweep.py:284-1168``):
 
 1. **prepare** (:func:`_prepare_stream`) — every variant of every
    algorithm is lowered, packed into ONE ``(V, W)`` PlanBank and one
    ``(n_axes, V * Lmax)`` axis table, both on the sweep's device;
-2. **superchunk driver** (:func:`_stream_impl`) — the variant-major flat
-   index space is walked in chunk ordinals (``cpv`` per variant, so every
+2. **fused loop** (``engine="fused"``) — the variant-major flat index
+   space is walked in chunk ordinals (``cpv`` per variant, so every
    chunk is variant-uniform and reads ONE bank row); each dispatch covers
    ``superchunk`` ordinals, and a dead ordinal (past the last live one)
-   launches nothing;
-3. **megakernel** — each live chunk runs the fused decode -> evaluate ->
-   reduce kernel (``repro_torch.kernels.fused_sweep``): the CUDA kernel on
-   a CUDA device, its torch twin on the CPU or when asked for;
-4. **fold** — the chunk's ``(G, kk)`` block candidates fold to its top-kk
-   and merge into the running top-k and per-variant summaries
-   (:func:`_merge_candidates`), all on the device: no value comes back to
-   the host per chunk;
+   launches nothing.  Each live chunk runs the fused decode -> evaluate
+   -> reduce megakernel (``repro_torch.kernels.fused_sweep``), and its
+   ``(G, kk)`` block candidates fold to the chunk's top-kk;
+3. **staged loop** (``engine="staged"``, the fused engine's parity
+   oracle) — one dispatch per chunk, chunks aligned to variant
+   boundaries: the ``grid_decode`` kernel, the banked evaluator
+   (:func:`repro_torch.core.batch.build_banked_eval`), the
+   ``block_stats`` kernel and the chunk's top-k, with the winners' full
+   output rows kept on the device (``topk_out``);
+4. **fold** — each chunk's O(k) partials merge into the running top-k
+   and per-variant summaries (:func:`_merge_candidates`), all on the
+   device: no value comes back to the host per chunk;
 5. **finalize** (:func:`_finalize`) — ONE host sync copies the O(k + V)
-   state back, and the k winners re-gather their full output rows
-   through the same coefficient-form compute.
+   state back; the fused engine re-gathers the k winners' full output
+   rows through the coefficient-form compute.
 
+On a CUDA device the kernels run; on the CPU their plain-torch twins.
 Ties break to the lowest flat index everywhere (stable sorts), and flat
 indices widen to int64 when ``total + chunk >= 2**31``.  There is no
 device mesh and no campaign layer yet (ROADMAP Queue 1).
@@ -38,9 +44,12 @@ import torch
 from ..kernels.fused_sweep import (COUNTS, fused_sweep_block,
                                    fused_sweep_block_torch,
                                    load_kernel_library, reset_counts)
+from ..kernels.grid_decode import grid_decode
 from ..kernels.runtime import resolve_backend, resolve_device
+from ..kernels.stream_reduce import block_stats
 from .axes import AXES
-from .batch import OUT_KEYS, build_coeff_compute
+from .batch import (OUT_KEYS, build_banked_eval, build_coeff_compute,
+                    points_from_axis_rows)
 from .grid import (_normalize_grids, axis_tables, fused_table2,
                    lower_variant, variant_grid)
 from .plan import EnergyPlan
@@ -96,11 +105,14 @@ def _validate_index_range(index_range, total: int) -> Tuple[int, int]:
     return lo, hi
 
 
-def _init_banked_state(k: int, n_variants: int, idx_dtype,
-                       device) -> Dict[str, torch.Tensor]:
-    """The running reduction state: global top-k + per-variant stats."""
+def _init_banked_state(k: int, n_variants: int, idx_dtype, device,
+                       with_out: bool = False) -> Dict[str, torch.Tensor]:
+    """The running reduction state: global top-k + per-variant stats;
+    ``with_out`` adds the winners' full output rows (the staged engine
+    keeps them on the device; the fused one re-gathers them at the end).
+    """
     f32 = torch.float32
-    return dict(
+    state = dict(
         topk_v=torch.full((k,), torch.inf, dtype=f32, device=device),
         topk_i=torch.full((k,), -1, dtype=idx_dtype, device=device),
         n_feasible=torch.zeros((n_variants,), dtype=idx_dtype,
@@ -111,6 +123,10 @@ def _init_banked_state(k: int, n_variants: int, idx_dtype,
         argmin=torch.full((n_variants,), -1, dtype=idx_dtype,
                           device=device),
     )
+    if with_out:
+        state["topk_out"] = torch.zeros((k, len(OUT_KEYS)), dtype=f32,
+                                        device=device)
+    return state
 
 
 def _variant_span_counts(lo: int, hi: int, n_var: int, n_variants: int
@@ -155,6 +171,9 @@ def _merge_candidates(c: Dict[str, torch.Tensor], v: int,
     sel = sel[:k]
     state["topk_i"] = torch.cat([state["topk_i"], c["cand_i"]])[sel]
     state["topk_v"] = vals[:k]
+    if "topk_out" in state:
+        state["topk_out"] = torch.cat([state["topk_out"],
+                                       c["cand_out"]])[sel]
     nf = state["n_feasible"]
     nf[v] += c["counts"].to(nf.dtype)
     state["metric_sum"][v] += c["sums"]
@@ -162,6 +181,40 @@ def _merge_candidates(c: Dict[str, torch.Tensor], v: int,
     state["metric_min"][v] = torch.minimum(old_min, c["mins"])
     state["argmin"][v] = torch.where(c["mins"] < old_min, c["amin_i"],
                                      state["argmin"][v])
+
+
+def _staged_chunk(prep: "_StreamPrep", eval_uniform, start: int,
+                  limit: int, *, chunk: int, bp: int, kk: int, metric: str,
+                  idx_dtype) -> Dict[str, torch.Tensor]:
+    """One staged chunk ``[start, start + chunk)`` of variant
+    ``start // n_var``: decode (K2), the banked evaluator against the
+    variant's row, block stats (K3a) and the chunk's top-kk with their
+    full output rows.  Points at or past ``limit`` are masked."""
+    dev = prep.table2.device
+    vals, _vid = grid_decode(prep.table2, start, shape=prep.vgrids[0].shape,
+                             n_var=prep.n_var, total=prep.total, chunk=chunk,
+                             lmax=prep.lmax, idx_dtype=idx_dtype)
+    flat = torch.arange(chunk, dtype=idx_dtype, device=dev) + start
+    out = eval_uniform(prep.bank, start // prep.n_var,
+                       points_from_axis_rows(vals))
+    ok = out["feasible"] & (flat < limit)
+    metric_v = out[metric].to(torch.float32)
+    mins, amins, sums, counts = block_stats(metric_v, ok, block_points=bp)
+    # first-min block wins; tensor indices only, so nothing syncs
+    g = torch.argmin(mins).view(1)
+    amin_i = (g.to(torch.int32) * bp
+              + amins.index_select(0, g)).to(idx_dtype)[0] + start
+    # ascending, invalid +inf; the stable sort keeps the lower index on
+    # ties, as the reference's lax.top_k
+    cand_v, pos = torch.sort(torch.where(ok, metric_v, torch.inf),
+                             stable=True)
+    pos = pos[:kk]
+    return dict(
+        cand_v=cand_v[:kk], cand_i=flat[pos],
+        cand_out=torch.stack([out[key][pos].to(torch.float32)
+                              for key in OUT_KEYS], dim=1),
+        mins=mins.index_select(0, g)[0], amin_i=amin_i,
+        sums=torch.sum(sums), counts=torch.sum(counts))
 
 
 @dataclasses.dataclass
@@ -215,6 +268,28 @@ def _prepare_stream(algorithm: Union[str, Sequence[str]] = "edgaze",
         bank=build_plan_bank(plans, device=device),
         lmax=int(tables.shape[2]),
         table2=torch.from_numpy(fused_table2(tables)).to(device))
+
+
+def best_by_algorithm_summaries(summaries: Dict[str, Dict],
+                                default_algo: str) -> Dict[str, Dict]:
+    """Per-algorithm best variant from a summaries table.
+
+    Shared by :class:`StreamResult` and ``repro_torch.explore.
+    ExploreResult`` (same ``variant`` / ``algo/variant`` label
+    convention), so the grouping and tie handling cannot drift.
+    """
+    groups: Dict[str, Dict[str, Dict]] = {}
+    for label, summ in summaries.items():
+        algo, _, variant = label.rpartition("/")
+        groups.setdefault(algo or default_algo, {})[variant] = summ
+    out: Dict[str, Dict] = {}
+    for algo, subs in groups.items():
+        variant, summ = min(subs.items(),
+                            key=lambda kv: kv[1]["metric_min"])
+        out[algo] = dict(variant=variant, summary=summ,
+                         n_feasible=sum(v["n_feasible"]
+                                        for v in subs.values()))
+    return out
 
 
 @dataclasses.dataclass
@@ -280,6 +355,13 @@ class StreamResult:
         """Top-k rows by the stream metric (ascending), feasible only."""
         return self.topk[:k]
 
+    def best_by_algorithm(self) -> Dict[str, Dict]:
+        """Per-algorithm best variant by the stream metric:
+        ``{algorithm: {"variant", "summary", "n_feasible"}}``; every
+        algorithm gets a record (``summary["argmin_point"]`` is None when
+        nothing was feasible)."""
+        return best_by_algorithm_summaries(self.summaries, self.algorithm)
+
 
 def _regather_rows(prep: _StreamPrep, win: List[Tuple[int, int]],
                    compute, device) -> np.ndarray:
@@ -303,7 +385,8 @@ def _finalize(prep: _StreamPrep, host: Dict[str, np.ndarray], compute,
               ) -> Tuple[int, Dict[str, Dict], List[Dict]]:
     """Materialize the host copy of the reduction state: ``(n_feasible,
     summaries, top-k rows)``.  Per-variant ``n`` is range arithmetic on
-    the flat space; the winners re-gather their full output rows."""
+    the flat space; the winners' full output rows come from the state's
+    ``topk_out`` (staged) or are re-gathered (fused)."""
     n_var = prep.n_var
     n_seen = _variant_span_counts(lo, hi, n_var, prep.n_variants)
     summaries: Dict[str, Dict] = {}
@@ -325,7 +408,8 @@ def _finalize(prep: _StreamPrep, host: Dict[str, np.ndarray], compute,
     while n_win < k and np.isfinite(host["topk_v"][n_win]):
         n_win += 1                         # fewer than k feasible points
     win = [divmod(int(host["topk_i"][j]), n_var) for j in range(n_win)]
-    topk_out = _regather_rows(prep, win, compute, device)
+    topk_out = (host["topk_out"] if "topk_out" in host
+                else _regather_rows(prep, win, compute, device))
     rows: List[Dict] = []
     for j, (vi, local) in enumerate(win):
         row = dict(variant=prep.vnames[vi], algorithm=prep.valgos[vi],
@@ -343,22 +427,38 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  block_points: int = 4096,
                  index_range: Optional[Tuple[int, int]] = None,
                  superchunk: Optional[int] = None, backend: str = "auto",
-                 device="cuda") -> StreamResult:
-    """Stream a cartesian sweep of any size through the fused megakernel.
+                 engine: str = "fused", device="cuda") -> StreamResult:
+    """Stream a cartesian sweep of any size through the fused megakernel
+    (``engine="fused"``) or the staged pipeline (``engine="staged"``).
 
     ``algorithm`` may be a list: every variant of every algorithm is
     stacked into one PlanBank and interleaved in one variant-major flat
-    index space.  ``chunk_size`` is clamped to the per-variant span; each
-    dispatch covers ``superchunk`` chunk ordinals (default: all of them,
-    capped at 16) and launches the megakernel once per LIVE ordinal.
+    index space.  ``chunk_size`` is clamped to the per-variant span.
     ``index_range=(lo, hi)`` streams only that slice of the flat index
-    space.
-    ``backend`` is ``"cuda"`` (the CUDA kernel), ``"torch"`` (the twin)
-    or ``"auto"`` (``cuda`` on a CUDA device, ``torch`` on the CPU).
+    space.  ``block_points`` is the kernels' reduction block.
+
+    Fused: each dispatch covers ``superchunk`` chunk ordinals (default:
+    all of them, capped at 16) and launches the megakernel once per LIVE
+    ordinal; ``backend`` is ``"cuda"`` (the CUDA kernel), ``"torch"``
+    (the twin) or ``"auto"`` (``cuda`` on a CUDA device, ``torch`` on the
+    CPU).  Staged: one dispatch per chunk, chunks aligned to variant
+    boundaries; the kernels of the device run (twins on the CPU), so
+    ``backend`` must stay ``"auto"``.
     """
     t_start = time.perf_counter()
+    if engine not in ("fused", "staged"):
+        raise ValueError(f"unknown engine {engine!r}; "
+                         f"valid: ['fused', 'staged']")
     device = resolve_device(device)
-    backend = resolve_backend(backend, device)
+    if engine == "staged":
+        if backend not in (None, "auto"):
+            raise ValueError(
+                f"backend={backend!r} requires engine='fused'; the staged "
+                f"engine runs the kernels of its device (their twins on "
+                f"the CPU)")
+        backend = "cuda" if device.type == "cuda" else "torch"
+    else:
+        backend = resolve_backend(backend, device)
     if metric not in OUT_KEYS:
         raise KeyError(f"unknown stream metric {metric!r}; valid: "
                        f"{list(OUT_KEYS)}")
@@ -366,7 +466,7 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     t0 = time.perf_counter()
     prep = _prepare_stream(algorithm, grids, soc_node=soc_node,
                            device=device)
-    if backend == "cuda":
+    if engine == "fused" and backend == "cuda":
         load_kernel_library()          # first use builds it: set-up time
     n_var, n_variants, total = prep.n_var, prep.n_variants, prep.total
     bank, lmax, table2 = prep.bank, prep.lmax, prep.table2
@@ -377,41 +477,65 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     idx_dtype = torch.int64 if wide else torch.int32
 
     compute = build_coeff_compute(bank.dims)
-    kernel = fused_sweep_block if backend == "cuda" \
-        else fused_sweep_block_torch
     bp = max(min(block_points, chunk), 1)
     kk = min(k, chunk)
-    # chunk ordinals: cpv slots per variant; [c_lo, c_hi) intersect [lo, hi)
-    cpv = -(-n_var // chunk)
-
-    def _ordinal(f: int) -> int:
-        vi, r = divmod(f, n_var)
-        return vi * cpv + r // chunk
-
-    c_lo = _ordinal(lo)
-    c_hi = _ordinal(hi - 1) + 1 if hi > lo else c_lo
-    n_chunks = max(c_hi - c_lo, 0)
-    s_len = (max(1, int(superchunk)) if superchunk
-             else min(max(n_chunks, 1), _DEFAULT_SUPERCHUNK))
-    state = _init_banked_state(k, n_variants, idx_dtype, device)
-    compile_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
+    state = _init_banked_state(k, n_variants, idx_dtype, device,
+                               with_out=engine == "staged")
     dispatches = 0
-    for d0 in range(c_lo, c_hi, s_len):
-        for c in range(d0, min(d0 + s_len, c_hi)):     # dead slots: nothing
-            vi, r = divmod(c, cpv)
-            start = vi * n_var + r * chunk
-            limit = min(hi, (vi + 1) * n_var)
-            cv, cl, sums, counts = kernel(
-                table2, bank.fused[vi], start, lo, limit, compute=compute,
-                metric=metric, axis_names=AXES, shape=prep.vgrids[0].shape,
-                n_var=n_var, total=total, chunk=chunk, lmax=lmax,
-                block_points=bp, kk=kk, idx_dtype=idx_dtype)
-            _merge_candidates(_fold_chunk(cv, cl, sums, counts, start, bp,
-                                          kk, idx_dtype), vi, state, k)
-        dispatches += 1
-        _STATS["dispatches"] += 1
+    if engine == "fused":
+        kernel = fused_sweep_block if backend == "cuda" \
+            else fused_sweep_block_torch
+        # chunk ordinals: cpv slots per variant; [c_lo, c_hi) intersect
+        # [lo, hi)
+        cpv = -(-n_var // chunk)
+
+        def _ordinal(f: int) -> int:
+            vi, r = divmod(f, n_var)
+            return vi * cpv + r // chunk
+
+        c_lo = _ordinal(lo)
+        c_hi = _ordinal(hi - 1) + 1 if hi > lo else c_lo
+        n_chunks = max(c_hi - c_lo, 0)
+        s_len = (max(1, int(superchunk)) if superchunk
+                 else min(max(n_chunks, 1), _DEFAULT_SUPERCHUNK))
+        compile_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for d0 in range(c_lo, c_hi, s_len):
+            for c in range(d0, min(d0 + s_len, c_hi)):   # dead: nothing
+                vi, r = divmod(c, cpv)
+                start = vi * n_var + r * chunk
+                limit = min(hi, (vi + 1) * n_var)
+                cv, cl, sums, counts = kernel(
+                    table2, bank.fused[vi], start, lo, limit,
+                    compute=compute, metric=metric, axis_names=AXES,
+                    shape=prep.vgrids[0].shape, n_var=n_var, total=total,
+                    chunk=chunk, lmax=lmax, block_points=bp, kk=kk,
+                    idx_dtype=idx_dtype)
+                _merge_candidates(_fold_chunk(cv, cl, sums, counts, start,
+                                              bp, kk, idx_dtype),
+                                  vi, state, k)
+            dispatches += 1
+            _STATS["dispatches"] += 1
+    else:
+        s_len = 1
+        _, eval_uniform = build_banked_eval(bank.dims)
+        compile_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        # chunks are aligned to variant boundaries so each one is
+        # variant-uniform (the evaluator reads one coefficient row);
+        # `limit` masks both the variant's end and the index_range end
+        for vi in range(n_variants):
+            vlo = max(lo, vi * n_var)
+            vhi = min(hi, (vi + 1) * n_var)
+            for start in range(vlo, vhi, chunk):
+                _merge_candidates(_staged_chunk(
+                    prep, eval_uniform, start, vhi, chunk=chunk, bp=bp,
+                    kk=kk, metric=metric, idx_dtype=idx_dtype),
+                    vi, state, k)
+                dispatches += 1
+                _STATS["dispatches"] += 1
 
     # ----- the sweep's one host sync, then O(k + V) host work -------------
     host = {key: val.cpu().numpy() for key, val in state.items()}
@@ -426,6 +550,6 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         chunk_size=chunk, topk=rows, summaries=summaries,
         wall_s=time.perf_counter() - t_start, compile_s=compile_s,
         eval_s=eval_s, n_variants=n_variants, index_lo=lo, index_hi=hi,
-        engine="fused", dispatches=dispatches, superchunk=s_len,
+        engine=engine, dispatches=dispatches, superchunk=s_len,
         occupancy=((hi - lo) / dispatched if dispatched else 1.0),
         n_var=n_var, backend=backend, kernel_mode=backend)

@@ -9,7 +9,8 @@
 // design point (strided when bp exceeds the 256 threads):
 //   1. decode   - flat index -> variant slot + per-axis grid index
 //                 (variant-major, C order) -> axis value from the
-//                 (n_axes, V * Lmax) table staged in shared memory;
+//                 (n_axes, V * Lmax) table staged in shared memory
+//                 (decode_index of grid_decode.cuh, shared with K2);
 //   2. evaluate - the banked Eq. 1-17 physics scalar-wise against the
 //                 chunk's fused (W,) coefficient row, also in shared
 //                 memory, in the SAME operation order as the plain-torch
@@ -36,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "grid_decode.cuh"
 
 namespace {
 
@@ -342,14 +345,9 @@ fused_sweep_kernel(const float* __restrict__ table2,
     // padding positions decode index `start`: never past the int range
     const IdxT o = start + (in_chunk ? pos : (IdxT)0);
     const bool valid = in_chunk && o >= low && o < limit;
-    const IdxT oc = o < total - 1 ? o : total - 1;   // clamp the tail
-    const IdxT vid = oc / n_var;
-    const IdxT local = oc - vid * n_var;
     float vals[kMaxAxes];
-    for (int a = 0; a < p.n_axes; ++a) {
-      const IdxT ia = (local / (IdxT)p.stride[a]) % (IdxT)p.shape[a];
-      vals[a] = s_tab[a * p.table_cols + (int)vid * p.lmax + (int)ia];
-    }
+    decode_index<IdxT>(o, total, n_var, p.n_axes, p.shape, p.stride, s_tab,
+                       p.table_cols, p.lmax, vals, 1);
     bool feas;
     const float mv = evaluate(p, s_row, vals, &feas);
     const bool ok = feas && valid;

@@ -1,18 +1,26 @@
-"""``explore()`` of the port: the front door over the fused streaming sweep.
+"""``explore()`` of the port: one front door over every sweep engine.
 
 ``explore(space, k=..., metric=...)`` scores a declarative
 :class:`~repro_torch.explore.space.DesignSpace` and returns an
 :class:`ExploreResult` — top-k rows, per-variant summaries, dispatch /
 occupancy accounting and the engine's counters — like the reference's
-``repro.explore.explore``.
+``repro.explore.explore``, whichever engine ran underneath:
 
-Only the ``fused`` engine is ported so far: ``engine="auto"`` resolves
-to it at every size, and an explicit ``"monolithic"``, ``"chunked"`` or
-``"staged"`` raises ``NotImplementedError`` naming the ROADMAP item that
-will port it.  The sweep runs on ``device`` (default ``"cuda"``; the
-CUDA megakernel) unless the caller passes ``device="cpu"`` (the
-plain-torch twin); without a GPU the default device raises instead of
-falling back.
+* ``monolithic`` — the grid engine with full O(N) result tables (kept on
+  ``ExploreResult.sweep_results``), one evaluator call per variant;
+* ``chunked``    — the same tables walked in O(chunk) batches;
+* ``fused``      — the streaming engine: one fused decode -> evaluate ->
+  reduce megakernel launch per chunk, O(k + V) device state;
+* ``staged``     — the staged streaming pipeline (decode, evaluate,
+  block stats: the fused engine's parity oracle);
+* ``auto`` (default) — the reference's policy: monolithic while full
+  tables are cheap (<= 2^15 points, no ``chunk_size``), chunked while
+  they still fit on the host (<= 2^21), fused beyond (or whenever
+  ``index_range`` asks for a stream slice).
+
+The sweep runs on ``device`` (default ``"cuda"``: the hand-written CUDA
+kernels) unless the caller passes ``device="cpu"`` (their plain-torch
+twins); without a GPU the default device raises instead of falling back.
 """
 from __future__ import annotations
 
@@ -22,20 +30,22 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..core.axes import AXES
 from ..core.batch import OUT_KEYS
 from ..core.plan import lower_cache_info
-from ..core.shard_sweep import StreamResult, _stream_impl, stream_cache_info
+from ..core.shard_sweep import (StreamResult, _stream_impl,
+                                best_by_algorithm_summaries,
+                                stream_cache_info)
+from ..core.sweep import SweepResult, _sweep_impl
 from .space import DesignSpace
 
 #: engine names accepted by :func:`explore` (the reference's set)
 ENGINES = ("auto", "monolithic", "chunked", "staged", "fused")
 
-#: engines of the reference not ported yet -> the ROADMAP item porting them
-_NOT_PORTED = {
-    "monolithic": "P6 (per-plan grid engines)",
-    "chunked": "P6 (per-plan grid engines)",
-    "staged": "P7 (staged parity engine)",
-}
+#: ``auto`` thresholds: full tables up to 2^15 points, chunked tables up
+#: to 2^21, the bounded streaming engine beyond
+AUTO_MONOLITHIC_MAX = 1 << 15
+AUTO_CHUNKED_MAX = 1 << 21
 _DEFAULT_CHUNK = 1 << 18
 
 
@@ -47,9 +57,11 @@ class ExploreResult:
     owning ``algorithm`` / ``variant``, the variant-local ``index``, the
     exact axis values and every model output; ``summaries`` maps variant
     labels to ``{n, n_feasible, metric_min, metric_mean, argmin_index,
-    argmin_point}``.  ``stream_result`` is the engine's raw
-    :class:`StreamResult`; ``cache`` snapshots the lowering cache and the
-    engine's counters after the run; ``device`` is where it ran.
+    argmin_point}``.  Grid engines keep the full per-algorithm tables on
+    ``sweep_results``; streaming engines expose the raw
+    ``stream_result``.  ``cache`` snapshots the lowering cache and the
+    streaming engine's counters after the run; ``device`` is where it
+    ran.
     """
     space: DesignSpace
     engine: str
@@ -69,8 +81,10 @@ class ExploreResult:
     superchunk: int
     occupancy: float
     cache: Dict[str, Dict]
+    sweep_results: Optional[Dict[str, SweepResult]] = None
     stream_result: Optional[StreamResult] = None
-    #: resolved execution backend ("cuda" / "torch")
+    #: resolved streaming execution backend ("cuda" / "torch"); None for
+    #: the grid engines
     backend: Optional[str] = None
     device: str = ""
 
@@ -79,25 +93,127 @@ class ExploreResult:
 
     @property
     def points_per_sec(self) -> float:
-        """Streaming throughput (prep and kernel build excluded)."""
+        """Throughput (prep and kernel build excluded)."""
         return self.n_points / max(self.eval_s, 1e-12)
 
     def best(self, k: Optional[int] = None) -> List[Dict]:
         """Top-k rows by the metric (ascending), feasible only."""
         return self.topk[:k]
 
+    def best_by_algorithm(self) -> Dict[str, Dict]:
+        """Per-algorithm best variant by the metric.
 
-def _resolve_engine(engine: str) -> str:
-    """``auto`` -> ``fused`` at every size until the grid engines are
-    ported; unported engines raise instead of being rerouted."""
+        ``{algorithm: {"variant", "summary", "n_feasible"}}`` — every
+        algorithm of the space gets a record even when it misses the
+        global top-k; ``summary["argmin_point"]`` is None when nothing
+        was feasible.
+        """
+        return best_by_algorithm_summaries(self.summaries,
+                                           self.space.algorithms[0])
+
+
+def _resolve_engine(engine: str, space: DesignSpace, chunk_size,
+                    index_range) -> str:
+    """The reference's engine policy (``repro/explore/api.py:124``)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; valid: "
                          f"{list(ENGINES)}")
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported to repro_torch yet (ROADMAP "
-            f"{_NOT_PORTED[engine]}); use engine='fused' or 'auto'")
-    return "fused"
+    if engine == "auto":
+        if index_range is not None or space.n_points > AUTO_CHUNKED_MAX:
+            return "fused"
+        if space.n_points <= AUTO_MONOLITHIC_MAX and chunk_size is None:
+            return "monolithic"
+        return "chunked"
+    if engine == "monolithic" and chunk_size is not None:
+        return "chunked"
+    return engine
+
+
+def _cache_snapshot() -> Dict[str, Dict]:
+    return {"lower": lower_cache_info(), "stream": stream_cache_info()}
+
+
+def _grid_explore(space: DesignSpace, engine: str, *, k, metric,
+                  chunk_size, strict, device) -> ExploreResult:
+    """Grid engines: per-algorithm full tables -> unified result."""
+    t0 = time.perf_counter()
+    chunk = ((chunk_size or _DEFAULT_CHUNK) if engine == "chunked"
+             else None)
+    sweep_results: Dict[str, SweepResult] = {}
+    for algo in space.algorithms:
+        sweep_results[algo] = _sweep_impl(
+            algo, space.grids, soc_node=space.soc_node, strict=strict,
+            chunk_size=chunk, device=device)
+
+    n_var = space.n_var
+    # the concatenated per-algorithm tables ARE the variant-major flat
+    # index space: algorithms in space order, variants in slot order,
+    # n_var C-order rows per variant
+    metric_all = np.concatenate(
+        [np.asarray(sweep_results[a].outputs[metric], np.float64)
+         for a in space.algorithms])
+    feas_all = np.concatenate(
+        [sweep_results[a].outputs["feasible"].astype(bool)
+         for a in space.algorithms])
+    if len(metric_all) != space.n_points:
+        raise RuntimeError(f"grid tables hold {len(metric_all)} rows for "
+                           f"a space of {space.n_points} points")
+
+    # ----- per-variant summaries (label convention == streaming) ----------
+    summaries: Dict[str, Dict] = {}
+    slot = 0
+    for algo in space.algorithms:
+        res = sweep_results[algo]
+        for v in range(len(res) // n_var):
+            sl = slice(v * n_var, (v + 1) * n_var)
+            vals = np.asarray(res.outputs[metric], np.float64)[sl]
+            feas = res.outputs["feasible"].astype(bool)[sl]
+            nf = int(feas.sum())
+            if nf:
+                amin = int(np.argmin(np.where(feas, vals, np.inf)))
+                point = {ax: float(res.params[ax][v * n_var + amin])
+                         for ax in AXES}
+            else:
+                amin, point = -1, None
+            summaries[space.label(slot)] = dict(
+                n=n_var, n_feasible=nf,
+                metric_min=float(vals[feas].min()) if nf
+                else float("inf"),
+                metric_mean=float(vals[feas].mean()) if nf
+                else float("nan"),
+                argmin_index=amin, argmin_point=point)
+            slot += 1
+
+    # ----- global top-k rows (full output schema from the tables) ---------
+    masked = np.where(feas_all, metric_all, np.inf)
+    order = np.argsort(masked, kind="stable")[:k]
+    algo_rows = np.cumsum([0] + [len(sweep_results[a])
+                                 for a in space.algorithms])
+    rows: List[Dict] = []
+    for gi in order:
+        if not np.isfinite(masked[gi]):
+            break
+        ai = int(np.searchsorted(algo_rows, gi, side="right") - 1)
+        algo = space.algorithms[ai]
+        r = sweep_results[algo].row(int(gi - algo_rows[ai]))
+        row = dict(variant=str(r.pop("variant")), algorithm=algo,
+                   index=int(gi) % n_var)
+        row.update({ax: float(r[ax]) for ax in AXES})
+        row.update({key: float(r[key]) for key in OUT_KEYS})
+        rows.append(row)
+
+    chunks_per_variant = (1 if chunk is None
+                          else -(-n_var // max(int(chunk), 1)))
+    return ExploreResult(
+        space=space, engine=engine, metric=metric, k=k,
+        n_points=space.n_points, n_feasible=int(feas_all.sum()),
+        n_variants=space.n_variants, n_devices=1, chunk_size=chunk,
+        topk=rows, summaries=summaries, wall_s=time.perf_counter() - t0,
+        compile_s=sum(r.compile_s for r in sweep_results.values()),
+        eval_s=sum(r.eval_s for r in sweep_results.values()),
+        dispatches=space.n_variants * chunks_per_variant, superchunk=1,
+        occupancy=1.0, cache=_cache_snapshot(),
+        sweep_results=sweep_results, device=str(device))
 
 
 def _validate_request(k, chunk_size) -> None:
@@ -122,25 +238,30 @@ def _validate_request(k, chunk_size) -> None:
 
 def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
             engine: str = "auto", chunk_size: Optional[int] = None,
-            block_points: int = 4096,
+            strict: bool = False, block_points: int = 4096,
             index_range: Optional[Tuple[int, int]] = None,
             superchunk: Optional[int] = None, backend: str = "auto",
             device="cuda", mesh=None,
             checkpoint_dir: Optional[str] = None, campaign=None,
             workers: Optional[int] = None, service=None) -> ExploreResult:
-    """Score a :class:`DesignSpace` through the fused streaming sweep.
+    """Score a :class:`DesignSpace`; one entry point for every engine.
 
     ``k`` bounds the top-k winner list, ``metric`` is any model output
-    key (``total_j``, ``on_sensor_j``, ``density_mw_mm2``, ...).
-    ``chunk_size`` (default 2^18) bounds the points per kernel launch,
-    ``block_points`` the points per CUDA block, ``superchunk`` the chunk
-    ordinals per dispatch; ``index_range=(lo, hi)`` streams only that
-    slice of the flat index space.
+    key (``total_j``, ``on_sensor_j``, ``density_mw_mm2``, ...), and
+    ``engine`` picks the execution strategy (see the module docstring;
+    ``"auto"`` sizes it from ``space.n_points``).  ``chunk_size`` bounds
+    the per-dispatch batch of the chunked and streaming engines (default
+    2^18).  ``strict`` (grid engines) raises on pipeline stalls and
+    infeasible points, like the scalar oracle.  ``block_points`` (the
+    kernels' reduction block), ``superchunk`` (fused chunk ordinals per
+    dispatch) and ``index_range=(lo, hi)`` (stream only that slice of
+    the flat index space) tune the streaming engines.
 
     ``device`` (default ``"cuda"``) is where the sweep runs; ``backend``
-    is ``"cuda"`` (the hand-written CUDA kernel), ``"torch"`` (its torch
-    twin) or ``"auto"`` (``cuda`` on a CUDA device, ``torch`` on the CPU;
-    ``REPRO_TORCH_SWEEP_BACKEND`` overrides the auto policy).
+    (fused engine) is ``"cuda"`` (the hand-written CUDA kernel),
+    ``"torch"`` (its torch twin) or ``"auto"`` (``cuda`` on a CUDA
+    device, ``torch`` on the CPU; ``REPRO_TORCH_SWEEP_BACKEND`` overrides
+    the auto policy).
 
     ``mesh``, ``checkpoint_dir``, ``campaign``, ``workers`` and
     ``service`` are the reference's multi-device, campaign and serving
@@ -164,13 +285,31 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP "
                 f"{item})")
-    _resolve_engine(engine)
+    engine = _resolve_engine(engine, space, chunk_size, index_range)
+
+    if engine in ("monolithic", "chunked"):
+        for name, val, default in (("index_range", index_range, None),
+                                   ("superchunk", superchunk, None),
+                                   ("block_points", block_points, 4096),
+                                   ("backend", backend, "auto")):
+            if val != default:
+                raise ValueError(f"{name}= requires a streaming engine "
+                                 f"('fused' or 'staged'), not {engine!r}")
+        return _grid_explore(space, engine, k=k, metric=metric,
+                             chunk_size=chunk_size, strict=strict,
+                             device=device)
+
+    if strict:
+        raise ValueError("strict=True requires a grid engine "
+                         "('monolithic' or 'chunked'); the streaming "
+                         "engines mask infeasible points instead")
     t0 = time.perf_counter()
     st = _stream_impl(
         list(space.algorithms), space.grids, soc_node=space.soc_node,
         chunk_size=chunk_size or _DEFAULT_CHUNK, metric=metric, k=k,
         block_points=block_points, index_range=index_range,
-        superchunk=superchunk, backend=backend, device=device)
+        superchunk=superchunk, backend=backend, engine=engine,
+        device=device)
     return ExploreResult(
         space=space, engine=st.engine, metric=st.metric, k=st.k,
         n_points=st.n_points, n_feasible=st.n_feasible,
@@ -179,5 +318,5 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         wall_s=time.perf_counter() - t0, compile_s=st.compile_s,
         eval_s=st.eval_s, dispatches=st.dispatches,
         superchunk=st.superchunk, occupancy=st.occupancy,
-        cache={"lower": lower_cache_info(), "stream": stream_cache_info()},
-        stream_result=st, backend=st.backend, device=str(device))
+        cache=_cache_snapshot(), stream_result=st, backend=st.backend,
+        device=str(device))

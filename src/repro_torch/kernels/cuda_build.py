@@ -8,10 +8,12 @@ into a shared library with a plain C interface::
          --fmad=false -shared -Xcompiler -fPIC -o lib<name>-<hash>.so <src>
 
 into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds.  No
-PyTorch header is included: a build takes seconds, not minutes.  A
-failed build raises with nvcc's stderr in the message.
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads in milliseconds.  No PyTorch header is included: a
+build takes seconds, not minutes.  :func:`build_libraries` starts one
+nvcc per source, all at once, and waits for them together.  A failed
+build raises with nvcc's stderr in the message.
 """
 from __future__ import annotations
 
@@ -55,23 +57,55 @@ def nvcc_path() -> str:
     return found
 
 
-def _compile(src: Path, out: Path) -> str:
-    """Compile ``src`` into ``out`` atomically; returns nvcc's output."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+def _library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the
+    shared headers and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(names) -> float:
+    """Build every missing ``csrc/<name>.cu`` at once (one nvcc process
+    per source, started together) and wait for all of them; returns the
+    wall seconds.  Raises with nvcc's output if any build fails."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {src.name}:\n"
-                f"$ {' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-        os.replace(tmp, out)        # concurrent builds race harmlessly
-        return proc.stderr + proc.stdout
+        for name in dict.fromkeys(names):
+            out = _library_path(name)
+            if out.is_file():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                   str(CSRC_DIR / f"{name}.cu")]
+            jobs.append((name, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, out, tmp, cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) building "
+                              f"{name}.cu:\n$ {' '.join(cmd)}\n"
+                              f"{stderr}{stdout}")
+                continue
+            os.replace(tmp, out)        # concurrent builds race harmlessly
+            out.with_suffix(".log").write_text(stderr + stdout)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _name, _out, tmp, _cmd, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return time.perf_counter() - t0
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -80,17 +114,12 @@ def load_library(name: str) -> ctypes.CDLL:
     hit = _LOADED.get(name)
     if hit is not None:
         return hit[0]
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    out = _library_path(name)
     t0 = time.perf_counter()
-    log = ""
     if not out.is_file():
-        log = _compile(src, out)
-        (out.with_suffix(".log")).write_text(log)
-    elif out.with_suffix(".log").is_file():
-        log = out.with_suffix(".log").read_text()
+        build_libraries([name])
+    log_path = out.with_suffix(".log")
+    log = log_path.read_text() if log_path.is_file() else ""
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = (lib, log, time.perf_counter() - t0)
     return lib

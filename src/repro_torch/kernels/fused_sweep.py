@@ -44,6 +44,7 @@ from ..core.energy import CATEGORIES
 from ..core.plan_bank import (BankDims, LAYOUT_FIELDS, bank_layout,
                               layout_offsets)
 from .cuda_build import load_library
+from .grid_decode import grid_strides
 
 #: launches of the CUDA kernel / calls of the torch twin since the last
 #: :func:`reset_counts`
@@ -67,14 +68,6 @@ def reset_counts() -> None:
     """Zero the launch / twin-call counters."""
     for key in COUNTS:
         COUNTS[key] = 0
-
-
-def grid_strides(shape) -> Tuple[int, ...]:
-    """C-order strides of a grid shape (last axis fastest)."""
-    strides = [1] * len(shape)
-    for a in range(len(shape) - 2, -1, -1):
-        strides[a] = strides[a + 1] * shape[a + 1]
-    return tuple(strides)
 
 
 def _blocks(block_points: int, chunk: int) -> Tuple[int, int]:

@@ -101,8 +101,8 @@ def test_explore_on_cuda_matches_cpu(cuda):
     from repro_torch.explore import DesignSpace, explore
     space = DesignSpace(["edgaze", "rhythmic"], {
         k: v for k, v in GRIDS.items() if k != "variant"})
-    gpu = explore(space, chunk_size=512, k=5)
-    cpu = explore(space, chunk_size=512, k=5, device="cpu")
+    gpu = explore(space, engine="fused", chunk_size=512, k=5)
+    cpu = explore(space, engine="fused", chunk_size=512, k=5, device="cpu")
     assert gpu.backend == "cuda" and cpu.backend == "torch"
     assert (gpu.n_points, gpu.n_feasible) == (cpu.n_points, cpu.n_feasible)
     assert [(r["algorithm"], r["variant"], r["index"]) for r in gpu.topk] \

@@ -161,15 +161,36 @@ def test_superchunk_lengths_agree(fixed_case):
     from repro_torch.explore import DesignSpace, explore
     _ours, ref = fixed_case
     space = DesignSpace(["edgaze"], FIXED)
-    one = explore(space, chunk_size=13, k=7, superchunk=1, device="cpu")
+    one = explore(space, engine="fused", chunk_size=13, k=7, superchunk=1,
+                  device="cpu")
     n_chunks = one.dispatches
     assert one.superchunk == 1 and n_chunks == 2 * -(-36 // 13)
     for s in (1, 4, None):
-        res = explore(space, chunk_size=13, k=7, superchunk=s,
-                      device="cpu")
+        res = explore(space, engine="fused", chunk_size=13, k=7,
+                      superchunk=s, device="cpu")
         assert res.dispatches == -(-n_chunks // (s or n_chunks))
         res.dispatches = ref.dispatches
         assert_explore_equal(res, ref)
+
+
+def test_best_by_algorithm_matches_reference():
+    """``ExploreResult.best_by_algorithm`` / ``StreamResult.
+    best_by_algorithm`` name the reference's best variant per algorithm,
+    with its feasible count and argmin point."""
+    ours, ref = _both(["edgaze", "rhythmic"], MULTI, chunk_size=8, k=2)
+    ref_best = ref.best_by_algorithm()
+    assert ref_best == ref.stream_result.best_by_algorithm()
+    for best in (ours.best_by_algorithm(),
+                 ours.stream_result.best_by_algorithm()):
+        assert sorted(best) == sorted(ref_best) == ["edgaze", "rhythmic"]
+        for algo, rec in ref_best.items():
+            assert best[algo]["variant"] == rec["variant"]
+            assert best[algo]["n_feasible"] == rec["n_feasible"]
+            assert best[algo]["summary"]["argmin_point"] \
+                == rec["summary"]["argmin_point"]
+            np.testing.assert_allclose(best[algo]["summary"]["metric_min"],
+                                       rec["summary"]["metric_min"],
+                                       rtol=REL)
 
 
 def test_stream_payload_matches_reference(fixed_case):

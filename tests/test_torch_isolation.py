@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: no jax, no ``repro``, no silent CPU.
 
 * a fresh interpreter that imports ``repro_torch`` and runs a tiny CPU
-  ``explore`` has loaded no ``jax*`` module and no ``repro`` /
-  ``repro.*`` module;
-* an AST scan of every ``src/repro_torch/**/*.py`` finds no
-  ``import jax`` and no ``import repro`` / ``from repro ...``;
+  ``explore`` on the grid, staged and fused engines has loaded no
+  ``jax*`` module and no ``repro`` / ``repro.*`` module;
+* an AST scan of every ``src/repro_torch/**/*.py`` and of
+  ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
+  ``from repro ...``;
 * without CUDA, ``explore(space)`` on the default device raises;
 * the sweep-backend policy mirrors the reference's
   (``tests/test_kernels.py``): ``auto`` follows the device, the
@@ -27,10 +28,12 @@ _CHILD = r"""
 import sys
 import repro_torch
 from repro_torch.explore import DesignSpace, explore
-res = explore(DesignSpace(["edgaze"], {"variant": ["2d_in"],
-                                       "cis_node": [130.0, 65.0]}),
-              k=2, device="cpu")
-assert res.n_points == 2 and res.backend == "torch", res
+space = DesignSpace(["edgaze"], {"variant": ["2d_in"],
+                                 "cis_node": [130.0, 65.0]})
+for engine, backend in (("auto", None), ("staged", "torch"),
+                        ("fused", "torch")):
+    res = explore(space, k=2, engine=engine, device="cpu")
+    assert res.n_points == 2 and res.backend == backend, res
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
@@ -56,15 +59,23 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+def _offenders(files):
+    return [(str(path), name) for path in files for name in _imports(path)
+            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 def test_port_sources_import_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20, files
-    offenders = []
-    for path in files:
-        for name in _imports(path):
-            root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "repro"):
-                offenders.append((str(path.relative_to(SRC)), name))
+    offenders = _offenders(files)
+    assert not offenders, offenders
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """The GPU smoke script drives the port alone."""
+    script = SRC.parent / "chip_smoke.py"
+    assert "repro_torch" in script.read_text()
+    offenders = _offenders([script])
     assert not offenders, offenders
 
 
@@ -101,11 +112,13 @@ def test_bank_and_prep_default_device_without_cuda_raises(monkeypatch,
 
 
 def test_unported_engines_and_layers_raise():
+    """Every engine of ``explore()`` runs; the multi-device, campaign and
+    serving layers still raise naming their ROADMAP item."""
     from repro_torch.explore import DesignSpace, explore
     space = DesignSpace(["edgaze"], {"variant": ["2d_in"]})
-    for engine in ("monolithic", "chunked", "staged"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            explore(space, k=1, engine=engine, device="cpu")
+    for engine in ("monolithic", "chunked", "staged", "fused"):
+        res = explore(space, k=1, engine=engine, device="cpu")
+        assert res.engine == engine and res.n_points == 1
     for kwarg in ("mesh", "checkpoint_dir", "campaign", "workers",
                   "service"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
