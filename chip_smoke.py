@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-per source, all started together): K1 ``fused_sweep.cu``, K2
-``grid_decode.cu``, K3a/K3b ``stream_reduce.cu`` and K4
-``category_reduce.cu``.  Holds each kernel against its plain-torch twin
-on the card at the main paths' shapes, then drives every engine of
-``explore()`` at full width, each with the launch counters zeroed just
-before it and read just after:
+per source, all eight started together): K1 ``fused_sweep.cu``, K2
+``grid_decode.cu``, K3a/K3b ``stream_reduce.cu``, K4
+``category_reduce.cu``, and the functional simulator's K5
+``binning.cu``, K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8
+``matmul.cu``.  Holds each kernel against its plain-torch twin on the
+card at the main paths' shapes (and ragged ones), then drives every
+engine of ``explore()`` and the functional simulator at full width, each
+with the launch counters zeroed just before it and read just after:
 
 * fused (the main path) — the ``mega_sweep`` space (all 5 Ed-Gaze + 3
   Rhythmic variants, 1.26e7 design points, ``chunk_size=2**18``,
@@ -20,7 +22,14 @@ before it and read just after:
   ``active_fraction_scale`` (1.57e6 points) through K4, equal to fused;
 * monolithic (through ``auto``) — the ``design_sweep`` grids of
   ``benchmarks/run.py`` (21,504 points) through K4, equal to fused, the
-  winner against the scalar oracle.
+  winner against the scalar oracle;
+* functional — 30 frames each, at the use cases' sensor sizes: Ed-Gaze
+  (400 x 640: kT/C noise at 10 fF, ``edgaze_frontend`` through K5 and
+  K7, then ``simple_dnn`` through K8 at the paper's S3 width,
+  ``[1, 64000] @ [64000, 900] @ [900, 2]``), ``fig5_pipeline`` at the
+  Rhythmic sensor's 720 x 1280 (K5, K6 twice) and
+  ``rhythmic_pixel_frontend`` at 720 x 1280 (K6 twice); the first 2
+  frames of each against the same pipeline run by the port on the CPU.
 
 It times every kernel, prints its findings as JSON lines, and ends with
 the ``kernels`` line and the run's verdict::
@@ -31,8 +40,9 @@ Every check raises on failure, so the script exits nonzero and prints no
 verdict; it also exits nonzero without a CUDA device or without the
 repository's ``src/`` beside it.  It imports nothing of ``jax`` or of the
 JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
-engine reports device time by kernel and the device's busy share, and
-writes chrome traces to ``build/traces/``.
+engine (and one pass of the functional pipelines) reports device time
+by kernel and the device's busy share, and writes chrome traces to
+``build/traces/``.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -89,7 +100,19 @@ DESIGN_GRIDS = {"cis_node": [130., 110., 90., 65., 45., 32., 28.],
                 "pixel_pitch_um": [3.0, 5.0]}
 DESIGN_POINTS = 8 * 7 * 4 * 4 * 3 * 2 * 2 * 2
 KERNEL_SOURCES = ("fused_sweep", "grid_decode", "stream_reduce",
-                  "category_reduce")
+                  "category_reduce", "binning", "stencil_conv",
+                  "frame_event", "matmul")
+# the functional path: 30 frames (one second at the use cases' 30 FPS);
+# kT/C noise at 10 fF; Ed-Gaze's event threshold; its DNN's hidden width,
+# DNN_MACS / (200 * 320) = 900 (core/usecases/edgaze.py)
+FUNC_KERNELS = ("binning", "stencil_conv", "frame_event", "matmul")
+FUNC_FRAMES = 30
+FUNC_CAPACITANCE = 10e-15
+EDGAZE_THRESHOLD = 0.05
+RHYTHMIC_TILE = 16
+RHYTHMIC_KEEP = 0.5
+FUNC_COMPARED = 2          # frames held against the port run on the CPU
+MATMUL_RULE = 1e-5         # |kernel - twin| <= 1e-5 * (|a| @ |b|)
 
 REL = 1e-6          # the reference's parity tolerance (values, top-k)
 REL_SUM = 1e-5      # block sums: 4096 f32 terms summed in another order
@@ -433,7 +456,7 @@ def profile_path(name, run) -> dict:
             busy += end - reach
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    rec = {"wall_s": wall, "eval_s": res.eval_s,
+    rec = {"wall_s": wall, "eval_s": getattr(res, "eval_s", None),
            "device_kernels": len(spans), "device_busy_s": busy * 1e-6,
            "device_busy_share_of_wall": busy * 1e-6 / wall,
            "device_s_by_kernel": {k[:80]: us * 1e-6 for k, us in top}}
@@ -452,6 +475,336 @@ def count_syncs(run) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+# ---------------------------------------------------------------------------
+# K5-K8 and the functional path
+# ---------------------------------------------------------------------------
+def exact_case(name, ker, twin):
+    """A kernel against its twin on the same inputs: bit-equal."""
+    k = ker()
+    torch.cuda.synchronize()
+    t = twin()
+    diff = float((k.float() - t.float()).abs().max()) if k.numel() else 0.0
+    check(k.shape == t.shape and k.dtype == t.dtype and torch.equal(k, t),
+          f"{name}: differs from its twin by {diff}")
+    rec = dict(case=name, shape=list(k.shape), dtype=str(k.dtype),
+               max_abs_err=diff)
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def gaussian(shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            .astype(dtype)).cuda()
+
+
+def matmul_case(mm, *, name, m, k, n, seed):
+    """K8 against its twin: |kernel - twin| <= 1e-5 * (|a| @ |b|)
+    elementwise (another summation order), and equal from run to run."""
+    a, b = gaussian((m, k), seed), gaussian((k, n), seed + 1)
+    ker = mm.matmul(a, b)
+    again = mm.matmul(a, b)
+    torch.cuda.synchronize()
+    twin = mm.matmul_torch(a, b)
+    scale = a.double().abs() @ b.double().abs()     # the rule's yardstick
+    err = (ker.double() - twin.double()).abs()
+    ratio = float((err / (MATMUL_RULE * scale).clamp_min(1e-300)).max()) \
+        if err.numel() else 0.0
+    check(ratio <= 1.0, f"{name}: matmul off its twin by {ratio} x the rule")
+    check(torch.equal(ker, again), f"{name}: matmul differs run to run")
+    rec = dict(case=name, mkn=[m, k, n],
+               max_abs_err=float(err.max()) if err.numel() else 0.0,
+               max_err_over_rule=ratio)
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def functional_kernel_cases(fmods):
+    """K5-K8 against their twins at the functional path's shapes and at
+    ragged ones; returns the records by kernel."""
+    bn, sc, fe, mm = (fmods[name] for name in FUNC_KERNELS)
+    cases = {"binning": [], "stencil_conv": [], "frame_event": [],
+             "matmul": []}
+    for shape, f, dt in (((400, 640), 2, np.float32),
+                         ((720, 1280), 2, np.float32),
+                         ((17, 33), 3, np.float32), ((17, 33), 4, np.float32),
+                         ((17, 33), 2, np.float16),
+                         ((720, 1280), 2, np.float16)):
+        x = gaussian(shape, sum(shape) + f, dt)
+        cases["binning"].append(exact_case(
+            f"binning_{shape[0]}x{shape[1]}_f{f}_{np.dtype(dt).name}",
+            lambda: bn.binning(x, f), lambda: bn.binning_torch(x, f)))
+    for shape, k in (((360, 640), (3, 3)), ((720, 1280), (3, 3)),
+                     ((100, 140), (3, 5)), ((77, 45), (5, 5)),
+                     ((1000, 33), (2, 2))):
+        x, taps = gaussian(shape, shape[0]), gaussian(k, 10 * k[0] + k[1])
+        cases["stencil_conv"].append(exact_case(
+            f"stencil_{shape[0]}x{shape[1]}_k{k[0]}x{k[1]}",
+            lambda: sc.stencil_conv(x, taps),
+            lambda: sc.stencil_conv_torch(x, taps)))
+    for shape, dt, t in (((200, 320), np.float32, EDGAZE_THRESHOLD),
+                         ((33, 47), np.float32, 0.5),
+                         ((33, 47), np.float16, 0.5)):
+        cur, prev = gaussian(shape, 1, dt), gaussian(shape, 2, dt)
+        cases["frame_event"].append(exact_case(
+            f"frame_event_{shape[0]}x{shape[1]}_{np.dtype(dt).name}",
+            lambda: fe.frame_event(cur, prev, t),
+            lambda: fe.frame_event_torch(cur, prev, t)))
+    # the f32 rounding case: f32(0.7) - 0 >= 0.7 is an event; NaN is not
+    cur = torch.tensor([[0.7, float("nan"), 0.69999]], device="cuda")
+    prev = torch.zeros_like(cur)
+    rec = exact_case("frame_event_f32_threshold_and_nan",
+                     lambda: fe.frame_event(cur, prev, 0.7),
+                     lambda: fe.frame_event_torch(cur, prev, 0.7))
+    check(fe.frame_event(cur, prev, 0.7).tolist() == [[1.0, 0.0, 0.0]],
+          "frame_event: 0.7 rounding case")
+    cases["frame_event"].append(rec)
+    for m, k, n in ((1, 64000, 900), (1, 900, 2), (130, 150, 70), (1, 64, 1),
+                    (1024, 1024, 1024), (7, 5000, 333)):
+        cases["matmul"].append(matmul_case(
+            mm, name=f"matmul_{m}x{k}x{n}", m=m, k=k, n=n, seed=m + k + n))
+    return cases
+
+
+def scene(n_frames, h, w, seed):
+    """``n_frames`` [h, w] frames in [0, 0.9] of a still texture with a
+    bright disk circling over it (the moving eye or object that makes
+    events); numpy from a seed, moved to the card in one copy."""
+    rng = np.random.default_rng(seed)
+    texture = 0.3 * rng.uniform(size=(h, w)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.empty((n_frames, h, w), np.float32)
+    r2 = (0.12 * min(h, w)) ** 2
+    for t in range(n_frames):
+        phase = 2 * math.pi * t / n_frames
+        cy = h / 2 + 0.25 * h * math.sin(phase)
+        cx = w / 2 + 0.3 * w * math.cos(phase)
+        frames[t] = texture + 0.6 * (((yy - cy) ** 2 + (xx - cx) ** 2)
+                                     <= r2)
+    return torch.from_numpy(frames).cuda()
+
+
+def functional_counts(mods):
+    return {name: dict(mod.COUNTS) for name, mod in mods.items()}
+
+
+def timed_frames(run):
+    """``run()`` under the host clock, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept = run()
+    torch.cuda.synchronize()
+    return kept, time.perf_counter() - t0
+
+
+def dnn_rule(x, w1, w2, hidden):
+    """The matmul rule through both DNN layers, in f64 on the host:
+    1e-5 * ((|x| @ |w1|) @ |w2| + |relu(h)| @ |w2|)."""
+    x, w1, w2 = (np.abs(np.asarray(t, np.float64)) for t in (x, w1, w2))
+    h = np.maximum(np.asarray(hidden, np.float64), 0)
+    return MATMUL_RULE * ((x @ w1) @ w2 + h @ w2)
+
+
+def functional_path(fmods, kernel_mods):
+    """Ed-Gaze, Fig. 5 and Rhythmic, 30 frames each, with the launch
+    counters zeroed just before each and read just after; the first 2
+    frames of each against the port on the CPU.  Returns the record, a
+    ``run_all`` for the profiler and the path's inputs (for timing)."""
+    from repro_torch import functional as fn
+    from repro_torch.core.usecases import edgaze, rhythmic
+    hidden = int(edgaze.DNN_MACS / (edgaze.DH * edgaze.DW))
+    rng = np.random.default_rng(13)
+    n_in = edgaze.DH * edgaze.DW
+    w1_np = (rng.standard_normal((n_in, hidden), dtype=np.float32)
+             / np.float32(math.sqrt(n_in)))
+    w2_np = rng.standard_normal((hidden, 2), dtype=np.float32)
+    w1, w2 = fn.params_from_reference(w1_np, w2_np, "cuda")
+    eg_frames = scene(FUNC_FRAMES, edgaze.H, edgaze.W, 21)
+    rh_frames = scene(FUNC_FRAMES, rhythmic.H, rhythmic.W, 22)
+
+    def run_edgaze(n=FUNC_FRAMES):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        prev = torch.zeros(edgaze.DH, edgaze.DW, device="cuda")
+        kept = []
+        for t in range(n):
+            noisy = fn.with_thermal_noise(gen, eg_frames[t],
+                                          FUNC_CAPACITANCE)
+            events, prev = fn.edgaze_frontend(noisy, prev,
+                                              threshold=EDGAZE_THRESHOLD)
+            out = fn.simple_dnn(events, w1, w2)
+            if t < FUNC_COMPARED:
+                kept.append((noisy, events, prev, out))
+        return kept
+
+    def run_fig5(n=FUNC_FRAMES):
+        kept = []
+        for t in range(n):
+            out = fn.fig5_pipeline(rh_frames[t])
+            if t < FUNC_COMPARED:
+                kept.append(out)
+        return kept
+
+    def run_rhythmic(n=FUNC_FRAMES):
+        kept = []
+        for t in range(n):
+            out = fn.rhythmic_pixel_frontend(rh_frames[t], tile=RHYTHMIC_TILE,
+                                             keep_fraction=RHYTHMIC_KEEP)
+            if t < FUNC_COMPARED:
+                kept.append(out)
+        return kept
+
+    expected = {"edgaze": {"binning": 1, "frame_event": 1, "matmul": 2},
+                "fig5": {"binning": 1, "stencil_conv": 2},
+                "rhythmic": {"stencil_conv": 2}}
+    rec, kept = {}, {}
+    for name, run in (("edgaze", run_edgaze), ("fig5", run_fig5),
+                      ("rhythmic", run_rhythmic)):
+        run(2)                                    # warm-up
+        reset_all(kernel_mods)
+        kept[name], wall = timed_frames(run)
+        counts = functional_counts(fmods)
+        twins = sum(m.COUNTS[k] for m in kernel_mods for k in m.COUNTS
+                    if "twin" in k)
+        launches = {k: c["kernel_launches"] for k, c in counts.items()}
+        want = {k: FUNC_FRAMES * expected[name].get(k, 0) for k in fmods}
+        check(launches == want and twins == 0,
+              f"functional {name}: launches {launches} (want {want}), "
+              f"{twins} twin calls")
+        rec[name] = {"frames": FUNC_FRAMES, "wall_s": wall,
+                     "frames_per_s": FUNC_FRAMES / wall,
+                     "kernel_launches": launches, "twin_calls": twins,
+                     "launches_per_frame": expected[name]}
+
+    # the first frames against the same pipelines on the CPU
+    w1_c, w2_c = fn.params_from_reference(w1_np, w2_np, "cpu")
+    prev_c = torch.zeros(edgaze.DH, edgaze.DW)
+    err = {"events": 0.0, "binned": 0.0, "dnn": 0.0}
+    rule_ratio = 0.0
+    for noisy, events, binned, out in kept["edgaze"]:
+        ev_c, prev_c = fn.edgaze_frontend(noisy.cpu(), prev_c,
+                                          threshold=EDGAZE_THRESHOLD)
+        out_c = fn.simple_dnn(ev_c, w1_c, w2_c)
+        check(torch.equal(events.cpu(), ev_c)
+              and torch.equal(binned.cpu(), prev_c),
+              "edgaze: events or binned frame differ from the CPU run")
+        check(out.shape == (1, 2) and bool(torch.isfinite(out).all()),
+              "edgaze: DNN output not finite [1, 2]")
+        x = ev_c.reshape(1, -1).numpy()
+        hidden_c = x.astype(np.float64) @ w1_np.astype(np.float64)
+        bound = dnn_rule(x, w1_np, w2_np, hidden_c)
+        d = np.abs(out.cpu().double().numpy() - out_c.double().numpy())
+        rule_ratio = max(rule_ratio, float((d / bound).max()))
+        err["dnn"] = max(err["dnn"], float(d.max()))
+    check(rule_ratio <= 1.0, f"edgaze: DNN off the CPU run by {rule_ratio} "
+          f"x the matmul rule")
+    events_per_frame = float(kept["edgaze"][-1][1].sum())
+    check(0 < events_per_frame < edgaze.DH * edgaze.DW,
+          f"edgaze: {events_per_frame} events in a frame")
+    for t, out in enumerate(kept["fig5"]):
+        want = fn.fig5_pipeline(rh_frames[t].cpu())
+        check(out.shape == (rhythmic.H // 2 - 2, rhythmic.W // 2 - 2)
+              and torch.equal(out.cpu(), want),
+              "fig5: edge map differs from the CPU run")
+    for t, out in enumerate(kept["rhythmic"]):
+        want = fn.rhythmic_pixel_frontend(rh_frames[t].cpu(),
+                                          tile=RHYTHMIC_TILE,
+                                          keep_fraction=RHYTHMIC_KEEP)
+        check(out.shape == (rhythmic.H, rhythmic.W)
+              and torch.equal(out.cpu(), want),
+              "rhythmic: output differs from the CPU run")
+    kept_share = float((kept["rhythmic"][0] != 0).float().mean())
+    rec["edgaze"].update(frame=[edgaze.H, edgaze.W], dnn=[n_in, hidden, 2],
+                         capacitance_f=FUNC_CAPACITANCE,
+                         events_in_frame_2=events_per_frame,
+                         vs_cpu_max_abs_err=err,
+                         dnn_err_over_rule=rule_ratio)
+    rec["fig5"].update(frame=[rhythmic.H, rhythmic.W], vs_cpu_max_abs_err=0.0)
+    rec["rhythmic"].update(frame=[rhythmic.H, rhythmic.W],
+                           tile=RHYTHMIC_TILE, kept_pixel_share=kept_share,
+                           vs_cpu_max_abs_err=0.0)
+    rec["compared_frames"] = FUNC_COMPARED
+    emit({"functional_path": rec})
+
+    def run_all():
+        t0 = time.perf_counter()
+        run_edgaze()
+        run_fig5()
+        run_rhythmic()
+        torch.cuda.synchronize()
+        return SimpleNamespace(eval_s=time.perf_counter() - t0)
+
+    shapes = dict(eg_frames=eg_frames, rh_frames=rh_frames, w1=w1, w2=w2)
+    return rec, run_all, shapes
+
+
+def functional_timing(fmods, inputs):
+    """ms, device ms, plain and library ms and the bound of K5-K8 at the
+    functional path's shapes; the first shape of each is its headline."""
+    import torch.nn.functional as F
+    bn, sc, fe, mm = (fmods[name] for name in FUNC_KERNELS)
+    eg, rh = inputs["eg_frames"][0], inputs["rh_frames"][0]
+    binned = bn.binning(rh, 2)
+    sobel = torch.tensor([[1., 0., -1.], [2., 0., -2.], [1., 0., -1.]],
+                         device="cuda")
+    ev_a, ev_b = bn.binning(eg, 2), bn.binning(inputs["eg_frames"][1], 2)
+    events = fe.frame_event(ev_a, ev_b, EDGAZE_THRESHOLD).reshape(1, -1)
+    hidden = torch.relu(mm.matmul(events, inputs["w1"]))
+    big_a, big_b = gaussian((1024, 1024), 1), gaussian((1024, 1024), 2)
+
+    def binning_row(x, f):
+        h, w = x.shape
+        n_out = (h // f) * (w // f)
+        return (f"{h}x{w} f{f}", lambda: bn.binning(x, f),
+                lambda: bn.binning_torch(x, f),
+                lambda: F.avg_pool2d(x[None, None], f),
+                4 * n_out * (f * f + 1), n_out * (f * f + 1))
+
+    def stencil_row(x, k):
+        (h, w), (kh, kw) = x.shape, k.shape
+        n_out = (h - kh + 1) * (w - kw + 1)
+        return (f"{h}x{w} k{kh}x{kw}", lambda: sc.stencil_conv(x, k),
+                lambda: sc.stencil_conv_torch(x, k),
+                lambda: F.conv2d(x[None, None], k[None, None]),
+                4 * (h * w + kh * kw + n_out), 2 * kh * kw * n_out)
+
+    def matmul_row(a, b):
+        (m, k), n = a.shape, b.shape[1]
+        return (f"{m}x{k}x{n}", lambda: mm.matmul(a, b),
+                lambda: mm.matmul_torch(a, b), lambda: torch.matmul(a, b),
+                4 * (m * k + k * n + m * n), 2 * m * n * k)
+
+    rows = {
+        "binning": ("binning_kernel",
+                    [binning_row(rh, 2), binning_row(eg, 2)]),
+        "stencil_conv": ("stencil_conv_kernel",
+                         [stencil_row(rh, sobel),
+                          stencil_row(binned, sobel)]),
+        "frame_event": ("frame_event", [(
+            f"{ev_a.shape[0]}x{ev_a.shape[1]}",
+            lambda: fe.frame_event(ev_a, ev_b, EDGAZE_THRESHOLD),
+            lambda: fe.frame_event_torch(ev_a, ev_b, EDGAZE_THRESHOLD),
+            None, 12 * ev_a.numel(), 3 * ev_a.numel())]),
+        "matmul": ("matmul_", [matmul_row(events, inputs["w1"]),
+                               matmul_row(hidden, inputs["w2"]),
+                               matmul_row(big_a, big_b)]),
+    }
+    out = {}
+    for name, (needle, shape_rows) in rows.items():
+        by_shape = []
+        for label, ker, plain, lib, nbytes, nops in shape_rows:
+            t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_FP32
+            by_shape.append(dict(
+                shape=label, ms=time_ms(ker),
+                device_ms=device_ms(ker, needle),
+                plain_ms=time_ms(plain, reps=5),
+                library_ms=time_ms(lib) if lib is not None else None,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, operations=nops))
+        out[name] = by_shape
+    return out
 
 
 def reset_all(mods) -> None:
@@ -473,7 +826,9 @@ def main() -> int:
     gd = importlib.import_module("repro_torch.kernels.grid_decode")
     sr = importlib.import_module("repro_torch.kernels.stream_reduce")
     cr = importlib.import_module("repro_torch.kernels.category_reduce")
-    kernel_mods = (fs, gd, sr, cr)
+    fmods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
+             for name in FUNC_KERNELS}
+    kernel_mods = (fs, gd, sr, cr, *fmods.values())
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -555,6 +910,7 @@ def main() -> int:
     e_rag, w_rag = reduce_inputs(100_003, 11, 10, 4)
     k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main),
           reduce_case(cr, name="reduce_ragged", e=e_rag, w=w_rag)]
+    fcases = functional_kernel_cases(fmods)
 
     # ----- 3. the main path at full width: fused ----------------------------
     space = DesignSpace(["edgaze", "rhythmic"], MEGA_GRIDS)
@@ -683,7 +1039,10 @@ def main() -> int:
         "twin_calls": mo_counts[1], "vs_fused_max_rel_err": mo_worst,
         "scalar_oracle_rel_err": mo_oracle}})
 
-    # ----- 7. timing at the main paths' shapes ------------------------------
+    # ----- 7. the functional simulator: K5-K8 -------------------------------
+    func, run_functional, func_inputs = functional_path(fmods, kernel_mods)
+
+    # ----- 8. timing at the main paths' shapes ------------------------------
     kw = dict(compute=compute, metric="total_j",
               axis_names=tuple(prep.vgrids[0].names),
               shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
@@ -742,6 +1101,8 @@ def main() -> int:
     profile_path("staged", staged)
     profile_path("chunked", lambda: explore(ch_space, k=3))
     profile_path("monolithic", lambda: explore(mo_space, k=3))
+    ftimes = functional_timing(fmods, func_inputs)
+    profile_path("functional", run_functional)
 
     src = "src/repro_torch/csrc/"
     power = smi[0] if smi else None
@@ -775,6 +1136,18 @@ def main() -> int:
             replaces=replaces, launches=n_launch, path=path,
             max_abs_err=max(r["max_abs_err"] for r in cases),
             points=CHUNK, power_limit=power, **times[name]))
+    for name, line in zip(FUNC_KERNELS, (23, 26, 18, 21)):
+        launches_f = sum(func[p]["kernel_launches"][name]
+                         for p in ("edgaze", "fig5", "rhythmic"))
+        head = ftimes[name][0]
+        entries.append(dict(
+            name=name, route="cuda", source=src + f"{name}.cu",
+            replaces=f"src/repro/kernels/{name}.py:{line}",
+            launches=launches_f,
+            path="functional (edgaze + fig5 + rhythmic)",
+            max_abs_err=max(r["max_abs_err"] for r in fcases[name]),
+            power_limit=power, **head,
+            by_shape=ftimes[name]))
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

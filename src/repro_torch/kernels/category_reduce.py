@@ -23,7 +23,7 @@ from typing import Dict
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import check_operands, launch, load_library
 
 #: launches of the CUDA kernel / calls of the torch twin since the last
 #: :func:`reset_counts`
@@ -90,12 +90,8 @@ def category_reduce(unit_energy: torch.Tensor,
         raise ValueError(f"category_reduce runs on CUDA or CPU tensors, "
                          f"got {dev}")
     _check_shapes(unit_energy, weights)
-    for name, t in (("unit_energy", unit_energy), ("weights", weights)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != dev:
-            raise ValueError(f"{name} must be contiguous float32 on {dev}, "
-                             f"got {t.dtype} on {t.device} "
-                             f"(contiguous={t.is_contiguous()})")
+    check_operands("category_reduce", dev, (torch.float32,),
+                   unit_energy=unit_energy, weights=weights)
     b, u = unit_energy.shape
     c = weights.shape[1]
     lib = load_kernel_library()
@@ -105,13 +101,8 @@ def category_reduce(unit_energy: torch.Tensor,
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_category_reduce(
-            unit_energy.data_ptr(), weights.data_ptr(), b, u, c,
-            out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"category_reduce kernel launch failed: "
-                           f"cudaError_t {err}")
+    launch("category_reduce", lib.repro_category_reduce, dev,
+           unit_energy.data_ptr(), weights.data_ptr(), b, u, c,
+           out.data_ptr())
     COUNTS["kernel_launches"] += 1
     return out

@@ -14,6 +14,10 @@ unchanged one loads in milliseconds.  No PyTorch header is included: a
 build takes seconds, not minutes.  :func:`build_libraries` starts one
 nvcc per source, all at once, and waits for them together.  A failed
 build raises with nvcc's stderr in the message.
+
+Every wrapper checks its CUDA operands with :func:`check_operands` and
+calls its library's C entry point through :func:`launch`, which passes
+the current stream and raises on a nonzero ``cudaError_t``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -123,6 +129,30 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = (lib, log, time.perf_counter() - t0)
     return lib
+
+
+def check_operands(name: str, device, dtypes, **tensors) -> None:
+    """Raise ``ValueError`` unless every tensor lies on ``device``, is
+    contiguous and has one of ``dtypes``: what a kernel takes."""
+    for arg, t in tensors.items():
+        if t.dtype not in dtypes or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(
+                f"{name}: {arg} must be a contiguous "
+                f"{' or '.join(str(d) for d in dtypes)} tensor on {device}, "
+                f"got {t.dtype} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+
+
+def launch(name: str, entry, device, *args) -> None:
+    """Call a kernel's C entry point with ``args`` and the current stream
+    of ``device`` last; raise if it returns a nonzero ``cudaError_t`` (a
+    refused launch never runs, and a later synchronise does not report
+    it)."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def build_info(name: str) -> Dict[str, object]:

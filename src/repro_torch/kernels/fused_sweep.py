@@ -43,7 +43,7 @@ from ..core.batch import _F32, INV_LN10_F32, OUT_KEYS, interp_tables
 from ..core.energy import CATEGORIES
 from ..core.plan_bank import (BankDims, LAYOUT_FIELDS, bank_layout,
                               layout_offsets)
-from .cuda_build import load_library
+from .cuda_build import launch, load_library
 from .grid_decode import grid_strides
 
 #: launches of the CUDA kernel / calls of the torch twin since the last
@@ -321,14 +321,9 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
     cand_l = torch.empty((nb, kk), dtype=torch.int32, device=dev)
     sums = torch.empty((nb,), dtype=torch.float32, device=dev)
     counts = torch.empty((nb,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_fused_sweep(
-            table2.data_ptr(), row.data_ptr(), ctypes.byref(params),
-            int(idx_dtype == torch.int64), cand_v.data_ptr(),
-            cand_l.data_ptr(), sums.data_ptr(), counts.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"fused_sweep kernel launch failed: cudaError_t "
-                           f"{err}")
+    launch("fused_sweep", lib.repro_fused_sweep, dev, table2.data_ptr(),
+           row.data_ptr(), ctypes.byref(params),
+           int(idx_dtype == torch.int64), cand_v.data_ptr(),
+           cand_l.data_ptr(), sums.data_ptr(), counts.data_ptr())
     COUNTS["kernel_launches"] += 1
     return cand_v, cand_l, sums, counts

@@ -29,7 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import launch, load_library
 
 #: launches of the CUDA kernel / calls of the torch twin since the last
 #: :func:`reset_counts`
@@ -139,15 +139,9 @@ def grid_decode(table2: torch.Tensor, start, *, shape, n_var: int,
     stride_c = (ctypes.c_longlong * n_axes)(*grid_strides(shape))
     vals = torch.empty((n_axes, chunk), dtype=torch.float32, device=dev)
     vid = torch.empty((chunk,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_grid_decode(
-            table2.data_ptr(), int(start), int(total), int(n_var),
-            int(chunk), shape_c, stride_c, n_axes, int(lmax),
-            int(table2.shape[1]), int(idx_dtype == torch.int64),
-            vals.data_ptr(), vid.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"grid_decode kernel launch failed: cudaError_t "
-                           f"{err}")
+    launch("grid_decode", lib.repro_grid_decode, dev, table2.data_ptr(),
+           int(start), int(total), int(n_var), int(chunk), shape_c,
+           stride_c, n_axes, int(lmax), int(table2.shape[1]),
+           int(idx_dtype == torch.int64), vals.data_ptr(), vid.data_ptr())
     COUNTS["kernel_launches"] += 1
     return vals, vid

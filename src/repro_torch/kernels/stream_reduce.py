@@ -29,7 +29,7 @@ from typing import Dict
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import check_operands, launch, load_library
 
 #: launches of the CUDA kernels / calls of the torch twins since the
 #: last :func:`reset_counts`
@@ -128,14 +128,10 @@ def _cuda_inputs(values, mask, variant=None):
     if dev.type != "cuda":
         raise ValueError(f"block stats run on CUDA or CPU tensors, got "
                          f"{dev}")
-    checks = [("values", values, torch.float32), ("mask", mask, torch.bool)]
+    check_operands("block stats", dev, (torch.float32,), values=values)
+    check_operands("block stats", dev, (torch.bool,), mask=mask)
     if variant is not None:
-        checks.append(("variant", variant, torch.int32))
-    for name, t, dtype in checks:
-        if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name} must be contiguous {dtype} on {dev}, "
-                             f"got {t.dtype} on {t.device} "
-                             f"(contiguous={t.is_contiguous()})")
+        check_operands("block stats", dev, (torch.int32,), variant=variant)
     return dev
 
 
@@ -163,14 +159,8 @@ def block_stats(values: torch.Tensor, mask: torch.Tensor,
     bp = max(min(int(block_points), b), 1)
     outs = _outputs((-(-b // bp),), dev)
     lib = load_kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_block_stats(values.data_ptr(), mask.data_ptr(), b,
-                                    bp, *(o.data_ptr() for o in outs),
-                                    stream)
-    if err:
-        raise RuntimeError(f"block_stats kernel launch failed: cudaError_t "
-                           f"{err}")
+    launch("block_stats", lib.repro_block_stats, dev, values.data_ptr(),
+           mask.data_ptr(), b, bp, *(o.data_ptr() for o in outs))
     COUNTS["kernel_launches"] += 1
     return outs
 
@@ -191,14 +181,9 @@ def block_stats_banked(values: torch.Tensor, mask: torch.Tensor,
     bp = max(min(int(block_points), b), 1)
     outs = _outputs((-(-b // bp), int(n_variants)), dev)
     lib = load_kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_block_stats_banked(
-            values.data_ptr(), mask.data_ptr(), variant.data_ptr(), b, bp,
-            int(n_variants), *(o.data_ptr() for o in outs), stream)
-    if err:
-        raise RuntimeError(f"block_stats_banked kernel launch failed: "
-                           f"cudaError_t {err}")
+    launch("block_stats_banked", lib.repro_block_stats_banked, dev,
+           values.data_ptr(), mask.data_ptr(), variant.data_ptr(), b, bp,
+           int(n_variants), *(o.data_ptr() for o in outs))
     COUNTS["banked_kernel_launches"] += 1
     return outs
 

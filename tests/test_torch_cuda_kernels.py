@@ -1,5 +1,6 @@
-"""K2, K3a/K3b and K4 against their torch twins, and the staged and grid
-engines on the card against the CPU.
+"""K2, K3a/K3b, K4 and K5-K8 against their torch twins, and the staged
+and grid engines and the functional pipelines on the card against the
+CPU.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 a fixture, never at import).  On the card:
@@ -9,7 +10,11 @@ a fixture, never at import).  On the card:
 Tolerances: ``grid_decode`` and ``category_reduce`` bit-equal (same
 index arithmetic; same summation order, built with ``--fmad=false``);
 block stats min / argmin / counts exact and sums rel 1e-5 (another
-summation order); engines rel 1e-6 on the top-k metric.
+summation order); engines rel 1e-6 on the top-k metric.  ``binning``,
+``stencil_conv`` and ``frame_event`` bit-equal (same order); ``matmul``
+within ``1e-5 * (|a| @ |b|)`` elementwise (another summation order) and
+the same from run to run; the pipelines bit-equal to the CPU's, the DNN
+output by the matmul rule through both layers.
 """
 import importlib
 
@@ -107,3 +112,97 @@ def test_engines_on_cuda_match_cpu(cuda, engine):
         == [(r["algorithm"], r["variant"], r["index"]) for r in cpu.topk]
     np.testing.assert_allclose([r["total_j"] for r in gpu.topk],
                                [r["total_j"] for r in cpu.topk], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K5-K8, the functional simulator's kernels
+# ---------------------------------------------------------------------------
+def _rand(cuda, shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(dtype)).to(cuda)
+
+
+@pytest.mark.parametrize("shape,factor,dtype", [
+    ((400, 640), 2, np.float32), ((720, 1280), 2, np.float32),
+    ((17, 33), 3, np.float32), ((17, 33), 4, np.float32),
+    ((64, 96), 2, np.float16), ((33, 47), 3, np.float16)])
+def test_binning_matches_twin(cuda, shape, factor, dtype):
+    bn = _mod("binning")
+    x = _rand(cuda, shape, sum(shape) + factor, dtype)
+    bn.reset_counts()
+    ker = bn.binning(x, factor)
+    torch.cuda.synchronize()
+    assert bn.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    assert torch.equal(ker, bn.binning_torch(x, factor))
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((360, 640), (3, 3)), ((720, 1280), (3, 3)), ((100, 140), (3, 5)),
+    ((77, 45), (5, 5)), ((40, 40), (2, 2)), ((33, 70), (1, 1))])
+def test_stencil_conv_matches_twin(cuda, shape, k):
+    st = _mod("stencil_conv")
+    x = _rand(cuda, shape, shape[0])
+    taps = _rand(cuda, k, k[0] * 10 + k[1])
+    st.reset_counts()
+    ker = st.stencil_conv(x, taps)
+    torch.cuda.synchronize()
+    assert st.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    assert torch.equal(ker, st.stencil_conv_torch(x, taps))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((200, 320), np.float32), ((33, 47), np.float32),
+    ((33, 47), np.float16)])
+def test_frame_event_matches_twin(cuda, shape, dtype):
+    fe = _mod("frame_event")
+    cur, prev = _rand(cuda, shape, 1, dtype), _rand(cuda, shape, 2, dtype)
+    fe.reset_counts()
+    for t in (0.1, 0.5, 1.5):
+        assert torch.equal(fe.frame_event(cur, prev, t),
+                           fe.frame_event_torch(cur, prev, t))
+    assert fe.COUNTS == {"kernel_launches": 3, "twin_calls": 3}
+    one = torch.tensor([[0.7, float("nan")]], device=cuda)
+    zero = torch.zeros(1, 2, device=cuda)
+    assert fe.frame_event(one, zero, 0.7).tolist() == [[1.0, 0.0]]
+
+
+@pytest.mark.parametrize("mkn", [(1, 64000, 900), (130, 150, 70), (1, 64, 1),
+                                 (1024, 1024, 1024), (1, 900, 2),
+                                 (5, 3000, 257), (64, 0, 3)])
+def test_matmul_matches_twin(cuda, mkn):
+    mm = _mod("matmul")
+    m, k, n = mkn
+    a, b = _rand(cuda, (m, k), m + k), _rand(cuda, (k, n), k + n)
+    mm.reset_counts()
+    ker = mm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    twin = mm.matmul_torch(a, b)
+    scale = a.double().abs().cpu() @ b.double().abs().cpu()
+    err = (ker.double() - twin.double()).abs().cpu()
+    assert (err <= 1e-5 * scale).all(), float((err - 1e-5 * scale).max())
+    assert torch.equal(ker, mm.matmul(a, b))          # run to run
+
+
+def test_functional_pipelines_on_cuda_match_cpu(cuda):
+    from repro_torch import functional as fn
+    rng = np.random.default_rng(3)
+    frame = rng.uniform(size=(96, 128)).astype(np.float32)
+    prev = rng.uniform(size=(48, 64)).astype(np.float32)
+    w1 = rng.normal(size=(48 * 64, 40)).astype(np.float32)
+    w2 = rng.normal(size=(40, 2)).astype(np.float32)
+    g, c = torch.from_numpy(frame).to(cuda), torch.from_numpy(frame)
+    assert torch.equal(fn.fig5_pipeline(g).cpu(), fn.fig5_pipeline(c))
+    assert torch.equal(fn.rhythmic_pixel_frontend(g).cpu(),
+                       fn.rhythmic_pixel_frontend(c))
+    ev_g, b_g = fn.edgaze_frontend(g, torch.from_numpy(prev).to(cuda))
+    ev_c, b_c = fn.edgaze_frontend(c, torch.from_numpy(prev))
+    assert torch.equal(ev_g.cpu(), ev_c) and torch.equal(b_g.cpu(), b_c)
+    out_g = fn.simple_dnn(ev_g, *fn.params_from_reference(w1, w2, cuda))
+    out_c = fn.simple_dnn(ev_c, *fn.params_from_reference(w1, w2, "cpu"))
+    x = ev_c.reshape(1, -1).double().abs()
+    h = (x @ torch.from_numpy(w1).double()).abs()
+    w2a = torch.from_numpy(w2).double().abs()
+    bound = 1e-5 * ((x @ torch.from_numpy(w1).double().abs()) @ w2a
+                    + h @ w2a)
+    assert ((out_g.cpu().double() - out_c.double()).abs() <= bound).all()

@@ -2,7 +2,9 @@
 
 * a fresh interpreter that imports ``repro_torch`` and runs a tiny CPU
   ``explore`` on the grid, staged and fused engines has loaded no
-  ``jax*`` module and no ``repro`` / ``repro.*`` module;
+  ``jax*`` module and no ``repro`` / ``repro.*`` module, and neither has
+  one that imports ``repro_torch.functional`` and runs ``fig5_pipeline``
+  and ``edgaze_frontend`` on CPU tensors;
 * an AST scan of every ``src/repro_torch/**/*.py`` and of
   ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
   ``from repro ...``;
@@ -45,6 +47,30 @@ def test_import_and_cpu_explore_load_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _CHILD], env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+_CHILD_FUNCTIONAL = r"""
+import sys
+import torch
+import repro_torch.functional as fn
+img = torch.rand(64, 96, generator=torch.Generator().manual_seed(0))
+assert tuple(fn.fig5_pipeline(img).shape) == (30, 46)
+events, binned = fn.edgaze_frontend(img, torch.zeros(32, 48))
+assert events.shape == binned.shape == (32, 48)
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_functional_on_cpu_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_FUNCTIONAL],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
 
