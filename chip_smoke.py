@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-per source, all eight started together): K1 ``fused_sweep.cu``, K2
+per source, all nine started together): K1 ``fused_sweep.cu``, K2
 ``grid_decode.cu``, K3a/K3b ``stream_reduce.cu``, K4
-``category_reduce.cu``, and the functional simulator's K5
-``binning.cu``, K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8
-``matmul.cu``.  Holds each kernel against its plain-torch twin on the
-card at the main paths' shapes (and ragged ones), then drives every
-engine of ``explore()`` and the functional simulator at full width, each
-with the launch counters zeroed just before it and read just after:
+``category_reduce.cu``, the functional simulator's K5 ``binning.cu``,
+K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8 ``matmul.cu``, and
+K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
+twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
+in f16 and bf16), then drives every engine of ``explore()``, the
+functional simulator and the attention path at full width, each with the
+launch counters zeroed just before it and read just after:
 
 * fused (the main path) — the ``mega_sweep`` space (all 5 Ed-Gaze + 3
   Rhythmic variants, 1.26e7 design points, ``chunk_size=2**18``,
@@ -29,7 +30,12 @@ with the launch counters zeroed just before it and read just after:
   ``[1, 64000] @ [64000, 900] @ [900, 2]``), ``fig5_pipeline`` at the
   Rhythmic sensor's 720 x 1280 (K5, K6 twice) and
   ``rhythmic_pixel_frontend`` at 720 x 1280 (K6 twice); the first 2
-  frames of each against the same pipeline run by the port on the CPU.
+  frames of each against the same pipeline run by the port on the CPU;
+* attention — ``ops.flash_attention`` (K9) at the widths of two
+  configured models, bf16: qwen2-7b's causal attention at 4096 tokens
+  (28 heads over 4 kv heads, D = 128) and whisper-medium's encoder
+  self-attention over its 1500 frames (16 heads, D = 64), each against
+  the twin, timed beside the twin and ``scaled_dot_product_attention``.
 
 It times every kernel, prints its findings as JSON lines, and ends with
 the ``kernels`` line and the run's verdict::
@@ -101,7 +107,7 @@ DESIGN_GRIDS = {"cis_node": [130., 110., 90., 65., 45., 32., 28.],
 DESIGN_POINTS = 8 * 7 * 4 * 4 * 3 * 2 * 2 * 2
 KERNEL_SOURCES = ("fused_sweep", "grid_decode", "stream_reduce",
                   "category_reduce", "binning", "stencil_conv",
-                  "frame_event", "matmul")
+                  "frame_event", "matmul", "flash_attention")
 # the functional path: 30 frames (one second at the use cases' 30 FPS);
 # kT/C noise at 10 fF; Ed-Gaze's event threshold; its DNN's hidden width,
 # DNN_MACS / (200 * 320) = 900 (core/usecases/edgaze.py)
@@ -113,15 +119,37 @@ RHYTHMIC_TILE = 16
 RHYTHMIC_KEEP = 0.5
 FUNC_COMPARED = 2          # frames held against the port run on the CPU
 MATMUL_RULE = 1e-5         # |kernel - twin| <= 1e-5 * (|a| @ |b|)
+# K9 against its twin, atol = rtol, compared in f32: another summation
+# order and an online softmax (f32), plus one rounding of a half dtype
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+# (B, H, Hkv, S, D): MHA, GQA with a ragged S, MQA, S = 1, and S = 127 at
+# the largest head dim the kernel stages
+FA_SHAPES = ((2, 4, 4, 256, 64), (2, 8, 2, 200, 32), (1, 8, 1, 128, 64),
+             (1, 4, 2, 1, 16), (1, 4, 2, 127, 128))
+# the attention path at the widths of two configured models, bf16 as the
+# configs declare (src/repro/models/config.py:50), (B, H, Hkv, S, D,
+# causal): qwen2-7b (src/repro/configs/qwen2_7b.py: 28 heads, 4 kv heads,
+# d_head 128) at the train_4k sequence of 4096 (src/repro/launch/
+# shapes.py:20); whisper-medium's encoder self-attention
+# (src/repro/configs/whisper_medium.py: d_model 1024, 16 heads and kv
+# heads, so D = 64, encoder_seq 1500), not causal
+ATTENTION_MODELS = {
+    "qwen2_7b": (1, 28, 4, 4096, 128, True),
+    "whisper_medium_encoder": (1, 16, 16, 1500, 64, False),
+}
 
 REL = 1e-6          # the reference's parity tolerance (values, top-k)
 REL_SUM = 1e-5      # block sums: 4096 f32 terms summed in another order
 REL_MEAN = 1e-5     # per-variant means: sums of such sums
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit):
-# FP32 outside the tensor cores, HBM3 bandwidth, and the special-function
-# units (16 per SM x 132 SMs at the 1.98 GHz boost clock).
+# FP32 outside the tensor cores, dense f16/bf16 on the tensor cores (f32
+# accumulation; a product of two half values is exact in f32, so work
+# whose products all have half operands is bounded at this rate), HBM3
+# bandwidth, and the special-function units (16 per SM x 132 SMs at the
+# 1.98 GHz boost clock).
 PEAK_FP32 = 67e12
+PEAK_HALF = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.98e9
 
@@ -352,22 +380,34 @@ def time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, needle, reps=20):
-    """Device time per launch of the kernels named ``*needle*`` over
-    ``reps`` back-to-back calls of ``fn``, from ``torch.profiler`` (the
-    CUDA-event time of such a loop also holds the host's per-launch
-    work)."""
+def device_ms(fn, needle, reps=20, tries=5):
+    """Device time per call of ``fn``'s kernels named ``*needle*``, from
+    ``torch.profiler`` over ``reps`` back-to-back calls (the CUDA-event
+    time of such a loop also holds the host's per-launch work): the sum,
+    over the distinct kernel names, of each one's median span (each call
+    launches each of its kernels once).  On the card the profiler has
+    been seen to drop kernel records from a trace, which medians survive;
+    a trace that holds fewer than ``reps // 2`` records of a name is
+    taken again, up to ``tries`` times; then the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and needle in e.name)
-    return us * 1e-3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and needle in e.name:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if spans and min(map(len, spans.values())) >= reps // 2:
+            return sum(float(np.median(v)) for v in spans.values()) * 1e-3
+    raise AssertionError(f"device time of {needle}: {tries} profiler traces "
+                         f"each held fewer than {reps // 2} of {reps} "
+                         f"kernel records")
 
 
 # ---------------------------------------------------------------------------
@@ -494,27 +534,41 @@ def exact_case(name, ker, twin):
     return rec
 
 
-def gaussian(shape, seed, dtype=np.float32):
+def gaussian(shape, seed, dtype=torch.float32):
+    """Seeded normal values on the card, made in f32 and rounded to
+    ``dtype`` (numpy has no bf16)."""
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                            .astype(dtype)).cuda()
+                            ).to(dtype).cuda()
 
 
-def matmul_case(mm, *, name, m, k, n, seed):
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def matmul_case(mm, *, name, m, k, n, seed, dtypes=(torch.float32,) * 2):
     """K8 against its twin: |kernel - twin| <= 1e-5 * (|a| @ |b|)
-    elementwise (another summation order), and equal from run to run."""
-    a, b = gaussian((m, k), seed), gaussian((k, n), seed + 1)
+    elementwise (another summation order), plus one unit in the last place
+    of an f16 or bf16 output (each side rounds its f32 sum once), and
+    equal from run to run."""
+    from repro_torch.testing import ulp
+    a = gaussian((m, k), seed, dtypes[0])
+    b = gaussian((k, n), seed + 1, dtypes[1])
     ker = mm.matmul(a, b)
     again = mm.matmul(a, b)
     torch.cuda.synchronize()
     twin = mm.matmul_torch(a, b)
-    scale = a.double().abs() @ b.double().abs()     # the rule's yardstick
+    check(ker.dtype == twin.dtype == dtypes[0], f"{name}: output dtype")
+    bound = MATMUL_RULE * (a.double().abs() @ b.double().abs())
+    if dtypes[0] != torch.float32:
+        bound = bound + ulp(torch.maximum(ker.abs(), twin.abs()), dtypes[0])
     err = (ker.double() - twin.double()).abs()
-    ratio = float((err / (MATMUL_RULE * scale).clamp_min(1e-300)).max()) \
+    ratio = float((err / bound.clamp_min(1e-300)).max()) \
         if err.numel() else 0.0
     check(ratio <= 1.0, f"{name}: matmul off its twin by {ratio} x the rule")
     check(torch.equal(ker, again), f"{name}: matmul differs run to run")
     rec = dict(case=name, mkn=[m, k, n],
+               dtypes=[dtype_name(d) for d in dtypes],
                max_abs_err=float(err.max()) if err.numel() else 0.0,
                max_err_over_rule=ratio)
     emit({"kernel_vs_twin": rec})
@@ -527,29 +581,41 @@ def functional_kernel_cases(fmods):
     bn, sc, fe, mm = (fmods[name] for name in FUNC_KERNELS)
     cases = {"binning": [], "stencil_conv": [], "frame_event": [],
              "matmul": []}
-    for shape, f, dt in (((400, 640), 2, np.float32),
-                         ((720, 1280), 2, np.float32),
-                         ((17, 33), 3, np.float32), ((17, 33), 4, np.float32),
-                         ((17, 33), 2, np.float16),
-                         ((720, 1280), 2, np.float16)):
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    for shape, f, dt in (((400, 640), 2, f32), ((720, 1280), 2, f32),
+                         ((17, 33), 3, f32), ((17, 33), 4, f32),
+                         ((17, 33), 2, f16), ((720, 1280), 2, f16),
+                         ((17, 33), 3, bf16), ((720, 1280), 2, bf16)):
         x = gaussian(shape, sum(shape) + f, dt)
         cases["binning"].append(exact_case(
-            f"binning_{shape[0]}x{shape[1]}_f{f}_{np.dtype(dt).name}",
+            f"binning_{shape[0]}x{shape[1]}_f{f}_{dtype_name(dt)}",
             lambda: bn.binning(x, f), lambda: bn.binning_torch(x, f)))
-    for shape, k in (((360, 640), (3, 3)), ((720, 1280), (3, 3)),
-                     ((100, 140), (3, 5)), ((77, 45), (5, 5)),
-                     ((1000, 33), (2, 2))):
-        x, taps = gaussian(shape, shape[0]), gaussian(k, 10 * k[0] + k[1])
+    # the kernel sums in f32: its twin is the f32 sum rounded once
+    for shape, k, dt, taps_dt in (((360, 640), (3, 3), f32, f32),
+                                  ((720, 1280), (3, 3), f32, f32),
+                                  ((100, 140), (3, 5), f32, f32),
+                                  ((77, 45), (5, 5), f32, f32),
+                                  ((1000, 33), (2, 2), f32, f32),
+                                  ((720, 1280), (3, 3), f16, f32),
+                                  ((720, 1280), (3, 3), bf16, f32),
+                                  ((720, 1280), (3, 3), f16, f16),
+                                  ((720, 1280), (3, 3), bf16, bf16),
+                                  ((77, 45), (5, 5), bf16, bf16)):
+        x = gaussian(shape, shape[0], dt)
+        taps = gaussian(k, 10 * k[0] + k[1], taps_dt)
         cases["stencil_conv"].append(exact_case(
-            f"stencil_{shape[0]}x{shape[1]}_k{k[0]}x{k[1]}",
+            f"stencil_{shape[0]}x{shape[1]}_k{k[0]}x{k[1]}_"
+            f"{dtype_name(dt)}_taps_{dtype_name(taps_dt)}",
             lambda: sc.stencil_conv(x, taps),
-            lambda: sc.stencil_conv_torch(x, taps)))
-    for shape, dt, t in (((200, 320), np.float32, EDGAZE_THRESHOLD),
-                         ((33, 47), np.float32, 0.5),
-                         ((33, 47), np.float16, 0.5)):
+            lambda: sc.stencil_conv_torch(x, taps, acc_dtype=f32)))
+    for shape, dt, t in (((200, 320), f32, EDGAZE_THRESHOLD),
+                         ((33, 47), f32, 0.5), ((33, 47), f16, 0.5),
+                         ((200, 320), f16, EDGAZE_THRESHOLD),
+                         ((200, 320), bf16, EDGAZE_THRESHOLD),
+                         ((33, 47), bf16, 0.5)):
         cur, prev = gaussian(shape, 1, dt), gaussian(shape, 2, dt)
         cases["frame_event"].append(exact_case(
-            f"frame_event_{shape[0]}x{shape[1]}_{np.dtype(dt).name}",
+            f"frame_event_{shape[0]}x{shape[1]}_{dtype_name(dt)}",
             lambda: fe.frame_event(cur, prev, t),
             lambda: fe.frame_event_torch(cur, prev, t)))
     # the f32 rounding case: f32(0.7) - 0 >= 0.7 is an event; NaN is not
@@ -561,10 +627,23 @@ def functional_kernel_cases(fmods):
     check(fe.frame_event(cur, prev, 0.7).tolist() == [[1.0, 0.0, 0.0]],
           "frame_event: 0.7 rounding case")
     cases["frame_event"].append(rec)
-    for m, k, n in ((1, 64000, 900), (1, 900, 2), (130, 150, 70), (1, 64, 1),
-                    (1024, 1024, 1024), (7, 5000, 333)):
+    for (m, k, n), dts in (((1, 64000, 900), (f32, f32)),
+                           ((1, 900, 2), (f32, f32)),
+                           ((130, 150, 70), (f32, f32)),
+                           ((1, 64, 1), (f32, f32)),
+                           ((1024, 1024, 1024), (f32, f32)),
+                           ((7, 5000, 333), (f32, f32)),
+                           ((1, 64000, 900), (bf16, bf16)),
+                           ((1, 64000, 900), (f16, f16)),
+                           ((1024, 1024, 1024), (bf16, bf16)),
+                           ((1024, 1024, 1024), (f16, f16)),
+                           ((130, 150, 70), (bf16, f32)),
+                           ((7, 5000, 333), (f32, f16))):
+        tag = "" if dts == (f32, f32) else \
+            f"_{dtype_name(dts[0])}@{dtype_name(dts[1])}"
         cases["matmul"].append(matmul_case(
-            mm, name=f"matmul_{m}x{k}x{n}", m=m, k=k, n=n, seed=m + k + n))
+            mm, name=f"matmul_{m}x{k}x{n}{tag}", m=m, k=k, n=n,
+            seed=m + k + n, dtypes=dts))
     return cases
 
 
@@ -741,7 +820,8 @@ def functional_path(fmods, kernel_mods):
 
 def functional_timing(fmods, inputs):
     """ms, device ms, plain and library ms and the bound of K5-K8 at the
-    functional path's shapes; the first shape of each is its headline."""
+    functional path's shapes, in f32 and again in f16 and bf16; the first
+    shape of each is its headline."""
     import torch.nn.functional as F
     bn, sc, fe, mm = (fmods[name] for name in FUNC_KERNELS)
     eg, rh = inputs["eg_frames"][0], inputs["rh_frames"][0]
@@ -752,59 +832,230 @@ def functional_timing(fmods, inputs):
     events = fe.frame_event(ev_a, ev_b, EDGAZE_THRESHOLD).reshape(1, -1)
     hidden = torch.relu(mm.matmul(events, inputs["w1"]))
     big_a, big_b = gaussian((1024, 1024), 1), gaussian((1024, 1024), 2)
+    halves = (torch.float16, torch.bfloat16)
+
+    def label(shape, x):
+        return shape if x.dtype == torch.float32 else \
+            f"{shape} {dtype_name(x.dtype)}"
 
     def binning_row(x, f):
         h, w = x.shape
         n_out = (h // f) * (w // f)
-        return (f"{h}x{w} f{f}", lambda: bn.binning(x, f),
+        return (label(f"{h}x{w} f{f}", x), lambda: bn.binning(x, f),
                 lambda: bn.binning_torch(x, f),
                 lambda: F.avg_pool2d(x[None, None], f),
-                4 * n_out * (f * f + 1), n_out * (f * f + 1))
+                x.element_size() * n_out * (f * f + 1), n_out * (f * f + 1))
 
     def stencil_row(x, k):
         (h, w), (kh, kw) = x.shape, k.shape
         n_out = (h - kh + 1) * (w - kw + 1)
-        return (f"{h}x{w} k{kh}x{kw}", lambda: sc.stencil_conv(x, k),
-                lambda: sc.stencil_conv_torch(x, k),
-                lambda: F.conv2d(x[None, None], k[None, None]),
-                4 * (h * w + kh * kw + n_out), 2 * kh * kw * n_out)
+        k_lib = k.to(x.dtype)
+        return (label(f"{h}x{w} k{kh}x{kw}", x), lambda: sc.stencil_conv(x, k),
+                lambda: sc.stencil_conv_torch(x, k, acc_dtype=torch.float32),
+                lambda: F.conv2d(x[None, None], k_lib[None, None]),
+                x.element_size() * (h * w + n_out) + 4 * kh * kw,
+                2 * kh * kw * n_out)
+
+    def event_row(a, b):
+        return (label(f"{a.shape[0]}x{a.shape[1]}", a),
+                lambda: fe.frame_event(a, b, EDGAZE_THRESHOLD),
+                lambda: fe.frame_event_torch(a, b, EDGAZE_THRESHOLD),
+                None, 3 * a.element_size() * a.numel(), 3 * a.numel())
 
     def matmul_row(a, b):
         (m, k), n = a.shape, b.shape[1]
-        return (f"{m}x{k}x{n}", lambda: mm.matmul(a, b),
+        ops = 2 * m * n * k
+        halves_only = a.dtype == b.dtype and a.dtype in halves
+        return (label(f"{m}x{k}x{n}", a), lambda: mm.matmul(a, b),
                 lambda: mm.matmul_torch(a, b), lambda: torch.matmul(a, b),
-                4 * (m * k + k * n + m * n), 2 * m * n * k)
+                a.element_size() * (m * k + m * n) + b.element_size() * k * n,
+                (0, ops) if halves_only else (ops, 0))
 
     rows = {
         "binning": ("binning_kernel",
-                    [binning_row(rh, 2), binning_row(eg, 2)]),
+                    [binning_row(rh, 2), binning_row(eg, 2)]
+                    + [binning_row(rh.to(dt), 2) for dt in halves]),
         "stencil_conv": ("stencil_conv_kernel",
                          [stencil_row(rh, sobel),
-                          stencil_row(binned, sobel)]),
-        "frame_event": ("frame_event", [(
-            f"{ev_a.shape[0]}x{ev_a.shape[1]}",
-            lambda: fe.frame_event(ev_a, ev_b, EDGAZE_THRESHOLD),
-            lambda: fe.frame_event_torch(ev_a, ev_b, EDGAZE_THRESHOLD),
-            None, 12 * ev_a.numel(), 3 * ev_a.numel())]),
+                          stencil_row(binned, sobel)]
+                         + [stencil_row(rh.to(dt), sobel)
+                            for dt in halves]),
+        "frame_event": ("frame_event", [event_row(ev_a, ev_b)]
+                        + [event_row(ev_a.to(dt), ev_b.to(dt))
+                           for dt in halves]),
         "matmul": ("matmul_", [matmul_row(events, inputs["w1"]),
                                matmul_row(hidden, inputs["w2"]),
-                               matmul_row(big_a, big_b)]),
+                               matmul_row(big_a, big_b)]
+                   + [matmul_row(x.to(dt), w.to(dt)) for dt in halves
+                      for x, w in ((events, inputs["w1"]),
+                                   (big_a, big_b))]),
     }
     out = {}
     for name, (needle, shape_rows) in rows.items():
-        by_shape = []
-        for label, ker, plain, lib, nbytes, nops in shape_rows:
-            t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_FP32
-            by_shape.append(dict(
-                shape=label, ms=time_ms(ker),
-                device_ms=device_ms(ker, needle),
-                plain_ms=time_ms(plain, reps=5),
-                library_ms=time_ms(lib) if lib is not None else None,
+        out[name] = [timing_row(label_, ker, plain, lib, nbytes, nops,
+                                needle)
+                     for label_, ker, plain, lib, nbytes, nops in shape_rows]
+    return out
+
+
+def split_ops(nops):
+    """``(fp32, half)`` operations: a bare count is all FP32."""
+    return nops if isinstance(nops, tuple) else (nops, 0)
+
+
+def timing_row(shape, ker, plain, lib, nbytes, nops, needle, reps=20,
+               plain_reps=5):
+    """One kernel's times at one shape: CUDA-event ms of back-to-back
+    wrapper calls, profiler device ms, the plain twin's and the library
+    call's ms, and the bound from the bytes it must move and the
+    operations it must do.  ``nops`` is an FP32 count or ``(fp32, half)``:
+    the half operations (products of two f16/bf16 values) at the tensor
+    cores' rate, added to the FP32 ones' time at the CUDA cores' rate."""
+    fp32_ops, half_ops = split_ops(nops)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = fp32_ops / PEAK_FP32 + half_ops / PEAK_HALF
+    return dict(shape=shape, ms=time_ms(ker, reps),
+                device_ms=device_ms(ker, needle, reps),
+                plain_ms=time_ms(plain, reps=plain_reps),
+                library_ms=time_ms(lib, reps) if lib is not None else None,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, operations=nops))
-        out[name] = by_shape
-    return out
+                bytes=nbytes, operations=fp32_ops + half_ops,
+                half_operations=half_ops)
+
+
+# ---------------------------------------------------------------------------
+# K9 and the attention path
+# ---------------------------------------------------------------------------
+def attention_inputs(b, h, hkv, s, d, seed, dtype):
+    return (gaussian((b, h, s, d), seed, dtype),
+            gaussian((b, hkv, s, d), seed + 1, dtype),
+            gaussian((b, hkv, s, d), seed + 2, dtype))
+
+
+def attention_ops(b, h, s, d, causal, dtype):
+    """``(fp32, half)`` operations the function needs: 4 D per unmasked
+    score, 2 D for q . k and 2 D for p * v.  With f16/bf16 operands the
+    q . k products are of two half values (exact in f32), so half
+    operations; p is f32, so p * v stays FP32."""
+    per_half = 2 * d * (s * (s + 1) // 2 if causal else s * s) * b * h
+    if dtype == torch.float32:
+        return 2 * per_half, 0
+    return per_half, per_half
+
+
+def half_rule(k, t):
+    """Max over the elements of ``|k - t|`` over one unit in the last place
+    of the half dtype at ``max(|k|, |t|)`` (each side rounds its f32 result
+    once) plus the f32 tolerance ``1e-5 (1 + |t|)`` (another summation
+    order); at most 1 when the two agree to one rounding."""
+    from repro_torch.testing import ulp
+    kf, tf = k.double(), t.double()
+    rule = ulp(torch.maximum(kf.abs(), tf.abs()), k.dtype) \
+        + FA_TOL[torch.float32] * (1.0 + tf.abs())
+    return float(((kf - tf).abs() / rule).max())
+
+
+def close_case(name, ker, twin, tol):
+    """A kernel against its twin on the same inputs, compared in f32 at
+    ``atol = rtol = tol``, and bit-equal from run to run."""
+    k = ker()
+    again = ker()
+    torch.cuda.synchronize()
+    t = twin()
+    check(k.shape == t.shape and k.dtype == t.dtype,
+          f"{name}: {tuple(k.shape)} {k.dtype} against the twin's "
+          f"{tuple(t.shape)} {t.dtype}")
+    err = (k.float() - t.float()).abs()
+    over = float((err - tol * (1.0 + t.float().abs())).max())
+    check(over <= 0.0, f"{name}: off its twin by {float(err.max())} "
+          f"(tolerance {tol})")
+    ratio = half_rule(k, t) if k.dtype != torch.float32 else None
+    check(ratio is None or ratio <= 1.0,
+          f"{name}: off its twin by {ratio} x one rounding")
+    check(torch.equal(k, again), f"{name}: differs from run to run")
+    rec = dict(case=name, shape=list(k.shape), dtype=dtype_name(k.dtype),
+               max_abs_err=float(err.max()), tol=tol,
+               max_err_over_one_rounding=ratio)
+    emit({"kernel_vs_twin": rec})
+    return rec
+
+
+def attention_cases(fa):
+    """K9 against its twin at each dtype, shape and mask, and in f32 at the
+    attention path's shapes."""
+    cases = [(dt, shape, causal) for dt in FA_TOL for shape in FA_SHAPES
+             for causal in (True, False)]
+    cases += [(torch.float32, shape[:5], shape[5])
+              for shape in ATTENTION_MODELS.values()]
+    recs = []
+    for dt, (b, h, hkv, s, d), causal in cases:
+        q, k, v = attention_inputs(b, h, hkv, s, d, s + d, dt)
+        recs.append(close_case(
+            f"flash_{b}x{h}x{hkv}x{s}x{d}_"
+            f"{'causal' if causal else 'full'}_{dtype_name(dt)}",
+            lambda: fa.flash_attention(q, k, v, causal),
+            lambda: fa.flash_attention_torch(q, k, v, causal), FA_TOL[dt]))
+        del q, k, v
+    return recs
+
+
+def attention_path(fa, kernel_mods):
+    """The attention of qwen2_7b and whisper_medium's encoder at full
+    width, bf16, through ``ops.flash_attention``, with the launch
+    counters zeroed just before each and read just after; each output is
+    finite, of the query's shape and dtype, and within bf16's tolerance of
+    the twin.  Then the kernel's, twin's and SDPA's times and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rec = {}
+    for seed, (name, (b, h, hkv, s, d, causal)) in enumerate(
+            ATTENTION_MODELS.items()):
+        q, k, v = attention_inputs(b, h, hkv, s, d, 100 * seed + 7,
+                                   torch.bfloat16)
+        ops.flash_attention(q, k, v, causal=causal)     # warm-up
+        reset_all(kernel_mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.COUNTS["kernel_launches"]
+        twins = sum(m.COUNTS[c] for m in kernel_mods for c in m.COUNTS
+                    if "twin" in c)
+        check(launches == 1 and twins == 0,
+              f"attention {name}: {launches} kernel launches, {twins} twin "
+              f"calls")
+        check(out.shape == q.shape and out.dtype == q.dtype
+              and bool(torch.isfinite(out).all()),
+              f"attention {name}: output not finite {tuple(q.shape)} bf16")
+        twin = fa.flash_attention_torch(q, k, v, causal)
+        err = (out.float() - twin.float()).abs()
+        ratio = half_rule(out, twin)
+        check(ratio <= 1.0, f"attention {name}: off its twin by "
+              f"{float(err.max())}, {ratio} x one bf16 rounding")
+        del twin
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        lib_diff = float((sdpa().float() - out.float()).abs().max())
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        times = timing_row(
+            f"{b}x{h}x{hkv}x{s}x{d} {'causal' if causal else 'full'} bf16",
+            lambda: fa.flash_attention(q, k, v, causal),
+            lambda: fa.flash_attention_torch(q, k, v, causal), sdpa, nbytes,
+            attention_ops(b, h, s, d, causal, q.dtype),
+            "flash_attention_kernel",
+            reps=10, plain_reps=3)
+        rec[name] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
+                         dtype="bfloat16", wall_s=wall,
+                         kernel_launches=launches, twin_calls=twins,
+                         vs_twin_max_abs_err=float(err.max()),
+                         vs_twin_over_one_rounding=ratio,
+                         library_vs_kernel_max_abs_diff=lib_diff, **times)
+    emit({"attention_path": rec})
+    return rec
 
 
 def reset_all(mods) -> None:
@@ -828,7 +1079,8 @@ def main() -> int:
     cr = importlib.import_module("repro_torch.kernels.category_reduce")
     fmods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
              for name in FUNC_KERNELS}
-    kernel_mods = (fs, gd, sr, cr, *fmods.values())
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    kernel_mods = (fs, gd, sr, cr, *fmods.values(), fa)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -911,6 +1163,7 @@ def main() -> int:
     k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main),
           reduce_case(cr, name="reduce_ragged", e=e_rag, w=w_rag)]
     fcases = functional_kernel_cases(fmods)
+    k9 = attention_cases(fa)
 
     # ----- 3. the main path at full width: fused ----------------------------
     space = DesignSpace(["edgaze", "rhythmic"], MEGA_GRIDS)
@@ -1042,7 +1295,10 @@ def main() -> int:
     # ----- 7. the functional simulator: K5-K8 -------------------------------
     func, run_functional, func_inputs = functional_path(fmods, kernel_mods)
 
-    # ----- 8. timing at the main paths' shapes ------------------------------
+    # ----- 8. the attention path: K9 (timed there) --------------------------
+    attn = attention_path(fa, kernel_mods)
+
+    # ----- 9. timing at the main paths' shapes ------------------------------
     kw = dict(compute=compute, metric="total_j",
               axis_names=tuple(prep.vgrids[0].names),
               shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
@@ -1084,17 +1340,9 @@ def main() -> int:
             lambda: torch.matmul(e_main, w_main),
             4 * (CHUNK * 11 + 11 * 10 + CHUNK * 10), 2 * CHUNK * 11 * 10),
     }
-    times = {}
-    for name, (ker, plain, lib, nbytes, nops) in timed.items():
-        t_bytes = nbytes / PEAK_BYTES
-        t_ops = nops / PEAK_FP32
-        times[name] = dict(
-            ms=time_ms(ker), device_ms=device_ms(ker, f"{name}_kernel"),
-            plain_ms=time_ms(plain, reps=5),
-            library_ms=time_ms(lib) if lib is not None else None,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes, operations=nops)
+    times = {name: timing_row(f"{CHUNK} points", ker, plain, lib, nbytes,
+                              nops, f"{name}_kernel")
+             for name, (ker, plain, lib, nbytes, nops) in timed.items()}
 
     profile_path("main_path", lambda: explore(space, engine="fused",
                                               chunk_size=CHUNK, k=3))
@@ -1148,6 +1396,19 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in fcases[name]),
             power_limit=power, **head,
             by_shape=ftimes[name]))
+    by_shape = [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "bytes", "operations",
+                                   "half_operations")}
+                for r in attn.values()]
+    entries.append(dict(
+        name="flash_attention", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:35",
+        launches=sum(r["kernel_launches"] for r in attn.values()),
+        path="attention",
+        max_abs_err=max(r["max_abs_err"] for r in k9),
+        power_limit=power, **by_shape[0], by_shape=by_shape))
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 // Pixel binning for the functional simulator (Hopper, sm_90a):
 // factor x factor average pooling with stride factor over a 2-D frame,
-// f32 or f16 in, the same dtype out, f32 accumulation.
+// f32, f16 or bf16 in, the same dtype out, f32 accumulation (the result
+// rounded once, to nearest even, as torch's .to() rounds).
 //
 // Replaces the TPU kernel repro/kernels/binning.py::_binning_kernel (the
 // pl.pallas_call of binning, :45), which reduces row strips on the VPU.
@@ -24,24 +25,13 @@
 // Plain C interface (repro_binning) for ctypes; the Python wrapper is
 // repro_torch/kernels/binning.py::binning.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 // F > 0 fixes the factor at compile time; F == 0 reads it from `factor`.
 template <typename T, int F>
@@ -84,19 +74,21 @@ extern "C" {
 
 // out[oh, ow] = the factor x factor window means of x (a contiguous
 // [h, w] device frame with h >= oh * factor, w >= ow * factor), both of
-// one dtype: 0 float32, 1 float16; inv is f32(1 / factor^2).  Returns the
-// cudaError_t of the launch (0 on success).
+// one dtype: 0 float32, 1 float16, 2 bfloat16; inv is f32(1 / factor^2).
+// Returns the cudaError_t of the launch (0 on success).
 int repro_binning(const void* x, void* out, int dtype, long long w, int oh,
                   int ow, int factor, float inv, void* stream) {
   if (oh <= 0 || ow <= 0 || factor < 1 || w < (long long)ow * factor ||
-      (dtype != 0 && dtype != 1)) {
+      dtype < 0 || dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     launch<float>(x, out, w, oh, ow, factor, inv, s);
-  } else {
+  } else if (dtype == 1) {
     launch<__half>(x, out, w, oh, ow, factor, inv, s);
+  } else {
+    launch<__nv_bfloat16>(x, out, w, oh, ow, factor, inv, s);
   }
   return (int)cudaGetLastError();
 }

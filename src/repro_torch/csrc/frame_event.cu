@@ -1,6 +1,6 @@
 // Frame differencing + threshold for the functional simulator's Ed-Gaze
 // front end (Hopper, sm_90a): out = (|f32(cur) - f32(prev)| >= t), written
-// in cur's dtype (f32 or f16), 1 for an event and 0 otherwise.
+// in cur's dtype (f32, f16 or bf16), 1 for an event and 0 otherwise.
 //
 // Replaces the TPU kernel repro/kernels/frame_event.py::_event_kernel (the
 // pl.pallas_call of frame_event, :34), which runs the compare over row
@@ -21,25 +21,14 @@
 // Plain C interface (repro_frame_event) for ctypes; the Python wrapper is
 // repro_torch/kernels/frame_event.py::frame_event.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 __device__ __forceinline__ float event(float c, float p, float t) {
   return fabsf(c - p) >= t ? 1.f : 0.f;
@@ -77,12 +66,12 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 extern "C" {
 
 // out[i] = |cur[i] - prev[i]| >= threshold for i < n, all device pointers
-// to n contiguous elements of one dtype: 0 float32, 1 float16.  Returns
-// the cudaError_t of the launch (0 on success).
+// to n contiguous elements of one dtype: 0 float32, 1 float16, 2 bfloat16.
+// Returns the cudaError_t of the launch (0 on success).
 int repro_frame_event(const void* cur, const void* prev, void* out,
                       int dtype, long long n, float threshold,
                       void* stream) {
-  if (n <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (n % 4 == 0 && aligned16(cur) && aligned16(prev) && aligned16(out)) {
@@ -93,9 +82,13 @@ int repro_frame_event(const void* cur, const void* prev, void* out,
       frame_event_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
           (const float*)cur, (const float*)prev, (float*)out, n, threshold);
     }
-  } else {
+  } else if (dtype == 1) {
     frame_event_kernel<__half><<<blocks_for(n), kThreads, 0, s>>>(
         (const __half*)cur, (const __half*)prev, (__half*)out, n, threshold);
+  } else {
+    frame_event_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+        (const __nv_bfloat16*)cur, (const __nv_bfloat16*)prev,
+        (__nv_bfloat16*)out, n, threshold);
   }
   return (int)cudaGetLastError();
 }

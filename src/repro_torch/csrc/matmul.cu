@@ -1,6 +1,9 @@
 // Matrix product with an f32 accumulator for the functional simulator's
-// DNN stage (Hopper, sm_90a): out[M, N] = a[M, K] @ b[K, N], all f32,
-// row-major, any M, N, K.
+// DNN stage (Hopper, sm_90a): out[M, N] = f32(a[M, K]) @ f32(b[K, N]),
+// row-major, any M, N, K.  a and b are each f32, f16 or bf16 (converted
+// to f32 as they are loaded, so no f32 copy of an operand is made); out
+// is in a's dtype, rounded once (to nearest even) from the f32 sums, as
+// the reference's Pallas kernel casts its f32 accumulator.
 //
 // Replaces the TPU kernel repro/kernels/matmul.py::_matmul_kernel (the
 // pl.pallas_call of matmul, :52).  The TPU kernel pads every dimension to
@@ -29,15 +32,23 @@
 // The wrapper (repro_torch/kernels/matmul.py) picks the kernel and S and
 // allocates the scratch.
 //
-// What bounds it on the card: for the DNN's GEMV the bytes, 4 * (M K +
-// K N + M N) (B read once: 230.4 MB, 69 us at 3.35 TB/s); for a square
+// What bounds it on the card: for the DNN's GEMV the bytes, each operand
+// read once and out written once (f32: 230.4 MB, 69 us at 3.35 TB/s; half
+// that for bf16 operands); for a square
 // 1024^3 product the operations, 2 M N K at the 67 TFLOP/s FP32 rate
 // (32 us).  The summation order differs from the plain-torch twin's, so
-// the two agree within 1e-5 * (|a| @ |b|), not bit for bit.
+// the two agree within 1e-5 * (|a| @ |b|) in f32, not bit for bit (and
+// one rounding of a half output dtype beyond that).
+//
+// The main kernels always write f32: to out when out is f32 and K is not
+// split, else to the [S, M, N] scratch, which matmul_sum_kernel adds (S
+// may be 1) and rounds into out's dtype.
 //
 // Plain C interface (repro_matmul) for ctypes.
 
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -49,8 +60,9 @@ constexpr int kSkinnyMaxM = 8;
 constexpr int kSkinnyCols = 128;
 constexpr int kWarps = kThreads / 32;
 
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(kThreads)
-matmul_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
+matmul_tile_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                    float* __restrict__ out, int m, int n, int k, int kps) {
   __shared__ float s_a[kBK][kBM + 1];
   __shared__ float s_b[kBK][kBN];
@@ -74,12 +86,14 @@ matmul_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int ac = e % kBK;
       const int gm = m0 + ar;
       const int gk = k0 + ac;
-      s_a[ac][ar] = (gm < m && gk < k_end) ? a[(long long)gm * k + gk] : 0.f;
+      s_a[ac][ar] =
+          (gm < m && gk < k_end) ? to_f32(a[(long long)gm * k + gk]) : 0.f;
       const int br = e / kBN;
       const int bc = e % kBN;
       const int gk2 = k0 + br;
       const int gn = n0 + bc;
-      s_b[br][bc] = (gk2 < k_end && gn < n) ? b[(long long)gk2 * n + gn] : 0.f;
+      s_b[br][bc] =
+          (gk2 < k_end && gn < n) ? to_f32(b[(long long)gk2 * n + gn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -112,11 +126,10 @@ matmul_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // MR: the row capacity, the least of 1, 2, 4, 8 that holds m, so that an
 // M = 1 product keeps 4 accumulators a thread, not 32.
-template <int MR>
+template <int MR, typename TA, typename TB>
 __global__ void __launch_bounds__(kThreads)
-matmul_skinny_kernel(const float* __restrict__ a,
-                     const float* __restrict__ b, float* __restrict__ out,
-                     int m, int n, int k, int kps) {
+matmul_skinny_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                     float* __restrict__ out, int m, int n, int k, int kps) {
   __shared__ float s_red[kWarps][MR][kSkinnyCols];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -138,14 +151,16 @@ matmul_skinny_kernel(const float* __restrict__ a,
   }
 #pragma unroll 4
   for (int kk = k_begin + warp; kk < k_end; kk += kWarps) {
-    const float* brow = b + (long long)kk * n;
+    const TB* brow = b + (long long)kk * n;
     float bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = ok[j] ? __ldg(brow + col[j]) : 0.f;
+    for (int j = 0; j < 4; ++j) {
+      bv[j] = ok[j] ? to_f32(__ldg(brow + col[j])) : 0.f;
+    }
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
       if (r < m) {
-        const float av = __ldg(a + (long long)r * k + kk);
+        const float av = to_f32(__ldg(a + (long long)r * k + kk));
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av, bv[j], acc[r][j]);
       }
@@ -169,14 +184,50 @@ matmul_skinny_kernel(const float* __restrict__ a,
   }
 }
 
+template <typename TO>
 __global__ void __launch_bounds__(kThreads)
-matmul_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+matmul_sum_kernel(const float* __restrict__ part, TO* __restrict__ out,
                   int splits, long long mn) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= mn) return;
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s = s + part[(long long)z * mn + i];
-  out[i] = s;
+  out[i] = from_f32<TO>(s);
+}
+
+template <typename TA, typename TB>
+void launch_main(const void* a, const void* b, float* dst, int m, int n,
+                 int k, int splits, int kps, int skinny, cudaStream_t s) {
+  const TA* pa = (const TA*)a;
+  const TB* pb = (const TB*)b;
+  if (skinny) {
+    const dim3 grid((unsigned)((n + kSkinnyCols - 1) / kSkinnyCols),
+                    (unsigned)splits);
+    auto skinny_kernel = m == 1   ? matmul_skinny_kernel<1, TA, TB>
+                         : m == 2 ? matmul_skinny_kernel<2, TA, TB>
+                         : m <= 4 ? matmul_skinny_kernel<4, TA, TB>
+                                  : matmul_skinny_kernel<8, TA, TB>;
+    skinny_kernel<<<grid, kThreads, 0, s>>>(pa, pb, dst, m, n, k, kps);
+  } else {
+    const dim3 grid((unsigned)((n + kBN - 1) / kBN),
+                    (unsigned)((m + kBM - 1) / kBM), (unsigned)splits);
+    matmul_tile_kernel<TA, TB><<<grid, kThreads, 0, s>>>(pa, pb, dst, m, n,
+                                                         k, kps);
+  }
+}
+
+template <typename TA>
+void launch_main_a(const void* a, const void* b, int b_dtype, float* dst,
+                   int m, int n, int k, int splits, int kps, int skinny,
+                   cudaStream_t s) {
+  if (b_dtype == 0) {
+    launch_main<TA, float>(a, b, dst, m, n, k, splits, kps, skinny, s);
+  } else if (b_dtype == 1) {
+    launch_main<TA, __half>(a, b, dst, m, n, k, splits, kps, skinny, s);
+  } else {
+    launch_main<TA, __nv_bfloat16>(a, b, dst, m, n, k, splits, kps, skinny,
+                                   s);
+  }
 }
 
 }  // namespace
@@ -186,41 +237,49 @@ extern "C" {
 // kSkinnyMaxM: the wrapper sends M <= this to the skinny kernel.
 int repro_matmul_skinny_max_m() { return kSkinnyMaxM; }
 
-// out[m, n] = a[m, k] @ b[k, n], all contiguous f32 device pointers.  K
+// out[m, n] = a[m, k] @ b[k, n], contiguous device pointers of dtypes
+// a_dtype (also out's) and b_dtype: 0 float32, 1 float16, 2 bfloat16.  K
 // is cut into `splits` slices of `kps` rows (kps a multiple of 16,
-// splits * kps >= k); with splits > 1 the slices' partial sums go to
-// part[splits, m, n] and a second launch adds them into out.  `skinny`
-// picks the M <= 8 kernel.  Returns the cudaError_t of the launches (0 on
-// success).
-int repro_matmul(const float* a, const float* b, float* out, float* part,
-                 int m, int n, int k, int splits, int kps, int skinny,
-                 void* stream) {
+// splits * kps >= k); the main kernels write their f32 sums to out when
+// splits == 1 and out is f32, else to part[splits, m, n], which a second
+// launch adds (in slice order) and rounds into out.  `skinny` picks the
+// M <= 8 kernel.  Returns the cudaError_t of the launches (0 on success).
+int repro_matmul(const void* a, const void* b, void* out, float* part,
+                 int a_dtype, int b_dtype, int m, int n, int k, int splits,
+                 int kps, int skinny, void* stream) {
+  const bool staged = splits > 1 || a_dtype != 0;
   if (m < 1 || n < 1 || k < 0 || splits < 1 || splits > 65535 || kps < 1 ||
       kps % kBK || (long long)splits * kps < k ||
       (skinny && m > kSkinnyMaxM) || (m + kBM - 1) / kBM > 65535 ||
-      (splits > 1 && part == nullptr)) {
+      a_dtype < 0 || a_dtype > 2 || b_dtype < 0 || b_dtype > 2 ||
+      (staged && part == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  float* dst = splits > 1 ? part : out;
-  if (skinny) {
-    const dim3 grid((unsigned)((n + kSkinnyCols - 1) / kSkinnyCols),
-                    (unsigned)splits);
-    auto skinny_kernel = m == 1   ? matmul_skinny_kernel<1>
-                         : m == 2 ? matmul_skinny_kernel<2>
-                         : m <= 4 ? matmul_skinny_kernel<4>
-                                  : matmul_skinny_kernel<8>;
-    skinny_kernel<<<grid, kThreads, 0, s>>>(a, b, dst, m, n, k, kps);
+  float* dst = staged ? part : (float*)out;
+  if (a_dtype == 0) {
+    launch_main_a<float>(a, b, b_dtype, dst, m, n, k, splits, kps, skinny, s);
+  } else if (a_dtype == 1) {
+    launch_main_a<__half>(a, b, b_dtype, dst, m, n, k, splits, kps, skinny,
+                          s);
   } else {
-    const dim3 grid((unsigned)((n + kBN - 1) / kBN),
-                    (unsigned)((m + kBM - 1) / kBM), (unsigned)splits);
-    matmul_tile_kernel<<<grid, kThreads, 0, s>>>(a, b, dst, m, n, k, kps);
+    launch_main_a<__nv_bfloat16>(a, b, b_dtype, dst, m, n, k, splits, kps,
+                                 skinny, s);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  if (err != cudaSuccess || !staged) return (int)err;
   const long long mn = (long long)m * n;
-  matmul_sum_kernel<<<(unsigned)((mn + kThreads - 1) / kThreads), kThreads,
-                      0, s>>>(part, out, splits, mn);
+  const unsigned nb = (unsigned)((mn + kThreads - 1) / kThreads);
+  if (a_dtype == 0) {
+    matmul_sum_kernel<float><<<nb, kThreads, 0, s>>>(part, (float*)out,
+                                                     splits, mn);
+  } else if (a_dtype == 1) {
+    matmul_sum_kernel<__half><<<nb, kThreads, 0, s>>>(part, (__half*)out,
+                                                      splits, mn);
+  } else {
+    matmul_sum_kernel<__nv_bfloat16><<<nb, kThreads, 0, s>>>(
+        part, (__nv_bfloat16*)out, splits, mn);
+  }
   return (int)cudaGetLastError();
 }
 

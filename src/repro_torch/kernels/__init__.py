@@ -11,6 +11,8 @@
 * ``binning`` (K5), ``stencil_conv`` (K6), ``frame_event`` (K7) and
   ``matmul`` (K8) — the functional simulator's kernels, reached through
   ``ops`` (the reference's ``ops.py`` contract, with ``use_pallas``);
+* ``flash_attention`` (K9) — online-softmax attention with a GQA head
+  map, reached through ``ops.flash_attention``;
 * ``runtime`` — device and sweep-backend selection; ``cuda_build`` —
   ``nvcc`` builds, ``ctypes`` loading and launches.
 
@@ -23,6 +25,7 @@ import importlib
 
 from .binning import binning, binning_torch
 from .category_reduce import category_reduce, category_reduce_torch
+from .flash_attention import flash_attention, flash_attention_torch
 from .frame_event import frame_event, frame_event_torch
 from .grid_decode import grid_decode, grid_decode_torch, grid_strides
 from .matmul import matmul, matmul_torch
@@ -38,7 +41,8 @@ _LAZY = ("fused_sweep_block", "fused_sweep_block_torch")
 __all__ = ["SWEEP_BACKENDS", "binning", "binning_torch", "block_stats",
            "block_stats_banked", "block_stats_banked_torch",
            "block_stats_torch", "category_reduce", "category_reduce_torch",
-           "explicit_backend", "frame_event", "frame_event_torch",
+           "explicit_backend", "flash_attention", "flash_attention_torch",
+           "frame_event", "frame_event_torch",
            "fused_sweep_block", "fused_sweep_block_torch", "grid_decode",
            "grid_decode_torch", "grid_strides", "masked_stats", "matmul",
            "matmul_torch", "resolve_backend", "resolve_device",

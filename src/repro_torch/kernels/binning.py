@@ -9,7 +9,7 @@ in the input's dtype.
 
 * :func:`binning` — the wrapper around the hand-written CUDA kernel
   ``repro_torch/csrc/binning.cu`` (one thread per output pixel).  It
-  takes a 2-D f32 or f16 frame, as the Pallas kernel does.  For a CUDA
+  takes a 2-D f32, f16 or bf16 frame, as the Pallas kernel does.  For a CUDA
   tensor it launches the kernel or raises; for a CPU tensor it runs the
   twin.
 * :func:`binning_torch` — the plain-torch twin, also over leading batch
@@ -39,7 +39,7 @@ from .cuda_build import check_operands, launch, load_library
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
-_DTYPES = {torch.float32: 0, torch.float16: 1}
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LIB = {}
 
@@ -97,12 +97,13 @@ def binning(image: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
     On a CUDA tensor it launches the hand-written kernel on the current
     stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  The frame is f32 or f16; the kernel takes it contiguous.
+    twin.  The frame is f32, f16 or bf16; the kernel takes it contiguous.
     """
     _check_factor(factor)
     if image.dim() != 2 or image.dtype not in _DTYPES:
-        raise ValueError(f"binning takes a 2-D float32 or float16 frame, "
-                         f"got {tuple(image.shape)} {image.dtype}")
+        raise ValueError(f"binning takes a 2-D float32, float16 or "
+                         f"bfloat16 frame, got {tuple(image.shape)} "
+                         f"{image.dtype}")
     dev = image.device
     if dev.type == "cpu":
         return binning_torch(image, factor)

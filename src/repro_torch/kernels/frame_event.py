@@ -12,7 +12,7 @@ event in f32 and none in f64).
 * :func:`frame_event` — the wrapper around the hand-written CUDA kernel
   ``repro_torch/csrc/frame_event.cu`` (one thread per element, float4
   loads where aligned).  It takes two 2-D frames of one shape and one
-  dtype, f32 or f16.  For a CUDA tensor it launches the kernel or
+  dtype, f32, f16 or bf16.  For a CUDA tensor it launches the kernel or
   raises; for a CPU tensor it runs the twin.
 * :func:`frame_event_torch` — the plain-torch twin
   (``repro.kernels.ref.frame_event_ref``); kernel and twin agree bit for
@@ -39,7 +39,7 @@ from .cuda_build import check_operands, launch, load_library
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
-_DTYPES = {torch.float32: 0, torch.float16: 1}
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LIB = {}
 
@@ -86,14 +86,14 @@ def frame_event(cur: torch.Tensor, prev: torch.Tensor,
 
     On a CUDA tensor it launches the hand-written kernel on the current
     stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  Both frames are f32 or f16, of one dtype; the kernel takes them
-    contiguous.
+    twin.  Both frames are f32, f16 or bf16, of one dtype; the kernel
+    takes them contiguous.
     """
     _check_shapes(cur, prev)
     if cur.dim() != 2 or cur.dtype not in _DTYPES or prev.dtype != cur.dtype:
         raise ValueError(f"frame_event takes two 2-D frames of one dtype, "
-                         f"float32 or float16, got {tuple(cur.shape)} "
-                         f"{cur.dtype} and {prev.dtype}")
+                         f"float32, float16 or bfloat16, got "
+                         f"{tuple(cur.shape)} {cur.dtype} and {prev.dtype}")
     dev = cur.device
     if dev.type == "cpu" and prev.device.type == "cpu":
         return frame_event_torch(cur, prev, threshold)

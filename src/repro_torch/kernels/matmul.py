@@ -2,7 +2,8 @@
 
 Port of the reference's K8 (``repro/kernels/matmul.py::_matmul_kernel``),
 the functional simulator's DNN stage (Ed-Gaze S3, ``simple_dnn``):
-``a [M, K] @ b [K, N] -> [M, N]`` in ``a.dtype``.
+``f32(a [M, K]) @ f32(b [K, N]) -> [M, N]`` in ``a.dtype``, each operand
+f32, f16 or bf16.
 
 * :func:`matmul` — the wrapper around the hand-written CUDA kernels of
   ``repro_torch/csrc/matmul.cu``, FP32 on CUDA cores with explicit
@@ -11,16 +12,19 @@ the functional simulator's DNN stage (Ed-Gaze S3, ``simple_dnn``):
   the output tiles are fewer than the card's SMs, K is split across
   blocks into an ``[S, M, N]`` f32 scratch whose partials a second launch
   adds in slice order (no atomics: the same result on every run).  It
-  takes f32 operands of any M, N, K; ragged edges are masked in the
-  kernel, not padded in memory.  For a CUDA tensor it launches the kernel
-  or raises; for a CPU tensor it runs the twin.  It takes no block sizes:
-  ``bm``/``bn``/``bk`` were the TPU's tile knobs.
+  takes f32, f16 or bf16 operands (converted as the kernels load them)
+  of any M, N, K; ragged edges are masked in the kernel, not padded in
+  memory.  For a CUDA tensor it launches the kernel or raises; for a CPU
+  tensor it runs the twin.  It takes no block sizes: ``bm``/``bn``/``bk``
+  were the TPU's tile knobs.
 * :func:`matmul_torch` — the plain-torch twin (``repro.kernels.ref.
   matmul_ref``): f32 products summed over K in slices of broadcast
   multiplies and reductions, no library GEMM.
 
 Kernel, twin and reference sum in different orders, so they agree within
-``1e-5 * (|a| @ |b|)`` elementwise, not bit for bit.
+``1e-5 * (|a| @ |b|)`` elementwise in f32, not bit for bit; an f16 or
+bf16 output rounds each side once more, so there they agree within that
+plus one unit in the last place of the output dtype.
 
 What bounds the kernel on the card: for the DNN's ``[1, 64000] @
 [64000, 900]`` the bytes (230.4 MB, 69 us at 3.35 TB/s); for a
@@ -41,6 +45,9 @@ from .cuda_build import check_operands, launch, load_library
 #: launches of the CUDA kernel / calls of the torch twin since the last
 #: :func:`reset_counts`
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
+
+#: operand dtypes the kernels take, with their codes in the C interface
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 #: K depth of one slice of the tile kernel (the split unit)
 _BK = 16
@@ -94,7 +101,7 @@ def load_kernel_library() -> ctypes.CDLL:
     lib.repro_matmul.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.repro_matmul.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
@@ -131,33 +138,36 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     On a CUDA tensor it launches the hand-written kernel on the current
     stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  Both operands are f32; the kernel takes them contiguous, on one
-    device.
+    twin.  Each operand is f32, f16 or bf16; the kernel takes them
+    contiguous, on one device.
     """
     m, n, k = _check_shapes(a, b)
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"matmul takes float32 operands, got {a.dtype} @ "
-                         f"{b.dtype}")
+    if a.dtype not in _DTYPES or b.dtype not in _DTYPES:
+        raise ValueError(f"matmul takes float32, float16 or bfloat16 "
+                         f"operands, got {a.dtype} @ {b.dtype}")
     dev = a.device
     if dev.type == "cpu" and b.device.type == "cpu":
         return matmul_torch(a, b)
     if dev.type != "cuda":
         raise ValueError(f"matmul runs on CUDA or CPU tensors, got {dev} "
                          f"and {b.device}")
-    check_operands("matmul", dev, (torch.float32,), a=a, b=b)
+    check_operands("matmul", dev, tuple(_DTYPES), a=a, b=b)
     if max(m, n, k) > _INT_MAX // 2:
         raise ValueError(f"matmul dimensions {(m, k, n)} exceed the "
                          f"kernel's int32 indexing")
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if out.numel() == 0:
         return out
     lib = load_kernel_library()
     skinny, splits, depth = split_plan(m, n, k, _sm_count(dev),
                                        lib.repro_matmul_skinny_max_m())
+    # f32 partial sums: one slice per split, or one to round into a half
+    # output dtype
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+            if splits > 1 or a.dtype != torch.float32 else None)
     launch("matmul", lib.repro_matmul, dev, a.data_ptr(), b.data_ptr(),
-           out.data_ptr(), None if part is None else part.data_ptr(), m, n,
-           k, splits, depth, int(skinny))
+           out.data_ptr(), None if part is None else part.data_ptr(),
+           _DTYPES[a.dtype], _DTYPES[b.dtype], m, n, k, splits, depth,
+           int(skinny))
     COUNTS["kernel_launches"] += 1
     return out

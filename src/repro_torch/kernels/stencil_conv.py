@@ -3,32 +3,35 @@
 Port of the reference's K6 (``repro/kernels/stencil_conv.py::
 _stencil_kernel``), the functional simulator's edge detector (Fig. 5, the
 Rhythmic compare & sample proxy): ``image [H, W]`` against a ``kh x kw``
-stencil gives ``[H - kh + 1, W - kw + 1]``, accumulated in f32.
+stencil gives ``[H - kh + 1, W - kw + 1]`` in the image's dtype.
 
 * :func:`stencil_conv` — the wrapper around the hand-written CUDA kernel
   ``repro_torch/csrc/stencil_conv.cu`` (a 32 x 32 output tile per block,
-  its inputs and the taps staged in shared memory).  It takes a 2-D f32
-  frame and a 2-D f32 stencil of any size whose staged tile fits in
-  shared memory.  For a CUDA tensor it launches the kernel or raises; for
-  a CPU tensor it runs the twin.
-* :func:`stencil_conv_torch` — the plain-torch twin
-  (``repro.kernels.ref.stencil_conv_ref``): the taps summed from 0 in
-  ``di``-outer, ``dj``-inner order, one multiply and one add each, in the
-  promoted dtype of image and stencil, then cast to the image's dtype.
-  It equals ``stencil_conv_ref`` bit for bit, and the kernel (built with
-  ``--fmad=false``) equals it; the reference's Pallas kernel differs from
-  both by up to ~1e-7 of the output's magnitude.
+  its inputs and the taps staged in shared memory as f32).  It takes a
+  2-D frame and a 2-D stencil, each f32, f16 or bf16, of any size whose
+  staged tile fits in shared memory, and sums in f32 as the reference's
+  Pallas kernel does.  For a CUDA tensor it launches the kernel or
+  raises; for a CPU tensor it runs the twin at f32 accumulation.
+* :func:`stencil_conv_torch` — the plain-torch twin: the taps summed from
+  0 in ``di``-outer, ``dj``-inner order, one multiply and one add each,
+  in ``acc_dtype`` (by default the promoted dtype of image and stencil,
+  as ``repro.kernels.ref.stencil_conv_ref`` sums), then cast to the
+  image's dtype.  It equals ``stencil_conv_ref`` bit for bit, and the
+  kernel (built with ``--fmad=false``) equals it at ``acc_dtype=
+  torch.float32``; the reference's Pallas kernel differs from both by up
+  to ~1e-7 of the output's magnitude, and by one rounding of a half
+  dtype.
 
 What bounds the kernel on the card: the bytes, one read of the frame and
 one write of the output (7.36 MB for a 720 x 1280 f32 frame and a 3 x 3
-stencil, 2.2 us at 3.35 TB/s).
+stencil, 2.2 us at 3.35 TB/s; half that in f16 or bf16).
 
 :data:`COUNTS` counts kernel launches and twin calls.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -37,6 +40,9 @@ from .cuda_build import check_operands, launch, load_library
 #: launches of the CUDA kernel / calls of the torch twin since the last
 #: :func:`reset_counts`
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
+
+#: frame dtypes the kernel takes, with their codes in the C interface
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LIB = {}
 
@@ -59,13 +65,17 @@ def _out_shape(image: torch.Tensor, kernel: torch.Tensor):
     return h - kh + 1, w - kw + 1
 
 
-def stencil_conv_torch(image: torch.Tensor,
-                       kernel: torch.Tensor) -> torch.Tensor:
-    """'valid' correlation ``[H, W] * [kh, kw] -> [H-kh+1, W-kw+1]``."""
+def stencil_conv_torch(image: torch.Tensor, kernel: torch.Tensor,
+                       acc_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """'valid' correlation ``[H, W] * [kh, kw] -> [H-kh+1, W-kw+1]``,
+    summed in ``acc_dtype`` (default: the promoted dtype of image and
+    stencil) and returned in the image's dtype."""
     COUNTS["twin_calls"] += 1
     oh, ow = _out_shape(image, kernel)
     kh, kw = kernel.shape
-    acc_dtype = torch.promote_types(image.dtype, kernel.dtype)
+    if acc_dtype is None:
+        acc_dtype = torch.promote_types(image.dtype, kernel.dtype)
     x = image.to(acc_dtype)
     k = kernel.to(device=image.device, dtype=acc_dtype)
     out = torch.zeros((oh, ow), dtype=acc_dtype, device=image.device)
@@ -83,7 +93,8 @@ def load_kernel_library() -> ctypes.CDLL:
     lib = load_library("stencil_conv")
     lib.repro_stencil_conv.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.repro_stencil_conv.restype = ctypes.c_int
     lib.repro_stencil_conv_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.repro_stencil_conv_smem_bytes.restype = ctypes.c_longlong
@@ -93,25 +104,30 @@ def load_kernel_library() -> ctypes.CDLL:
 
 
 def stencil_conv(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """'valid' 2-D correlation of a frame with a stencil, f32 accumulation.
+    """'valid' 2-D correlation of a frame with a stencil, f32 accumulation,
+    in the frame's dtype.
 
     On a CUDA tensor it launches the hand-written kernel on the current
     stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  Frame and stencil are f32; the kernel takes them contiguous, on
-    one device.
+    twin at f32 accumulation.  Frame and stencil are f32, f16 or bf16; the
+    kernel takes them contiguous, on one device (the stencil is handed to
+    it as f32, an exact conversion).
     """
     oh, ow = _out_shape(image, kernel)
-    if image.dtype != torch.float32 or kernel.dtype != torch.float32:
-        raise ValueError(f"stencil_conv takes a float32 image and stencil, "
-                         f"got {image.dtype} and {kernel.dtype}")
+    if image.dtype not in _DTYPES or kernel.dtype not in _DTYPES:
+        raise ValueError(f"stencil_conv takes a float32, float16 or "
+                         f"bfloat16 image and stencil, got {image.dtype} "
+                         f"and {kernel.dtype}")
     dev = image.device
     if dev.type == "cpu" and kernel.device.type == "cpu":
-        return stencil_conv_torch(image, kernel)
+        return stencil_conv_torch(image, kernel, acc_dtype=torch.float32)
     if dev.type != "cuda":
         raise ValueError(f"stencil_conv runs on CUDA or CPU tensors, got "
                          f"{dev} and {kernel.device}")
-    check_operands("stencil_conv", dev, (torch.float32,), image=image,
+    check_operands("stencil_conv", dev, tuple(_DTYPES), image=image,
                    kernel=kernel)
+    if kernel.dtype != torch.float32:
+        kernel = kernel.float()
     lib = load_kernel_library()
     kh, kw = kernel.shape
     smem = lib.repro_stencil_conv_smem_bytes(kh, kw)
@@ -119,9 +135,10 @@ def stencil_conv(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a {kh} x {kw} stencil stages {smem} bytes, above "
                          f"the kernel's shared-memory cap of "
                          f"{lib.repro_stencil_conv_max_smem()}")
-    out = torch.empty((oh, ow), dtype=torch.float32, device=dev)
+    out = torch.empty((oh, ow), dtype=image.dtype, device=dev)
     h, w = image.shape
     launch("stencil_conv", lib.repro_stencil_conv, dev, image.data_ptr(),
-           kernel.data_ptr(), out.data_ptr(), h, w, kh, kw)
+           kernel.data_ptr(), out.data_ptr(), _DTYPES[image.dtype], h, w, kh,
+           kw)
     COUNTS["kernel_launches"] += 1
     return out

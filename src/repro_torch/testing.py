@@ -1,4 +1,10 @@
-"""Synthetic PlanBank rows for parity checks of the physics and the kernel.
+"""Helpers of the parity checks: synthetic PlanBank rows and the ulp.
+
+:func:`ulp` is one unit in the last place of a float dtype at given
+magnitudes: an f16 or bf16 result rounded once from two f32 sums that
+differ by ``e`` may differ by ``e`` plus one ulp, so the kernels' half
+outputs are held to their twins' within that.
+
 
 No shipped variant set lowers to linear-in-delay analog terms: Ed-Gaze,
 Rhythmic and the toy pipeline all have ``n_lin == 0``, and their digital
@@ -15,6 +21,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from .core.energy import CATEGORIES
 from .core.plan_bank import BankDims, bank_layout
@@ -77,3 +84,11 @@ def synthetic_bank(seed: int = 0) -> Tuple[BankDims, np.ndarray]:
         size = int(np.prod(shape)) if shape else 1
         fused[0, off:off + size] = np.asarray(v, np.float32).reshape(size)
     return dims, fused
+
+
+def ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of ``dtype`` at the magnitudes of ``x``
+    (f64; the smallest normal's below it)."""
+    fi = torch.finfo(dtype)
+    return fi.eps * torch.exp2(torch.floor(torch.log2(
+        x.abs().double().clamp_min(fi.tiny))))

@@ -5,7 +5,9 @@
 CPU, as ``tests/test_kernels.py`` runs it) on the same seeded frames.
 f32 is bit-equal: both sum each window from 0 row by row and multiply by
 ``f32(1 / factor**2)``.  f16 holds at the reference test's rtol 5e-3 (the
-f32 accumulator is rounded to f16 at one place in each).
+f32 accumulator is rounded to f16 at one place in each), bf16 at
+``atol = rtol = 1e-2`` (one bf16 rounding), on both ``use_pallas``
+routes.
 
 For a CPU tensor the wrapper runs the twin and counts a twin call; the
 CUDA kernel is held against the twin bit for bit on the card
@@ -84,8 +86,23 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     assert tuple(out.shape) == (3, 4)
     with pytest.raises(ValueError, match="2-D"):
         fn(torch.zeros(2, 8, 8))
-    with pytest.raises(ValueError, match="float32 or float16"):
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
         fn(torch.zeros(8, 8, dtype=torch.float64))
     with pytest.raises(ValueError, match="positive int"):
         fn(torch.zeros(8, 8), 0)
     assert COUNTS["twin_calls"] == 1
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("factor", [2, 3, 4])
+def test_bf16_follows_each_reference_route(factor, use_pallas):
+    from repro_torch.kernels import ops
+    from repro.kernels import ops as ref_ops
+    img = torch.from_numpy(_img((33, 47), seed=factor)).to(torch.bfloat16)
+    want = ref_ops.binning(jnp.asarray(img.float().numpy()).astype(
+        jnp.bfloat16), factor, use_pallas=use_pallas)
+    got = ops.binning(img, factor, use_pallas=use_pallas)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)

@@ -1,6 +1,6 @@
-"""K2, K3a/K3b, K4 and K5-K8 against their torch twins, and the staged
-and grid engines and the functional pipelines on the card against the
-CPU.
+"""K2, K3a/K3b, K4, K5-K8 and K9 against their torch twins, and the
+staged and grid engines and the functional pipelines on the card against
+the CPU.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 a fixture, never at import).  On the card:
@@ -11,10 +11,14 @@ Tolerances: ``grid_decode`` and ``category_reduce`` bit-equal (same
 index arithmetic; same summation order, built with ``--fmad=false``);
 block stats min / argmin / counts exact and sums rel 1e-5 (another
 summation order); engines rel 1e-6 on the top-k metric.  ``binning``,
-``stencil_conv`` and ``frame_event`` bit-equal (same order); ``matmul``
-within ``1e-5 * (|a| @ |b|)`` elementwise (another summation order) and
-the same from run to run; the pipelines bit-equal to the CPU's, the DNN
-output by the matmul rule through both layers.
+``stencil_conv`` and ``frame_event`` bit-equal (same order) at f32, f16
+and bf16; ``matmul`` within ``1e-5 * (|a| @ |b|)`` elementwise (another
+summation order; one unit in the last place more for an f16 or bf16
+output) and the same from run to run; ``flash_attention`` within
+``atol = rtol`` 1e-5 (f32), 1e-2 (bf16), 2e-3 (f16), compared in f32
+(another summation order and an online softmax), and the same from run
+to run; the pipelines bit-equal to the CPU's, the DNN output by the
+matmul rule through both layers.
 """
 import importlib
 
@@ -118,14 +122,20 @@ def test_engines_on_cuda_match_cpu(cuda, engine):
 # K5-K8, the functional simulator's kernels
 # ---------------------------------------------------------------------------
 def _rand(cuda, shape, seed, dtype=np.float32):
+    """Seeded normal values of a numpy dtype, or of a torch dtype (made
+    in f32 and rounded: numpy has no bf16)."""
     rng = np.random.default_rng(seed)
+    if isinstance(dtype, torch.dtype):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return x.to(dtype).to(cuda)
     return torch.from_numpy(rng.normal(size=shape).astype(dtype)).to(cuda)
 
 
 @pytest.mark.parametrize("shape,factor,dtype", [
     ((400, 640), 2, np.float32), ((720, 1280), 2, np.float32),
     ((17, 33), 3, np.float32), ((17, 33), 4, np.float32),
-    ((64, 96), 2, np.float16), ((33, 47), 3, np.float16)])
+    ((64, 96), 2, np.float16), ((33, 47), 3, np.float16),
+    ((720, 1280), 2, torch.bfloat16), ((33, 47), 3, torch.bfloat16)])
 def test_binning_matches_twin(cuda, shape, factor, dtype):
     bn = _mod("binning")
     x = _rand(cuda, shape, sum(shape) + factor, dtype)
@@ -150,9 +160,28 @@ def test_stencil_conv_matches_twin(cuda, shape, k):
     assert torch.equal(ker, st.stencil_conv_torch(x, taps))
 
 
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((720, 1280), (3, 3)),
+                                     ((77, 45), (5, 5))])
+def test_stencil_conv_half_matches_twin(cuda, shape, k, dtype):
+    """f16/bf16 frames against f32 and same-dtype taps: the kernel sums
+    in f32, as its twin does at ``acc_dtype=float32``."""
+    st = _mod("stencil_conv")
+    x = _rand(cuda, shape, shape[1], dtype)
+    for taps in (_rand(cuda, k, 5), _rand(cuda, k, 5, dtype)):
+        st.reset_counts()
+        ker = st.stencil_conv(x, taps)
+        torch.cuda.synchronize()
+        assert st.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+        assert ker.dtype == dtype
+        assert torch.equal(ker, st.stencil_conv_torch(
+            x, taps, acc_dtype=torch.float32))
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((200, 320), np.float32), ((33, 47), np.float32),
-    ((33, 47), np.float16)])
+    ((33, 47), np.float16), ((200, 320), torch.bfloat16),
+    ((33, 47), torch.bfloat16)])
 def test_frame_event_matches_twin(cuda, shape, dtype):
     fe = _mod("frame_event")
     cur, prev = _rand(cuda, shape, 1, dtype), _rand(cuda, shape, 2, dtype)
@@ -182,6 +211,75 @@ def test_matmul_matches_twin(cuda, mkn):
     err = (ker.double() - twin.double()).abs().cpu()
     assert (err <= 1e-5 * scale).all(), float((err - 1e-5 * scale).max())
     assert torch.equal(ker, mm.matmul(a, b))          # run to run
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float16)],
+    ids=lambda d: f"{d[0]}@{d[1]}"[6:])
+@pytest.mark.parametrize("mkn", [(1, 64000, 900), (1024, 1024, 1024),
+                                 (130, 150, 70), (5, 3000, 257)])
+def test_matmul_half_matches_twin(cuda, mkn, dtypes):
+    from repro_torch.testing import ulp
+    mm = _mod("matmul")
+    m, k, n = mkn
+    a = _rand(cuda, (m, k), m + k, dtypes[0])
+    b = _rand(cuda, (k, n), k + n, dtypes[1])
+    mm.reset_counts()
+    ker = mm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    twin = mm.matmul_torch(a, b)
+    assert ker.dtype == twin.dtype == dtypes[0]
+    scale = a.double().abs() @ b.double().abs()
+    bound = 1e-5 * scale
+    if dtypes[0] != torch.float32:
+        bound = bound + ulp(torch.maximum(ker.abs(), twin.abs()), dtypes[0])
+    err = (ker.double() - twin.double()).abs()
+    assert (err <= bound).all(), float((err / bound).max())
+    assert torch.equal(ker, mm.matmul(a, b))          # run to run
+
+
+# ---------------------------------------------------------------------------
+# K9, flash attention
+# ---------------------------------------------------------------------------
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", list(FA_TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [
+    (2, 4, 4, 256, 64),       # MHA
+    (2, 8, 2, 200, 32),       # GQA, ragged S
+    (1, 8, 1, 128, 64),       # MQA
+    (1, 4, 2, 1, 16),         # S = 1
+    (1, 4, 2, 127, 128),      # S = 127, the largest head dim
+    (1, 28, 4, 320, 128)])    # qwen2-7b's heads, ragged S
+def test_flash_attention_matches_twin(cuda, shape, causal, dtype):
+    fa = _mod("flash_attention")
+    b, h, hkv, s, d = shape
+    q = _rand(cuda, (b, h, s, d), 1, dtype)
+    k = _rand(cuda, (b, hkv, s, d), 2, dtype)
+    v = _rand(cuda, (b, hkv, s, d), 3, dtype)
+    fa.reset_counts()
+    ker = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    assert ker.dtype == twin.dtype == dtype and ker.shape == q.shape
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
+    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+
+
+def test_flash_attention_refuses_what_it_does_not_stage(cuda):
+    fa = _mod("flash_attention")
+    q = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros(1, 2, 16, 8, device=cuda).transpose(2, 3)
+        fa.flash_attention(x, x, x)
 
 
 def test_functional_pipelines_on_cuda_match_cpu(cuda):

@@ -3,7 +3,7 @@
 ``repro_torch.kernels.frame_event.frame_event_torch`` against
 ``repro.kernels.frame_event`` (the Pallas kernel, in interpret mode on the
 CPU) and ``repro.kernels.ref.frame_event_ref``: exact, at the reference
-test's shapes and thresholds, in f16, on the f32 rounding case
+test's shapes and thresholds, in f16 and bf16, on the f32 rounding case
 ``cur = f32(0.7), prev = 0, threshold = 0.7`` (an event in f32, none in
 f64) and on NaN (no event).
 
@@ -54,6 +54,21 @@ def test_twin_f16_equals_reference_kernel():
                             0.5)
     assert got.dtype == torch.float16
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bf16_equals_each_reference_route(use_pallas):
+    from repro_torch.kernels import ops
+    from repro.kernels import ops as ref_ops
+    cur, prev = (torch.from_numpy(x).to(torch.bfloat16)
+                 for x in _pair((33, 47), seed=6))
+    want = ref_ops.frame_event(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (cur, prev)), 0.5, use_pallas=use_pallas)
+    got = ops.frame_event(cur, prev, 0.5, use_pallas=use_pallas)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 def test_threshold_compares_in_float32():

@@ -4,7 +4,8 @@
   ``explore`` on the grid, staged and fused engines has loaded no
   ``jax*`` module and no ``repro`` / ``repro.*`` module, and neither has
   one that imports ``repro_torch.functional`` and runs ``fig5_pipeline``
-  and ``edgaze_frontend`` on CPU tensors;
+  and ``edgaze_frontend`` on CPU tensors, then
+  ``repro_torch.kernels.ops.flash_attention`` on CPU tensors;
 * an AST scan of every ``src/repro_torch/**/*.py`` and of
   ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
   ``from repro ...``;
@@ -59,6 +60,10 @@ img = torch.rand(64, 96, generator=torch.Generator().manual_seed(0))
 assert tuple(fn.fig5_pipeline(img).shape) == (30, 46)
 events, binned = fn.edgaze_frontend(img, torch.zeros(32, 48))
 assert events.shape == binned.shape == (32, 48)
+from repro_torch.kernels import ops
+q = torch.rand(1, 4, 70, 16, dtype=torch.bfloat16)
+kv = torch.rand(1, 2, 70, 16, dtype=torch.bfloat16)
+assert ops.flash_attention(q, kv, kv).shape == q.shape
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
@@ -67,6 +72,8 @@ sys.exit(1 if bad else 0)
 
 
 def test_functional_on_cpu_loads_no_jax_and_no_repro():
+    """The functional pipelines and ``ops.flash_attention`` on CPU
+    tensors."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _CHILD_FUNCTIONAL],
                           env=env, capture_output=True, text=True,

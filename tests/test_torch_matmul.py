@@ -8,6 +8,12 @@ shapes plus ``(1, 4000, 90)``, a narrow cut of the Ed-Gaze DNN's
 held elementwise to ``|twin - ref| <= 1e-5 * (|a| @ |b|)``, a bound on
 the f32 rounding of any summation order at these depths.
 
+f16 and bf16 operands (each side its own dtype, the output in ``a``'s,
+as the reference allows) go through both ``use_pallas`` routes against
+the reference's: both accumulate in f32, so they are held to the rule
+plus one unit in the last place of the output dtype (each side rounds
+its f32 sum once).
+
 Also: the wrapper's split-K plan, the ``ops`` contract (no TPU block
 keywords), and the CPU wrapper's twin call.
 """
@@ -26,6 +32,10 @@ def _operands(m, k, n, seed):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(m, k)).astype(np.float32),
             rng.normal(size=(k, n)).astype(np.float32))
+
+
+JAX_DTYPE = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16,
+             torch.float32: jnp.float32}
 
 
 def _assert_rule(got, want, a, b):
@@ -107,3 +117,33 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     with pytest.raises(ValueError, match="float32"):
         fn(torch.zeros(3, 5, dtype=torch.float64), torch.zeros(5, 2))
     assert COUNTS["twin_calls"] == 1
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16, torch.float16), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+    (torch.float32, torch.bfloat16)], ids=lambda d: f"{d[0]}@{d[1]}"[6:])
+@pytest.mark.parametrize("mkn", [(130, 70, 150), (1, 4000, 90)])
+def test_half_operands_follow_each_reference_route(mkn, dtypes, use_pallas):
+    from repro_torch.kernels import ops
+    from repro_torch.testing import ulp
+    from repro.kernels import ops as ref_ops
+    m, k, n = mkn
+    a, b = _operands(m, k, n, seed=m + n + len(str(dtypes)))
+    a_t, b_t = torch.from_numpy(a).to(dtypes[0]), torch.from_numpy(b).to(
+        dtypes[1])
+    a_j = jnp.asarray(a_t.float().numpy()).astype(JAX_DTYPE[dtypes[0]])
+    b_j = jnp.asarray(b_t.float().numpy()).astype(JAX_DTYPE[dtypes[1]])
+    blocks = dict(bm=64, bn=64, bk=32) if use_pallas and m > 1 else {}
+    want = np.asarray(ref_ops.matmul(a_j, b_j, use_pallas=use_pallas,
+                                     **blocks).astype(jnp.float32))
+    got = ops.matmul(a_t, b_t, use_pallas=use_pallas)
+    assert got.dtype == dtypes[0] and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    scale = (np.abs(a_t.double().numpy()) @ np.abs(b_t.double().numpy()))
+    both = np.maximum(np.abs(got), np.abs(want))
+    bound = RULE * scale + (ulp(torch.from_numpy(both), dtypes[0]).numpy()
+                            if dtypes[0] != torch.float32 else 0.0)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= bound).all(), float((err / bound).max())
