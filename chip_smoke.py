@@ -34,8 +34,11 @@ launch counters zeroed just before it and read just after:
 * attention — ``ops.flash_attention`` (K9) at the widths of two
   configured models, bf16: qwen2-7b's causal attention at 4096 tokens
   (28 heads over 4 kv heads, D = 128) and whisper-medium's encoder
-  self-attention over its 1500 frames (16 heads, D = 64), each against
-  the twin, timed beside the twin and ``scaled_dot_product_attention``.
+  self-attention over its 1500 frames (16 heads, D = 64), each one
+  launch of the tensor-core (wgmma) route, within one bf16 rounding of
+  the twin, timed beside the twin and ``scaled_dot_product_attention``
+  (whose distance from the twin is reported: it rounds P to bf16 once);
+  then K9's SIMT route (f32) at the same widths.
 
 It times every kernel, prints its findings as JSON lines, and ends with
 the ``kernels`` line and the run's verdict::
@@ -933,15 +936,25 @@ def attention_inputs(b, h, hkv, s, d, seed, dtype):
             gaussian((b, hkv, s, d), seed + 2, dtype))
 
 
-def attention_ops(b, h, s, d, causal, dtype):
-    """``(fp32, half)`` operations the function needs: 4 D per unmasked
-    score, 2 D for q . k and 2 D for p * v.  With f16/bf16 operands the
-    q . k products are of two half values (exact in f32), so half
-    operations; p is f32, so p * v stays FP32."""
-    per_half = 2 * d * (s * (s + 1) // 2 if causal else s * s) * b * h
+def attention_scores(b, h, s, causal):
+    """Unmasked scores: one exp each, and ``D`` products in each of
+    ``Q K^T`` and ``P V``."""
+    return (s * (s + 1) // 2 if causal else s * s) * b * h
+
+
+def attention_ops(b, h, s, d, causal, dtype, route):
+    """``(fp32, half)`` operations of the route's arithmetic per unmasked
+    score.  wgmma: ``2 D`` for q . k and ``4 D`` for the split p . v
+    (``P_hi V + P_lo V``), all products of two f16/bf16 values (exact in
+    f32), so half operations.  SIMT: ``2 D`` for q . k, half operations
+    with f16/bf16 operands, and ``2 D`` FP32 for p . v (p in f32); all
+    ``4 D`` FP32 in f32."""
+    per_d = d * attention_scores(b, h, s, causal)
+    if route == "wgmma":
+        return 0, 6 * per_d
     if dtype == torch.float32:
-        return 2 * per_half, 0
-    return per_half, per_half
+        return 4 * per_d, 0
+    return 2 * per_d, 2 * per_d
 
 
 def half_rule(k, t):
@@ -956,9 +969,10 @@ def half_rule(k, t):
     return float(((kf - tf).abs() / rule).max())
 
 
-def close_case(name, ker, twin, tol):
+def close_case(name, ker, twin, tol, **extra):
     """A kernel against its twin on the same inputs, compared in f32 at
-    ``atol = rtol = tol``, and bit-equal from run to run."""
+    ``atol = rtol = tol``, and bit-equal from run to run; ``extra`` goes
+    into the record."""
     k = ker()
     again = ker()
     torch.cuda.synchronize()
@@ -976,14 +990,15 @@ def close_case(name, ker, twin, tol):
     check(torch.equal(k, again), f"{name}: differs from run to run")
     rec = dict(case=name, shape=list(k.shape), dtype=dtype_name(k.dtype),
                max_abs_err=float(err.max()), tol=tol,
-               max_err_over_one_rounding=ratio)
+               max_err_over_one_rounding=ratio, **extra)
     emit({"kernel_vs_twin": rec})
     return rec
 
 
 def attention_cases(fa):
     """K9 against its twin at each dtype, shape and mask, and in f32 at the
-    attention path's shapes."""
+    attention path's shapes, each on the route the wrapper picks (f16/bf16
+    on wgmma, f32 on SIMT), checked by the route's launch counter."""
     cases = [(dt, shape, causal) for dt in FA_TOL for shape in FA_SHAPES
              for causal in (True, False)]
     cases += [(torch.float32, shape[:5], shape[5])
@@ -991,11 +1006,18 @@ def attention_cases(fa):
     recs = []
     for dt, (b, h, hkv, s, d), causal in cases:
         q, k, v = attention_inputs(b, h, hkv, s, d, s + d, dt)
+        route = fa.route(q, k, v)
+        check(route == ("simt" if dt == torch.float32 else "wgmma"),
+              f"flash {dt} D = {d}: route {route}")
+        fa.reset_counts()
         recs.append(close_case(
             f"flash_{b}x{h}x{hkv}x{s}x{d}_"
             f"{'causal' if causal else 'full'}_{dtype_name(dt)}",
             lambda: fa.flash_attention(q, k, v, causal),
-            lambda: fa.flash_attention_torch(q, k, v, causal), FA_TOL[dt]))
+            lambda: fa.flash_attention_torch(q, k, v, causal), FA_TOL[dt],
+            route=route))
+        check(fa.COUNTS[f"{route}_launches"] == fa.COUNTS["kernel_launches"]
+              == 2, f"flash {dt} {route}: launches {fa.COUNTS}")
         del q, k, v
     return recs
 
@@ -1003,9 +1025,11 @@ def attention_cases(fa):
 def attention_path(fa, kernel_mods):
     """The attention of qwen2_7b and whisper_medium's encoder at full
     width, bf16, through ``ops.flash_attention``, with the launch
-    counters zeroed just before each and read just after; each output is
-    finite, of the query's shape and dtype, and within bf16's tolerance of
-    the twin.  Then the kernel's, twin's and SDPA's times and the bound."""
+    counters zeroed just before each and read just after: one launch, on
+    the wgmma route; each output is finite, of the query's shape and
+    dtype, and within one bf16 rounding of the twin.  Then the kernel's,
+    twin's and SDPA's times, SDPA's distance from the twin (it rounds P to
+    bf16 once) and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     rec = {}
@@ -1021,11 +1045,12 @@ def attention_path(fa, kernel_mods):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = fa.COUNTS["kernel_launches"]
+        wgmma = fa.COUNTS["wgmma_launches"]
         twins = sum(m.COUNTS[c] for m in kernel_mods for c in m.COUNTS
                     if "twin" in c)
-        check(launches == 1 and twins == 0,
-              f"attention {name}: {launches} kernel launches, {twins} twin "
-              f"calls")
+        check(launches == 1 and wgmma == 1 and twins == 0,
+              f"attention {name}: {launches} kernel launches ({wgmma} "
+              f"wgmma), {twins} twin calls")
         check(out.shape == q.shape and out.dtype == q.dtype
               and bool(torch.isfinite(out).all()),
               f"attention {name}: output not finite {tuple(q.shape)} bf16")
@@ -1034,27 +1059,56 @@ def attention_path(fa, kernel_mods):
         ratio = half_rule(out, twin)
         check(ratio <= 1.0, f"attention {name}: off its twin by "
               f"{float(err.max())}, {ratio} x one bf16 rounding")
-        del twin
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
-        lib_diff = float((sdpa().float() - out.float()).abs().max())
+        lib_out = sdpa()
+        lib_diff = float((lib_out.float() - out.float()).abs().max())
+        lib_ratio = half_rule(lib_out, twin)
+        del twin, lib_out
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         times = timing_row(
             f"{b}x{h}x{hkv}x{s}x{d} {'causal' if causal else 'full'} bf16",
             lambda: fa.flash_attention(q, k, v, causal),
             lambda: fa.flash_attention_torch(q, k, v, causal), sdpa, nbytes,
-            attention_ops(b, h, s, d, causal, q.dtype),
-            "flash_attention_kernel",
+            attention_ops(b, h, s, d, causal, q.dtype, "wgmma"),
+            "flash_attention_wgmma_kernel",
             reps=10, plain_reps=3)
+        exps = attention_scores(b, h, s, causal)
         rec[name] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
-                         dtype="bfloat16", wall_s=wall,
-                         kernel_launches=launches, twin_calls=twins,
+                         dtype="bfloat16", route="wgmma", wall_s=wall,
+                         kernel_launches=launches, wgmma_launches=wgmma,
+                         twin_calls=twins,
                          vs_twin_max_abs_err=float(err.max()),
                          vs_twin_over_one_rounding=ratio,
-                         library_vs_kernel_max_abs_diff=lib_diff, **times)
+                         library_vs_kernel_max_abs_diff=lib_diff,
+                         library_over_one_rounding=lib_ratio,
+                         exps=exps, exp_ms=exps / PEAK_SFU * 1e3, **times)
     emit({"attention_path": rec})
+    return rec
+
+
+def attention_f32_timing(fa):
+    """K9's SIMT route (f32 operands) at the attention path's widths: the
+    kernel's, twin's and SDPA's (f32, TF32 off) times and the bound."""
+    import torch.nn.functional as F
+    rec = {}
+    for seed, (name, (b, h, hkv, s, d, causal)) in enumerate(
+            ATTENTION_MODELS.items()):
+        q, k, v = attention_inputs(b, h, hkv, s, d, 100 * seed + 7,
+                                   torch.float32)
+        check(fa.route(q, k, v) == "simt", f"f32 {name}: not on SIMT")
+        rec[name] = timing_row(
+            f"{b}x{h}x{hkv}x{s}x{d} {'causal' if causal else 'full'} f32",
+            lambda: fa.flash_attention(q, k, v, causal),
+            lambda: fa.flash_attention_torch(q, k, v, causal),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            attention_ops(b, h, s, d, causal, q.dtype, "simt"),
+            "flash_attention_kernel", reps=5, plain_reps=2)
+    emit({"attention_f32": rec})
     return rec
 
 
@@ -1297,6 +1351,7 @@ def main() -> int:
 
     # ----- 8. the attention path: K9 (timed there) --------------------------
     attn = attention_path(fa, kernel_mods)
+    attn_f32 = attention_f32_timing(fa)
 
     # ----- 9. timing at the main paths' shapes ------------------------------
     kw = dict(compute=compute, metric="total_j",
@@ -1396,19 +1451,29 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in fcases[name]),
             power_limit=power, **head,
             by_shape=ftimes[name]))
-    by_shape = [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
-                                   "library_ms", "bound_ms", "bound_by",
-                                   "bytes", "operations",
-                                   "half_operations")}
-                for r in attn.values()]
+    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bytes", "operations", "half_operations")
+    by_shape = [{k: r[k] for k in keys} for r in attn.values()]
     entries.append(dict(
         name="flash_attention", route="cuda",
         source=src + "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:35",
-        launches=sum(r["kernel_launches"] for r in attn.values()),
+        kernel="flash_attention_wgmma_kernel (f16/bf16: wgmma, TMA)",
+        launches=sum(r["wgmma_launches"] for r in attn.values()),
         path="attention",
-        max_abs_err=max(r["max_abs_err"] for r in k9),
+        max_abs_err=max(r["max_abs_err"] for r in k9
+                        if r["route"] == "wgmma"),
         power_limit=power, **by_shape[0], by_shape=by_shape))
+    f32_by_shape = [{k: r[k] for k in keys} for r in attn_f32.values()]
+    entries.append(dict(
+        name="flash_attention_simt", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:35",
+        kernel="flash_attention_kernel (f32 and the rest: FP32 FMAs)",
+        launches=0, path="none (f32 operands; checked directly)",
+        max_abs_err=max(r["max_abs_err"] for r in k9
+                        if r["route"] == "simt"),
+        power_limit=power, **f32_by_shape[0], by_shape=f32_by_shape))
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 :func:`ulp` is one unit in the last place of a float dtype at given
 magnitudes: an f16 or bf16 result rounded once from two f32 sums that
 differ by ``e`` may differ by ``e`` plus one ulp, so the kernels' half
-outputs are held to their twins' within that.
+outputs are held to their twins' within that (:func:`half_rule`).
 
 
 No shipped variant set lowers to linear-in-delay analog terms: Ed-Gaze,
@@ -92,3 +92,14 @@ def ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     fi = torch.finfo(dtype)
     return fi.eps * torch.exp2(torch.floor(torch.log2(
         x.abs().double().clamp_min(fi.tiny))))
+
+
+def half_rule(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max over the elements of ``|got - want|`` over one ulp of the half
+    dtype at ``max(|got|, |want|)`` plus ``1e-5 (1 + |want|)`` (another
+    f32 summation order): at most 1 when the two are one rounding of the
+    half dtype apart."""
+    g, w = got.double(), want.double()
+    rule = ulp(torch.maximum(g.abs(), w.abs()), got.dtype) \
+        + 1e-5 * (1.0 + w.abs())
+    return float(((g - w).abs() / rule).max())

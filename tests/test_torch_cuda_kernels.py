@@ -16,15 +16,19 @@ and bf16; ``matmul`` within ``1e-5 * (|a| @ |b|)`` elementwise (another
 summation order; one unit in the last place more for an f16 or bf16
 output) and the same from run to run; ``flash_attention`` within
 ``atol = rtol`` 1e-5 (f32), 1e-2 (bf16), 2e-3 (f16), compared in f32
-(another summation order and an online softmax), and the same from run
-to run; the pipelines bit-equal to the CPU's, the DNN output by the
-matmul rule through both layers.
+(another summation order and an online softmax), its tensor-core route
+also within one rounding of the half output plus ``1e-5 (1 + |twin|)``
+(``repro_torch.testing.half_rule``), and the same from run to run, each
+launch counted on the route that ran; the pipelines bit-equal to the
+CPU's, the DNN output by the matmul rule through both layers.
 """
 import importlib
 
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.testing import half_rule
 
 pytestmark = pytest.mark.cuda
 
@@ -264,12 +268,84 @@ def test_flash_attention_matches_twin(cuda, shape, causal, dtype):
     fa.reset_counts()
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fa.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    assert fa.COUNTS["kernel_launches"] == 1
+    assert fa.COUNTS[f"{fa.route(q, k, v)}_launches"] == 1
+    assert fa.COUNTS["twin_calls"] == 0
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == twin.dtype == dtype and ker.shape == q.shape
     tol = FA_TOL[dtype]
     torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
     assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+
+
+def _wgmma_case(cuda, shape, causal, dtype):
+    """The tensor-core route against the twin: one launch on that route,
+    within FA_TOL and one rounding, bit-equal from run to run."""
+    fa = _mod("flash_attention")
+    b, h, hkv, s, d = shape
+    q = _rand(cuda, (b, h, s, d), s + d, dtype)
+    k = _rand(cuda, (b, hkv, s, d), s + d + 1, dtype)
+    v = _rand(cuda, (b, hkv, s, d), s + d + 2, dtype)
+    assert fa.route(q, k, v) == "wgmma"
+    fa.reset_counts()
+    ker = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 1,
+                         "simt_launches": 0, "twin_calls": 0}
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    assert ker.dtype == dtype and ker.shape == q.shape
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
+    assert half_rule(ker, twin) <= 1.0
+    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 4, 4), (1, 8, 2), (1, 8, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("s", [1, 127, 200, 1500])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_wgmma_matches_twin(cuda, d, s, heads, causal,
+                                            dtype):
+    _wgmma_case(cuda, (*heads, s, d), causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_attention_wgmma_every_head_dim(cuda, d, causal, dtype):
+    _wgmma_case(cuda, (1, 4, 2, 200, d), causal, dtype)
+
+
+def test_flash_attention_simt_route(cuda):
+    """f32, a head dim TMA does not move and a misaligned base go through
+    the SIMT kernel, within FA_TOL of the twin."""
+    fa = _mod("flash_attention")
+    cases = []
+    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
+                     (torch.bfloat16, 12)):
+        cases.append(tuple(_rand(cuda, (1, heads, 130, d), heads + d, dtype)
+                           for heads in (4, 2, 2)))
+    flat = torch.empty(1 * 4 * 130 * 64 + 1, dtype=torch.float16,
+                       device=cuda)
+    q = flat[1:].view(1, 4, 130, 64)
+    q.copy_(_rand(cuda, (1, 4, 130, 64), 7, torch.float16))
+    cases.append((q, *(_rand(cuda, (1, 2, 130, 64), 8 + i, torch.float16)
+                       for i in range(2))))
+    for q, k, v in cases:
+        assert fa.route(q, k, v) == "simt"
+        fa.reset_counts()
+        ker = fa.flash_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
+                             "simt_launches": 1, "twin_calls": 0}
+        tol = FA_TOL[q.dtype]
+        torch.testing.assert_close(
+            ker.float(), fa.flash_attention_torch(q, k, v, True).float(),
+            rtol=tol, atol=tol)
 
 
 def test_flash_attention_refuses_what_it_does_not_stage(cuda):

@@ -15,11 +15,18 @@ online: they differ by < 1e-6 at these sizes); bf16 1e-2 and f16 2e-3
 (one rounding of the output dtype, an ulp of 2^-8 and 2^-11 relative,
 on top of that).  The twin's query chunk changes nothing beyond 1e-6.
 
-For CPU tensors the wrapper counts a twin call; the CUDA kernel is held
-against the twin on the card (``tests/test_torch_cuda_kernels.py``,
-``chip_smoke.py``).
+For CPU tensors the wrapper counts a twin call; the CUDA kernels are
+held against the twin on the card (``tests/test_torch_cuda_kernels.py``,
+``chip_smoke.py``).  The arithmetic of the tensor-core route, P split
+into two halves before it multiplies V, is emulated here in plain torch
+(:func:`_split_pv_emulation`) and held against the twin within one
+rounding of the half output plus ``1e-5 (1 + |twin|)``
+(``repro_torch.testing.half_rule``, the card's rule in ``chip_smoke.py``);
+a P rounded once to the half dtype misses that rule by far, which is why
+the kernel splits it.
 """
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +34,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as ref_ops
+from repro_torch.testing import half_rule
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
@@ -123,7 +131,8 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     (q, _), (k, _), (v, _) = _qkv((1, 4, 2, 9, 16), 2, torch.float32)
     reset_counts()
     out = fn(q, k, v)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    assert COUNTS == {"kernel_launches": 0, "wgmma_launches": 0,
+                      "simt_launches": 0, "twin_calls": 1}
     assert out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError, match="not a multiple"):
         fn(q[:, :3], k, v)
@@ -137,3 +146,89 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     with pytest.raises(ValueError, match="one dtype"):
         fn(q, k.half(), v.half())
     assert COUNTS["twin_calls"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _split_pv_emulation(q, k, v, causal, split=True, bn=64):
+    """The wgmma route of ``csrc/flash_attention.cu`` in plain torch, for
+    the tests only: f32 scores of exact half products (summed in f64,
+    rounded to f32) times ``1/sqrt(D)``; an online softmax in f32 over
+    tiles of ``bn`` kv rows from a running max of -1e30; P (scaled by
+    2^8 for f16) as ``P_hi = half(P)`` plus ``P_lo = half(P - P_hi)``,
+    each times V, accumulated in f32; ``acc / max(l, 1e-30)`` rounded once.
+    ``split=False`` drops ``P_lo``: P rounded once, as SDPA rounds it."""
+    dt = q.dtype
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    pscale = 256.0 if dt == torch.float16 else 1.0
+    scores = (q.double() @ k.double().repeat_interleave(group, dim=1)
+              .transpose(-1, -2)).float() * scale
+    if causal:
+        rows = torch.arange(s)
+        scores = scores.masked_fill(rows[None, :] > rows[:, None],
+                                    float("-inf"))
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, bn):
+        tile = scores[..., k0:k0 + bn]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        p = torch.exp(tile - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        ps = p * pscale
+        hi = ps.to(dt).float()
+        acc = acc * alpha + hi @ vf[..., k0:k0 + bn, :]
+        if split:
+            acc = acc + (ps - hi).to(dt).float() @ vf[..., k0:k0 + bn, :]
+    return ((acc / pscale) / l.clamp_min(1e-30)).to(dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_split_p_arithmetic_within_one_rounding_of_twin(shape, causal,
+                                                        dtype):
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    (q, _), (k, _), (v, _) = _qkv(shape, sum(shape) + 3 * causal, dtype)
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    emulated = _split_pv_emulation(q, k, v, causal)
+    assert emulated.dtype == dtype and emulated.shape == twin.shape
+    assert half_rule(emulated, twin) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+def test_one_rounded_p_misses_the_rule(dtype):
+    """At S = 1024, D = 128, causal, the split P stays within one rounding
+    of the twin while a P rounded once to the half dtype does not: the
+    reason the kernel multiplies V twice."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    (q, _), (k, _), (v, _) = _qkv((1, 4, 2, 1024, 128), 11, dtype)
+    twin = fa.flash_attention_torch(q, k, v, True)
+    assert half_rule(_split_pv_emulation(q, k, v, True), twin) <= 1.0
+    assert half_rule(_split_pv_emulation(q, k, v, True, split=False),
+                      twin) > 2.0
+
+
+def test_route_picks_the_tensor_cores_for_aligned_half_operands():
+    from repro_torch.kernels.flash_attention import route
+    (q, _), (k, _), (v, _) = _qkv((1, 4, 2, 16, 64), 4, torch.float32)
+    assert route(q, k, v) == "simt"
+    for dt in (torch.bfloat16, torch.float16):
+        qh, kh, vh = q.to(dt), k.to(dt), v.to(dt)
+        assert route(qh, kh, vh) == "wgmma"
+        # D = 12: rows of 24 bytes, which TMA does not move
+        assert route(qh[..., :12].contiguous(), kh[..., :12].contiguous(),
+                     vh[..., :12].contiguous()) == "simt"
+        # a base 2 bytes past an aligned one
+        flat = torch.empty(qh.numel() + 1, dtype=dt)
+        shifted = flat[1:].view(qh.shape)
+        assert shifted.is_contiguous() and route(shifted, kh, vh) == "simt"
+
