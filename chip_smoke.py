@@ -9,14 +9,19 @@ per source, all nine started together): K1 ``fused_sweep.cu``, K2
 K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8 ``matmul.cu``, and
 K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
 twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
-in f16 and bf16), then drives every engine of ``explore()``, the
-functional simulator and the attention path at full width, each with the
-launch counters zeroed just before it and read just after:
+in f16 and bf16; K8 on each of its three routes, the wgmma route also
+with positive operands at K = 16384, where its own f32 sums are held to
+the rule, and offset views on the tile route; K9 also with mixed operand
+dtypes and head dims past 128 on its SIMT route), then drives every
+engine of ``explore()``, the functional simulator and the attention path
+at full width, each with the launch counters zeroed just before it and
+read just after:
 
 * fused (the main path) — the ``mega_sweep`` space (all 5 Ed-Gaze + 3
   Rhythmic variants, 1.26e7 design points, ``chunk_size=2**18``,
   ``k=3``) through K1, checked against the twin lane, the int64 index
-  path and the scalar ``estimate_energy`` oracle;
+  path and the scalar ``estimate_energy`` oracle; ``progress`` calls and
+  the host syncs of ``pipeline_depth=1`` counted exactly;
 * staged — the same space through K2 -> banked evaluator -> K3a, equal
   to the fused result;
 * chunked (through ``auto``) — Ed-Gaze over the mega grids without
@@ -40,8 +45,9 @@ launch counters zeroed just before it and read just after:
   (whose distance from the twin is reported: it rounds P to bf16 once);
   then K9's SIMT route (f32) at the same widths.
 
-It times every kernel, prints its findings as JSON lines, and ends with
-the ``kernels`` line and the run's verdict::
+It times every kernel (K8 also at 4096^3 bf16, with a probe of its tile
+widths, tensor-map encodes and enqueue times), prints its findings as
+JSON lines, and ends with the ``kernels`` line and the run's verdict::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -549,15 +555,37 @@ def dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def matmul_case(mm, *, name, m, k, n, seed, dtypes=(torch.float32,) * 2):
+def matmul_case(mm, *, name, m, k, n, seed, dtypes=(torch.float32,) * 2,
+                positive=False, offset=False):
     """K8 against its twin: |kernel - twin| <= 1e-5 * (|a| @ |b|)
     elementwise (another summation order), plus one unit in the last place
-    of an f16 or bf16 output (each side rounds its f32 sum once), and
-    equal from run to run."""
+    of an f16 or bf16 output (each side rounds its f32 sum once), equal
+    from run to run, and one launch on the route that :func:`plan` picks.
+    ``positive``: operands uniform in [0, 1), where a truncating
+    accumulator's bias adds up along K; ``offset``: ``a`` is a contiguous
+    view 2 or 4 bytes past a 16-byte boundary (no TMA base)."""
     from repro_torch.testing import ulp
-    a = gaussian((m, k), seed, dtypes[0])
-    b = gaussian((k, n), seed + 1, dtypes[1])
+    if positive:
+        rng = np.random.default_rng(seed)
+        a, b = (torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+                .to(dt).cuda() for shape, dt in (((m, k), dtypes[0]),
+                                                 ((k, n), dtypes[1])))
+    else:
+        a = gaussian((m, k), seed, dtypes[0])
+        b = gaussian((k, n), seed + 1, dtypes[1])
+    if offset:
+        flat = torch.empty(m * k + 1, dtype=a.dtype, device="cuda")
+        a = flat[1:].view(m, k).copy_(a)
+        check(a.is_contiguous() and a.data_ptr() % 16 != 0,
+              f"{name}: the view is aligned")
+    route = mm.plan(m, n, k, a.dtype, b.dtype,
+                    a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                    torch.cuda.get_device_properties(0).multi_processor_count
+                    ).route
+    mm.reset_counts()
     ker = mm.matmul(a, b)
+    check(mm.COUNTS[f"{route}_launches"] == mm.COUNTS["kernel_launches"]
+          == 1, f"{name}: launches {mm.COUNTS} (route {route})")
     again = mm.matmul(a, b)
     torch.cuda.synchronize()
     twin = mm.matmul_torch(a, b)
@@ -571,11 +599,32 @@ def matmul_case(mm, *, name, m, k, n, seed, dtypes=(torch.float32,) * 2):
     check(ratio <= 1.0, f"{name}: matmul off its twin by {ratio} x the rule")
     check(torch.equal(ker, again), f"{name}: matmul differs run to run")
     rec = dict(case=name, mkn=[m, k, n],
-               dtypes=[dtype_name(d) for d in dtypes],
+               dtypes=[dtype_name(d) for d in dtypes], route=route,
                max_abs_err=float(err.max()) if err.numel() else 0.0,
                max_err_over_rule=ratio)
+    if positive and route == "wgmma":
+        rec["f32_sums_over_rule"] = wgmma_f32_sums(mm, a, b, name)
     emit({"kernel_vs_twin": rec})
     return rec
+
+
+def wgmma_f32_sums(mm, a, b, name):
+    """The wgmma route's own f32 sums, before the output's rounding hides
+    them: a two-way split plan writes them to an f32 scratch, added here
+    in f64, held to 1e-5 * (|a| @ |b|) of the twin's f32 sums."""
+    (m, k), n = a.shape, b.shape[1]
+    depth = -(-k // 2 // 64) * 64
+    part = torch.empty((2, m, n), dtype=torch.float32, device="cuda")
+    mm.run(a, b, mm.Plan("wgmma", 64, 2, depth), part=part)
+    torch.cuda.synchronize()
+    got = part.double().sum(0)
+    twin = mm.matmul_torch(a.float(), b.float()).double()
+    ratio = float(((got - twin).abs()
+                   / (MATMUL_RULE * (a.double().abs() @ b.double().abs()))
+                   ).max())
+    check(ratio <= 1.0, f"{name}: the wgmma route's f32 sums off the twin's "
+          f"by {ratio} x the rule")
+    return ratio
 
 
 def functional_kernel_cases(fmods):
@@ -630,23 +679,42 @@ def functional_kernel_cases(fmods):
     check(fe.frame_event(cur, prev, 0.7).tolist() == [[1.0, 0.0, 0.0]],
           "frame_event: 0.7 rounding case")
     cases["frame_event"].append(rec)
-    for (m, k, n), dts in (((1, 64000, 900), (f32, f32)),
-                           ((1, 900, 2), (f32, f32)),
-                           ((130, 150, 70), (f32, f32)),
-                           ((1, 64, 1), (f32, f32)),
-                           ((1024, 1024, 1024), (f32, f32)),
-                           ((7, 5000, 333), (f32, f32)),
-                           ((1, 64000, 900), (bf16, bf16)),
-                           ((1, 64000, 900), (f16, f16)),
-                           ((1024, 1024, 1024), (bf16, bf16)),
-                           ((1024, 1024, 1024), (f16, f16)),
-                           ((130, 150, 70), (bf16, f32)),
-                           ((7, 5000, 333), (f32, f16))):
+    # (m, k, n), dtypes, the route the plan must pick, and the options:
+    # ragged M and N, K % 64 != 0 and split K on the wgmma route; positive
+    # operands at K = 16384; an offset view, which must take the tile route
+    for (m, k, n), dts, want, opts in (
+            ((1, 64000, 900), (f32, f32), "skinny", {}),
+            ((1, 900, 2), (f32, f32), "skinny", {}),
+            ((130, 150, 70), (f32, f32), "tile", {}),
+            ((1, 64, 1), (f32, f32), "skinny", {}),
+            ((1024, 1024, 1024), (f32, f32), "tile", {}),
+            ((7, 5000, 333), (f32, f32), "skinny", {}),
+            ((1, 64000, 900), (bf16, bf16), "skinny", {}),
+            ((1, 64000, 900), (f16, f16), "skinny", {}),
+            ((1024, 1024, 1024), (bf16, bf16), "wgmma", {}),
+            ((1024, 1024, 1024), (f16, f16), "wgmma", {}),
+            ((4096, 4096, 4096), (bf16, bf16), "wgmma", {}),
+            ((130, 150, 70), (bf16, f32), "tile", {}),
+            ((7, 5000, 333), (f32, f16), "skinny", {}),
+            ((130, 72, 1000), (f16, f16), "wgmma", {}),
+            ((130, 72, 1000), (bf16, bf16), "wgmma", {}),
+            ((9, 1024, 4096), (f16, f16), "wgmma", {}),
+            ((9, 1024, 4096), (bf16, bf16), "wgmma", {}),
+            ((1000, 200, 4104), (f16, f16), "wgmma", {}),
+            ((1000, 200, 4104), (bf16, bf16), "wgmma", {}),
+            ((256, 16384, 256), (f16, f16), "wgmma", dict(positive=True)),
+            ((256, 16384, 256), (bf16, bf16), "wgmma", dict(positive=True)),
+            ((1024, 1024, 1024), (f32, f32), "tile", dict(positive=True)),
+            ((130, 64, 72), (bf16, bf16), "tile", dict(offset=True)),
+            ((1000, 200, 4104), (f16, f16), "tile", dict(offset=True))):
         tag = "" if dts == (f32, f32) else \
             f"_{dtype_name(dts[0])}@{dtype_name(dts[1])}"
-        cases["matmul"].append(matmul_case(
-            mm, name=f"matmul_{m}x{k}x{n}{tag}", m=m, k=k, n=n,
-            seed=m + k + n, dtypes=dts))
+        tag += "".join(f"_{key}" for key in opts)
+        rec = matmul_case(mm, name=f"matmul_{m}x{k}x{n}{tag}", m=m, k=k,
+                          n=n, seed=m + k + n, dtypes=dts, **opts)
+        check(rec["route"] == want, f"{rec['case']}: route {rec['route']}, "
+              f"not {want}")
+        cases["matmul"].append(rec)
     return cases
 
 
@@ -754,9 +822,15 @@ def functional_path(fmods, kernel_mods):
         check(launches == want and twins == 0,
               f"functional {name}: launches {launches} (want {want}), "
               f"{twins} twin calls")
+        # the DNN's two products (M = 1) both run the skinny kernel
+        routes = {r: counts["matmul"][f"{r}_launches"]
+                  for r in ("wgmma", "tile", "skinny")}
+        check(routes["skinny"] == launches["matmul"],
+              f"functional {name}: matmul routes {routes}")
         rec[name] = {"frames": FUNC_FRAMES, "wall_s": wall,
                      "frames_per_s": FUNC_FRAMES / wall,
                      "kernel_launches": launches, "twin_calls": twins,
+                     "matmul_route_launches": routes,
                      "launches_per_frame": expected[name]}
 
     # the first frames against the same pipelines on the CPU
@@ -835,6 +909,8 @@ def functional_timing(fmods, inputs):
     events = fe.frame_event(ev_a, ev_b, EDGAZE_THRESHOLD).reshape(1, -1)
     hidden = torch.relu(mm.matmul(events, inputs["w1"]))
     big_a, big_b = gaussian((1024, 1024), 1), gaussian((1024, 1024), 2)
+    huge_a = gaussian((4096, 4096), 3, torch.bfloat16)
+    huge_b = gaussian((4096, 4096), 4, torch.bfloat16)
     halves = (torch.float16, torch.bfloat16)
 
     def label(shape, x):
@@ -865,14 +941,14 @@ def functional_timing(fmods, inputs):
                 lambda: fe.frame_event_torch(a, b, EDGAZE_THRESHOLD),
                 None, 3 * a.element_size() * a.numel(), 3 * a.numel())
 
-    def matmul_row(a, b):
+    def matmul_row(a, b, plain_reps=5):
         (m, k), n = a.shape, b.shape[1]
         ops = 2 * m * n * k
         halves_only = a.dtype == b.dtype and a.dtype in halves
         return (label(f"{m}x{k}x{n}", a), lambda: mm.matmul(a, b),
                 lambda: mm.matmul_torch(a, b), lambda: torch.matmul(a, b),
                 a.element_size() * (m * k + m * n) + b.element_size() * k * n,
-                (0, ops) if halves_only else (ops, 0))
+                (0, ops) if halves_only else (ops, 0), plain_reps)
 
     rows = {
         "binning": ("binning_kernel",
@@ -891,14 +967,69 @@ def functional_timing(fmods, inputs):
                                matmul_row(big_a, big_b)]
                    + [matmul_row(x.to(dt), w.to(dt)) for dt in halves
                       for x, w in ((events, inputs["w1"]),
-                                   (big_a, big_b))]),
+                                   (big_a, big_b))]
+                   + [matmul_row(huge_a, huge_b, plain_reps=1)]),
     }
     out = {}
     for name, (needle, shape_rows) in rows.items():
         out[name] = [timing_row(label_, ker, plain, lib, nbytes, nops,
-                                needle)
-                     for label_, ker, plain, lib, nbytes, nops in shape_rows]
+                                needle, plain_reps=rest[0] if rest else 5)
+                     for label_, ker, plain, lib, nbytes, nops, *rest
+                     in shape_rows]
+    out["matmul_probe"] = matmul_probe(mm, events, inputs["w1"], hidden,
+                                       inputs["w2"], big_a, big_b)
     return out
+
+
+def host_us(fn, reps=50):
+    """Host microseconds a call of ``fn`` takes to enqueue its work (no
+    synchronise inside the window; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def matmul_probe(mm, events, w1, hidden, w2, big_a, big_b):
+    """What K8's design choices cost, measured here: the tile width (and a
+    two-way K split) at 1024^3 on the wgmma and tile routes (device ms of
+    each plan), the host time of encoding the wgmma route's two tensor
+    maps, and the host time a wrapper call takes to enqueue, for the
+    GEMV in f16 and bf16, the (1, 900, 2) layer and 1024^3 bf16."""
+    lib = mm.load_kernel_library()
+    big_h = big_a.to(torch.bfloat16), big_b.to(torch.bfloat16)
+    plans = {}
+    for route, (a, b) in (("wgmma", big_h), ("tile", (big_a, big_b))):
+        unit = 64 if route == "wgmma" else 16
+        for tile_n, splits in ((128, 1), (64, 1), (128, 2)):
+            p = mm.Plan(route, tile_n, splits, -(-1024 // splits // unit)
+                        * unit)
+            plans[f"{route}_n{tile_n}_s{splits}"] = device_ms(
+                lambda: mm.run(a, b, p), "matmul_")
+    encode = lib.repro_matmul_encode_us(big_h[0].data_ptr(),
+                                        big_h[1].data_ptr(), 2, 1024, 1024,
+                                        1024, 2000)
+    enqueue = {}
+    for label_, a, b in (("gemv_f16", events.half(), w1.half()),
+                         ("gemv_bf16", events.bfloat16(), w1.bfloat16()),
+                         ("gemv_f32", events, w1),
+                         ("1x900x2", hidden, w2),
+                         ("1024^3_bf16", *big_h)):
+        enqueue[label_] = host_us(lambda: mm.matmul(a, b))
+    rec = {"device_ms_by_plan_1024^3": plans,
+           "chosen_plan_1024^3": {r: mm.plan(1024, 1024, 1024, dt, dt, True,
+                                             torch.cuda.get_device_properties(
+                                                 0).multi_processor_count
+                                             )._asdict()
+                                  for r, dt in (("wgmma", torch.bfloat16),
+                                                ("tile", torch.float32))},
+           "tensor_map_encode_us": encode, "enqueue_us": enqueue}
+    emit({"matmul_probe": rec})
+    return rec
 
 
 def split_ops(nops):
@@ -1003,16 +1134,30 @@ def attention_cases(fa):
              for causal in (True, False)]
     cases += [(torch.float32, shape[:5], shape[5])
               for shape in ATTENTION_MODELS.values()]
+    # mixed operand dtypes and head dims past 128: the SIMT route
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    cases += [((bf16, f32, f16), (1, 4, 2, 200, 64), True),
+              ((f32, bf16, bf16), (1, 4, 2, 200, 128), False),
+              ((f16, f16, f32), (2, 8, 2, 127, 40), True),
+              (f32, (1, 4, 2, 200, 160), True),
+              (bf16, (1, 4, 2, 200, 256), False),
+              (f16, (1, 4, 4, 130, 160), True)]
     recs = []
     for dt, (b, h, hkv, s, d), causal in cases:
-        q, k, v = attention_inputs(b, h, hkv, s, d, s + d, dt)
+        dts = dt if isinstance(dt, tuple) else (dt,) * 3
+        q = gaussian((b, h, s, d), s + d, dts[0])
+        k = gaussian((b, hkv, s, d), s + d + 1, dts[1])
+        v = gaussian((b, hkv, s, d), s + d + 2, dts[2])
+        dt = dts[0]
         route = fa.route(q, k, v)
-        check(route == ("simt" if dt == torch.float32 else "wgmma"),
-              f"flash {dt} D = {d}: route {route}")
+        simt = dt == torch.float32 or len(set(dts)) > 1 or d > 128
+        check(route == ("simt" if simt else "wgmma"),
+              f"flash {dts} D = {d}: route {route}")
         fa.reset_counts()
         recs.append(close_case(
             f"flash_{b}x{h}x{hkv}x{s}x{d}_"
-            f"{'causal' if causal else 'full'}_{dtype_name(dt)}",
+            f"{'causal' if causal else 'full'}_"
+            f"{'_'.join(dict.fromkeys(dtype_name(x) for x in dts))}",
             lambda: fa.flash_attention(q, k, v, causal),
             lambda: fa.flash_attention_torch(q, k, v, causal), FA_TOL[dt],
             route=route))
@@ -1090,8 +1235,10 @@ def attention_path(fa, kernel_mods):
 
 
 def attention_f32_timing(fa):
-    """K9's SIMT route (f32 operands) at the attention path's widths: the
-    kernel's, twin's and SDPA's (f32, TF32 off) times and the bound."""
+    """K9's SIMT route at the attention path's widths: f32 operands (the
+    kernel's, twin's and SDPA's (f32, TF32 off) times and the bound), and
+    mixed operands, a bf16 q over f32 k and v (the mixed-dtype kernel; no
+    single library call takes mixed dtypes)."""
     import torch.nn.functional as F
     rec = {}
     for seed, (name, (b, h, hkv, s, d, causal)) in enumerate(
@@ -1099,8 +1246,9 @@ def attention_f32_timing(fa):
         q, k, v = attention_inputs(b, h, hkv, s, d, 100 * seed + 7,
                                    torch.float32)
         check(fa.route(q, k, v) == "simt", f"f32 {name}: not on SIMT")
+        mode = 'causal' if causal else 'full'
         rec[name] = timing_row(
-            f"{b}x{h}x{hkv}x{s}x{d} {'causal' if causal else 'full'} f32",
+            f"{b}x{h}x{hkv}x{s}x{d} {mode} f32",
             lambda: fa.flash_attention(q, k, v, causal),
             lambda: fa.flash_attention_torch(q, k, v, causal),
             lambda: F.scaled_dot_product_attention(
@@ -1108,8 +1256,40 @@ def attention_f32_timing(fa):
             q.element_size() * (2 * q.numel() + 2 * k.numel()),
             attention_ops(b, h, s, d, causal, q.dtype, "simt"),
             "flash_attention_kernel", reps=5, plain_reps=2)
+        qm = q.to(torch.bfloat16)
+        check(fa.route(qm, k, v) == "simt", f"mixed {name}: not on SIMT")
+        rec[f"{name}_mixed"] = timing_row(
+            f"{b}x{h}x{hkv}x{s}x{d} {mode} bf16 q, f32 k v",
+            lambda: fa.flash_attention(qm, k, v, causal),
+            lambda: fa.flash_attention_torch(qm, k, v, causal), None,
+            qm.element_size() * 2 * qm.numel() + k.element_size() * 2
+            * k.numel(),
+            attention_ops(b, h, s, d, causal, torch.float32, "simt"),
+            "flash_attention_kernel_any", reps=5, plain_reps=2)
     emit({"attention_f32": rec})
     return rec
+
+
+def ptxas_by_entry(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
+    spills"}``, the kernel names demangled by ``c++filt`` where it runs."""
+    entries, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            entries[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            entries[cur].append(ln.split(":", 1)[-1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(entries),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(entries):
+        names = list(entries)
+    return {name.replace("(anonymous namespace)::", "").split("(")[0]:
+            "; ".join(v) for name, v in zip(names, entries.values())}
 
 
 def reset_all(mods) -> None:
@@ -1155,9 +1335,7 @@ def main() -> int:
         mod.load_kernel_library()
     emit({"build": {
         "seconds": time.perf_counter() - t0,
-        "ptxas": {name: [ln.strip() for ln in
-                         cuda_build.build_info(name)["log"].splitlines()
-                         if "registers" in ln or "spill" in ln]
+        "ptxas": {name: ptxas_by_entry(cuda_build.build_info(name)["log"])
                   for name in KERNEL_SOURCES}}})
 
     # ----- 2. each kernel vs its twin on the card ---------------------------
@@ -1213,9 +1391,18 @@ def main() -> int:
     k3b = [stats_case(sr, name="stats_banked_8_variants", values=vals,
                       mask=mask, bp=4096, variant=vid, n_variants=8)]
     e_main, w_main = reduce_inputs(CHUNK, 11, 10, 3)
-    e_rag, w_rag = reduce_inputs(100_003, 11, 10, 4)
-    k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main),
-          reduce_case(cr, name="reduce_ragged", e=e_rag, w=w_rag)]
+    k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main)]
+    # ragged B around a block's 256 rows, odd and even U, U past the 32
+    # units staged at a time, each column capacity (8, 10, 16, 32)
+    for b, u, c in ((100_003, 11, 10), (1, 11, 10), (255, 11, 10),
+                    (257, 32, 32), (CHUNK + 3, 11, 10), (1000, 6, 8),
+                    (4099, 33, 17), (513, 12, 16), (700, 64, 32)):
+        e_c, w_c = reduce_inputs(b, u, c, b + u + c)
+        k4.append(reduce_case(cr, name=f"reduce_{b}x{u}x{c}", e=e_c, w=w_c))
+    e_off = torch.empty(1000 * 11 + 1, device="cuda")[1:].view(1000, 11)
+    e_off.copy_(reduce_inputs(1000, 11, 10, 5)[0])
+    k4.append(reduce_case(cr, name="reduce_unaligned_rows", e=e_off,
+                          w=w_main))
     fcases = functional_kernel_cases(fmods)
     k9 = attention_cases(fa)
 
@@ -1227,7 +1414,16 @@ def main() -> int:
     launches = fs.COUNTS["kernel_launches"]
     twin_calls = fs.COUNTS["twin_calls"]
     # folding stays on the device, so only prep and finalize may
-    # synchronise, never once per chunk
+    # synchronise, never once per chunk.  The sync debug mode's first use
+    # in a process counts one sync more (seen on the card), so a probe
+    # runs first and the counts that follow are exact.
+    def event_wait():
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+    count_syncs(event_wait)
+    wait_counted = count_syncs(event_wait)
+    check(wait_counted in (0, 1), f"an event wait counts {wait_counted}")
     syncs = count_syncs(lambda: explore(space, engine="fused",
                                         chunk_size=CHUNK, k=3))
     check(syncs < launches, f"main path: {syncs} host syncs for "
@@ -1239,6 +1435,25 @@ def main() -> int:
     check(len(res.topk) == 3 and all(
         math.isfinite(r[key]) for r in res.topk for key in r
         if isinstance(r[key], float)), "main path: top-k rows not finite")
+    # progress fires once per dispatch with the host-known points covered;
+    # pipeline_depth = 1 makes the host wait on the oldest dispatch's event
+    # dispatches - 1 times, a wait that copies no data.  Whether the sync
+    # debug mode counts an event wait is probed above, so the count is
+    # exact.
+    calls = []
+    paced = explore(space, engine="fused", chunk_size=CHUNK, k=3,
+                    pipeline_depth=1,
+                    progress=lambda done, span: calls.append((done, span)))
+    check(len(calls) == paced.dispatches == res.dispatches
+          and calls[-1] == (MEGA_POINTS, MEGA_POINTS)
+          and all(a[0] < b[0] for a, b in zip(calls, calls[1:])),
+          f"main path: progress calls {calls}")
+    compare_results("paced_vs_main", paced, res)
+    paced_syncs = count_syncs(lambda: explore(
+        space, engine="fused", chunk_size=CHUNK, k=3, pipeline_depth=1))
+    want_syncs = syncs + wait_counted * max(0, res.dispatches - 1)
+    check(paced_syncs == want_syncs, f"main path at pipeline_depth=1: "
+          f"{paced_syncs} host syncs, want {want_syncs}")
     emit({"main_path": {
         "points": res.n_points, "n_feasible": res.n_feasible,
         "points_per_s": res.points_per_sec, "eval_s": res.eval_s,
@@ -1246,6 +1461,8 @@ def main() -> int:
         "dispatches": res.dispatches, "superchunk": res.superchunk,
         "occupancy": res.occupancy, "kernel_launches": launches,
         "twin_calls": twin_calls, "host_syncs": syncs,
+        "progress_calls": len(calls), "event_wait_counts_as_sync":
+        bool(wait_counted), "host_syncs_at_pipeline_depth_1": paced_syncs,
         "best_total_j": res.topk[0]["total_j"]}})
 
     fs.reset_counts()
@@ -1293,8 +1510,12 @@ def main() -> int:
           f"staged: engine {st.engine}, {st.dispatches} dispatches")
     check(st_counts["decode"] == n_chunks and st_counts["stats"] == n_chunks
           and st_counts["twins"] == 0, f"staged: launches {st_counts}")
-    check(st_syncs < st_counts["decode"], f"staged: {st_syncs} host syncs "
-          f"for {st_counts['decode']} chunks")
+    # the default pipeline_depth of 4 waits on an event after each of the
+    # last n_chunks - 4 dispatches
+    st_waits = wait_counted * max(0, n_chunks - 4)
+    check(st_syncs - st_waits < st_counts["decode"], f"staged: {st_syncs} "
+          f"host syncs ({st_waits} event waits) for {st_counts['decode']} "
+          f"chunks")
     st_worst = compare_results("staged_vs_fused", st, res)
     emit({"staged_path": {
         "points": st.n_points, "eval_s": st.eval_s,
@@ -1302,6 +1523,7 @@ def main() -> int:
         "grid_decode_launches": st_counts["decode"],
         "block_stats_launches": st_counts["stats"],
         "twin_calls": st_counts["twins"], "host_syncs": st_syncs,
+        "event_waits_counted": st_waits,
         "vs_fused_max_rel_err": st_worst}})
 
     # ----- 5. chunked through auto: K4 --------------------------------------
@@ -1443,13 +1665,18 @@ def main() -> int:
         launches_f = sum(func[p]["kernel_launches"][name]
                          for p in ("edgaze", "fig5", "rhythmic"))
         head = ftimes[name][0]
+        extra = {}
+        if name == "matmul":
+            extra = {f"{r}_launches": func["edgaze"]["matmul_route_launches"][r]
+                     for r in ("wgmma", "tile", "skinny")}
+            extra["probe"] = ftimes["matmul_probe"]
         entries.append(dict(
             name=name, route="cuda", source=src + f"{name}.cu",
             replaces=f"src/repro/kernels/{name}.py:{line}",
             launches=launches_f,
             path="functional (edgaze + fig5 + rhythmic)",
             max_abs_err=max(r["max_abs_err"] for r in fcases[name]),
-            power_limit=power, **head,
+            power_limit=power, **head, **extra,
             by_shape=ftimes[name]))
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "bytes", "operations", "half_operations")
@@ -1469,7 +1696,8 @@ def main() -> int:
         name="flash_attention_simt", route="cuda",
         source=src + "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:35",
-        kernel="flash_attention_kernel (f32 and the rest: FP32 FMAs)",
+        kernel="flash_attention_kernel (f32: FP32 FMAs); "
+               "flash_attention_kernel_any (mixed dtypes, D > 128)",
         launches=0, path="none (f32 operands; checked directly)",
         max_abs_err=max(r["max_abs_err"] for r in k9
                         if r["route"] == "simt"),

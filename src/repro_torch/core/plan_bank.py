@@ -268,3 +268,19 @@ def bank_from_reference(arrays: Dict[str, np.ndarray], dims,
                          f"{(dims.n_variants, width)}")
     fused = torch.from_numpy(fused.copy()).to(device)
     return PlanBank(dims=dims, plans=[], arrays={"fused": fused})
+
+
+def evaluate_bank(bank: PlanBank, variant_ids, points
+                  ) -> Dict[str, np.ndarray]:
+    """Host convenience: score ``points`` with per-point variant selection.
+
+    ``points`` is a :class:`~repro_torch.core.batch.DesignPoints` on the
+    bank's device; ``variant_ids`` picks each point's bank row.  The
+    mixed-variant evaluator (``batch.banked_eval_fn``) runs once per
+    distinct variant of the batch; the outputs come back as host numpy
+    arrays, as the reference's ``evaluate_bank`` returns them.  A test
+    and oracle entry point: sweeps go through ``repro_torch.explore``.
+    """
+    from .batch import banked_eval_fn
+    out = banked_eval_fn(bank.dims)(bank, variant_ids, points)
+    return {k: v.cpu().numpy() for k, v in out.items()}

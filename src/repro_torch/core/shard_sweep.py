@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -420,6 +420,29 @@ def _finalize(prep: _StreamPrep, host: Dict[str, np.ndarray], compute,
     return n_feasible, summaries, rows
 
 
+class _Pacer:
+    """Bounds the dispatches in flight on a CUDA device: one event is
+    recorded after each, and the host waits on the oldest once more than
+    ``depth`` are pending (the reference blocks on the oldest dispatch's
+    counts, ``repro/core/shard_sweep.py:1097-1101``).  On the CPU every
+    dispatch has finished when it returns, so nothing is recorded."""
+
+    def __init__(self, device: torch.device, depth: int):
+        self.on_cuda = device.type == "cuda"
+        self.depth = int(depth)
+        self.device = device
+        self.inflight: List[torch.cuda.Event] = []
+
+    def dispatched(self) -> None:
+        if not self.on_cuda:
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self.inflight.append(ev)
+        if len(self.inflight) > self.depth:
+            self.inflight.pop(0).synchronize()
+
+
 def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  grids: Optional[Dict[str, Sequence]] = None, *,
                  soc_node: int = 22, chunk_size: int = 1 << 18,
@@ -427,7 +450,9 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  block_points: int = 4096,
                  index_range: Optional[Tuple[int, int]] = None,
                  superchunk: Optional[int] = None, backend: str = "auto",
-                 engine: str = "fused", device="cuda") -> StreamResult:
+                 engine: str = "fused", device="cuda",
+                 progress: Optional[Callable[[int, int], None]] = None,
+                 pipeline_depth: int = 4) -> StreamResult:
     """Stream a cartesian sweep of any size through the fused megakernel
     (``engine="fused"``) or the staged pipeline (``engine="staged"``).
 
@@ -444,6 +469,12 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     CPU).  Staged: one dispatch per chunk, chunks aligned to variant
     boundaries; the kernels of the device run (twins on the CPU), so
     ``backend`` must stay ``"auto"``.
+
+    ``progress(done, span)`` fires after every dispatch with the points
+    covered so far, computed on the host from the chunk bounds.  On a
+    CUDA device each dispatch records an event, and the host waits on
+    the oldest once more than ``pipeline_depth`` are in flight, so it
+    never runs unboundedly ahead of the card (a wait copies no data).
     """
     t_start = time.perf_counter()
     if engine not in ("fused", "staged"):
@@ -501,6 +532,7 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        pace = _Pacer(device, pipeline_depth)
         for d0 in range(c_lo, c_hi, s_len):
             for c in range(d0, min(d0 + s_len, c_hi)):   # dead: nothing
                 vi, r = divmod(c, cpv)
@@ -517,12 +549,20 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                                   vi, state, k)
             dispatches += 1
             _STATS["dispatches"] += 1
+            pace.dispatched()
+            if progress is not None:
+                vi_l, r_l = divmod(min(d0 + s_len, c_hi) - 1, cpv)
+                end = min(vi_l * n_var + (r_l + 1) * chunk,
+                          (vi_l + 1) * n_var, hi)
+                progress(max(end - lo, 0), hi - lo)
     else:
         s_len = 1
         _, eval_uniform = build_banked_eval(bank.dims)
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        pace = _Pacer(device, pipeline_depth)
+        done = 0
         # chunks are aligned to variant boundaries so each one is
         # variant-uniform (the evaluator reads one coefficient row);
         # `limit` masks both the variant's end and the index_range end
@@ -536,6 +576,10 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                     vi, state, k)
                 dispatches += 1
                 _STATS["dispatches"] += 1
+                pace.dispatched()
+                done += min(start + chunk, vhi) - start
+                if progress is not None:
+                    progress(done, hi - lo)
 
     # ----- the sweep's one host sync, then O(k + V) host work -------------
     host = {key: val.cpu().numpy() for key, val in state.items()}
@@ -553,3 +597,20 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         engine=engine, dispatches=dispatches, superchunk=s_len,
         occupancy=((hi - lo) / dispatched if dispatched else 1.0),
         n_var=n_var, backend=backend, kernel_mode=backend)
+
+
+def sweep_stream(*_args, **_kwargs):
+    """The reference's deprecated ``sweep_stream()`` shim, left out of the
+    port on purpose: raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "repro_torch does not port the reference's deprecated "
+        "sweep_stream() shim (ROADMAP Queue 1, differences kept on "
+        "purpose); call repro_torch.explore.explore(DesignSpace(...), "
+        "engine='fused' or 'staged') instead")
+
+
+def evaluate_batch_sharded(*_args, **_kwargs):
+    """The reference's multi-device batch evaluator: not ported yet."""
+    raise NotImplementedError(
+        "evaluate_batch_sharded is not ported to repro_torch yet (ROADMAP "
+        "P8, multi-device sweeps); evaluate_batch runs on one device")

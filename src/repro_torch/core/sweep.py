@@ -212,3 +212,13 @@ def scalar_sweep(algorithm: str, result_params: Dict[str, np.ndarray],
         rows.append(scalar_point(algorithm,
                                  str(result_params["variant"][i]), **kwargs))
     return rows
+
+
+def sweep(*_args, **_kwargs):
+    """The reference's deprecated ``sweep()`` shim, left out of the port
+    on purpose: raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "repro_torch does not port the reference's deprecated sweep() shim "
+        "(ROADMAP Queue 1, differences kept on purpose); call "
+        "repro_torch.explore.explore(DesignSpace(...), engine='monolithic' "
+        "or 'chunked') instead")

@@ -1,6 +1,7 @@
 // Flash attention with a GQA head map (Hopper, sm_90a): q [B, H, S, D],
 // k and v [B, Hkv, S, D] with H % Hkv == 0, out [B, H, S, D] in q's dtype
-// (f32, f16 or bf16; all three operands share it).  Query head h reads kv
+// (each operand f32, f16 or bf16, as the reference casts each to f32), any
+// D >= 1.  Query head h reads kv
 // head h / (H / Hkv).  Scores are f32(q) . f32(k) times 1/sqrt(D), masked
 // to row >= col under `causal`, and go through an online softmax in f32;
 // the output is acc / max(l, 1e-30), rounded once (to nearest even) to the
@@ -19,10 +20,11 @@
 // (repro_torch/kernels/flash_attention.py::route):
 //
 // * the tensor-core route (repro_flash_attention_wgmma) for f16/bf16
-//   operands with D a multiple of 8 up to 128 and 16-byte-aligned bases;
-// * the SIMT route (repro_flash_attention) for everything else it takes:
-//   f32 (whose function does not survive the tensor cores' TF32 within
-//   1e-5) and the rest, D up to 128.
+//   operands of one dtype with D a multiple of 8 up to 128 and
+//   16-byte-aligned bases;
+// * the SIMT route (repro_flash_attention) for everything else: f32
+//   (whose function does not survive the tensor cores' TF32 within 1e-5),
+//   mixed operand dtypes and any D.
 //
 // What bounds it on the card: the operations.  For qwen2-7b's attention at
 // S = 4096 (H = 28, Hkv = 4, D = 128, causal) the tensor-core route does
@@ -88,8 +90,14 @@
 //     kv tile skips that tile's arithmetic.
 //   * P V: the warp's probabilities go through shared memory; lane c owns
 //     columns c, c + 32, ... of the f32 accumulator of each of its rows.
-// Head dims up to kMaxD = 128 are taken (staged as 32, 64 or 128 columns,
-// zero-filled past D); the wrapper's _MAX_D holds the same cap.
+// Operands of one dtype with D up to kMaxD = 128 run a kernel of that
+// dtype, staged as 32, 64 or 128 columns (zero-filled past D).  Mixed
+// dtypes, or D > 128, run flash_attention_kernel_any, which reads each
+// operand through its dtype code and tiles D in chunks of 128 columns:
+// each score sums its D products chunk by chunk from column 0, and each
+// 128-column chunk of the output repeats the kv walk (so for D > 128 it
+// computes the scores D / 128 times over; no configured model has such a
+// head dim).
 //
 // Plain C interfaces (repro_flash_attention, repro_flash_attention_wgmma)
 // for ctypes; the Python wrapper is
@@ -122,17 +130,71 @@ constexpr size_t smem_floats() {
          + (size_t)kWarps * kRowsPerWarp * kRows;   // probabilities
 }
 
-// Rows [r0, r0 + 64) of a [s, d] slab into dst as f32 (row stride ld),
-// zero past row s and past column d.
-template <typename T, int DP>
-__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
-                                      int ld, int r0, int s, int d) {
+// Operand access of the SIMT kernels.  The kernels of one dtype read
+// typed pointers; the mixed kernel (flash_attention_kernel_any) reads
+// each operand through its own runtime dtype code (0 f32, 1 f16, 2 bf16)
+// and writes the output in q's: one kernel, where typed loads per operand
+// would be 27 dtype combinations times three staged widths.
+struct AnyDtype {
+  const void* p;
+  int code;
+};
+struct AnyOut {
+  void* p;
+  int code;
+};
+
+template <typename T>
+__device__ __forceinline__ float load(const T* p, long long i) {
+  return to_f32(p[i]);
+}
+__device__ __forceinline__ float load(AnyDtype a, long long i) {
+  if (a.code == 0) return static_cast<const float*>(a.p)[i];
+  if (a.code == 1) return __half2float(static_cast<const __half*>(a.p)[i]);
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(a.p)[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* advance(const T* p, long long i) {
+  return p + i;
+}
+__device__ __forceinline__ AnyDtype advance(AnyDtype a, long long i) {
+  return {static_cast<const char*>(a.p) + i * (a.code == 0 ? 4 : 2), a.code};
+}
+
+template <typename T>
+__device__ __forceinline__ void store(T* p, long long i, float x) {
+  p[i] = from_f32<T>(x);
+}
+__device__ __forceinline__ void store(AnyOut o, long long i, float x) {
+  if (o.code == 0) {
+    static_cast<float*>(o.p)[i] = x;
+  } else if (o.code == 1) {
+    static_cast<__half*>(o.p)[i] = __float2half_rn(x);
+  } else {
+    static_cast<__nv_bfloat16*>(o.p)[i] = __float2bfloat16_rn(x);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T* advance_out(T* p, long long i) {
+  return p + i;
+}
+__device__ __forceinline__ AnyOut advance_out(AnyOut o, long long i) {
+  return {static_cast<char*>(o.p) + i * (o.code == 0 ? 4 : 2), o.code};
+}
+
+// Rows [r0, r0 + 64) and columns [c0, c0 + DP) of a [s, d] slab into dst
+// as f32 (row stride ld), zero past row s and past column d.
+template <int DP, typename Src>
+__device__ __forceinline__ void stage(Src src, float* dst, int ld, int r0,
+                                      int s, int d, int c0) {
   for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
     const int r = i / DP;
     const int c = i - r * DP;
     const int gr = r0 + r;
     float x = 0.f;
-    if (gr < s && c < d) x = to_f32(src[(long long)gr * d + c]);
+    if (gr < s && c0 + c < d) x = load(src, (long long)gr * d + c0 + c);
     dst[r * ld + c] = x;
   }
 }
@@ -153,11 +215,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DP>
-__device__ __forceinline__ void simt_block(const T* __restrict__ q,
-                                           const T* __restrict__ k,
-                                           const T* __restrict__ v,
-                                           T* __restrict__ out, int h,
+// One block's 64 query rows.  Without kTiled the head dim fits DP and Q is
+// staged once.  kTiled (the mixed kernel, DP = 128) takes any d: the
+// output is written DP columns at a time, each after its own kv walk, and
+// every score sums its d products over DP-column chunks of Q and K in
+// order from column 0, so each walk sees the same scores and softmax.
+template <int DP, bool kTiled, typename QP, typename KP, typename VP,
+          typename OP>
+__device__ __forceinline__ void simt_block(QP q, KP k, VP v, OP out, int h,
                                            int hkv, int s, int d,
                                            float scale, int causal) {
   constexpr int kCols = DP / 32;               // accumulator columns a lane
@@ -174,119 +239,129 @@ __device__ __forceinline__ void simt_block(const T* __restrict__ q,
   const int n_qt = (s + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;   // longest first
   const long long slab = (long long)s * d;
-  const T* kp = k + kvh * slab;
-  const T* vp = v + kvh * slab;
-  stage<T, DP>(q + bh * slab, s_q, DP, q0, s, d);
+  const QP qp = advance(q, bh * slab);
+  const KP kp = advance(k, kvh * slab);
+  const VP vp = advance(v, kvh * slab);
+  const int n_dc = kTiled ? (d + DP - 1) / DP : 1;   // column chunks of d
+  if (n_dc == 1) stage<DP>(qp, s_q, DP, q0, s, d, 0);
 
   const int last_row = min(q0 + kRows, s) - 1;
   const int n_kt = causal ? last_row / kRows + 1 : n_qt;
   const int wr0 = q0 + warp * kRowsPerWarp;    // the warp's first row
   const float* q_w = s_q + warp * kRowsPerWarp * DP;
+  const OP o = advance_out(out, bh * slab);
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+  for (int oc = 0; oc < n_dc; ++oc) {          // the output's column chunk
+    float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kMaxInit;
-    l[r] = 0.f;
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      m[r] = kMaxInit;
+      l[r] = 0.f;
 #pragma unroll
-    for (int t = 0; t < kCols; ++t) acc[r][t] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kRows;
-    __syncthreads();                 // the last tile is consumed, Q staged
-    stage<T, DP>(kp, s_k, DP + 1, k0, s, d);
-    stage<T, DP>(vp, s_v, DP, k0, s, d);
-    __syncthreads();
-    if (wr0 >= s || (causal && wr0 + kRowsPerWarp - 1 < k0)) continue;
-
-    // scores of kv rows k0 + lane and k0 + lane + 32
-    float sc[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) sc[r][0] = sc[r][1] = 0.f;
-    const float* k_a = s_k + lane * (DP + 1);
-    const float* k_b = s_k + (lane + 32) * (DP + 1);
-#pragma unroll 2
-    for (int c = 0; c < DP; c += 4) {
-      float ka[4], kb[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ka[u] = k_a[c + u];
-        kb[u] = k_b[c + u];
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_w + r * DP + c);
-        sc[r][0] = fmaf(qv.x, ka[0], sc[r][0]);
-        sc[r][0] = fmaf(qv.y, ka[1], sc[r][0]);
-        sc[r][0] = fmaf(qv.z, ka[2], sc[r][0]);
-        sc[r][0] = fmaf(qv.w, ka[3], sc[r][0]);
-        sc[r][1] = fmaf(qv.x, kb[0], sc[r][1]);
-        sc[r][1] = fmaf(qv.y, kb[1], sc[r][1]);
-        sc[r][1] = fmaf(qv.z, kb[2], sc[r][1]);
-        sc[r][1] = fmaf(qv.w, kb[3], sc[r][1]);
-      }
+      for (int t = 0; t < kCols; ++t) acc[r][t] = 0.f;
     }
 
-    // online softmax, one row at a time across the warp
-    const int c0 = k0 + lane;
-    const int c1 = c0 + 32;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * kRows;
+      const bool idle = wr0 >= s || (causal && wr0 + kRowsPerWarp - 1 < k0);
+      // scores of kv rows k0 + lane and k0 + lane + 32
+      float sc[kRowsPerWarp][2];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) sc[r][0] = sc[r][1] = 0.f;
+      for (int dc = 0; dc < n_dc; ++dc) {
+        __syncthreads();               // the last tile is consumed, Q staged
+        if (n_dc > 1) stage<DP>(qp, s_q, DP, q0, s, d, dc * DP);
+        stage<DP>(kp, s_k, DP + 1, k0, s, d, dc * DP);
+        if (dc == n_dc - 1) stage<DP>(vp, s_v, DP, k0, s, d, oc * DP);
+        __syncthreads();
+        if (idle) continue;
+        const float* k_a = s_k + lane * (DP + 1);
+        const float* k_b = s_k + (lane + 32) * (DP + 1);
+#pragma unroll 2
+        for (int c = 0; c < DP; c += 4) {
+          float ka[4], kb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            ka[u] = k_a[c + u];
+            kb[u] = k_b[c + u];
+          }
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(q_w + r * DP + c);
+            sc[r][0] = fmaf(qv.x, ka[0], sc[r][0]);
+            sc[r][0] = fmaf(qv.y, ka[1], sc[r][0]);
+            sc[r][0] = fmaf(qv.z, ka[2], sc[r][0]);
+            sc[r][0] = fmaf(qv.w, ka[3], sc[r][0]);
+            sc[r][1] = fmaf(qv.x, kb[0], sc[r][1]);
+            sc[r][1] = fmaf(qv.y, kb[1], sc[r][1]);
+            sc[r][1] = fmaf(qv.z, kb[2], sc[r][1]);
+            sc[r][1] = fmaf(qv.w, kb[3], sc[r][1]);
+          }
+        }
+      }
+      if (idle) continue;
+
+      // online softmax, one row at a time across the warp
+      const int c0 = k0 + lane;
+      const int c1 = c0 + 32;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int row = wr0 + r;
+        float s0 = sc[r][0] * scale;
+        float s1 = sc[r][1] * scale;
+        if (c0 >= s || (causal && c0 > row)) s0 = -INFINITY;
+        if (c1 >= s || (causal && c1 > row)) s1 = -INFINITY;
+        const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
+        const float p0 = expf(s0 - m_new);
+        const float p1 = expf(s1 - m_new);
+        const float alpha = expf(m[r] - m_new);
+        l[r] = l[r] * alpha + warp_sum(p0 + p1);
+        m[r] = m_new;
+        s_p[r * kRows + lane] = p0;
+        s_p[r * kRows + lane + 32] = p1;
+#pragma unroll
+        for (int t = 0; t < kCols; ++t) acc[r][t] = acc[r][t] * alpha;
+      }
+      __syncwarp();
+
+      // acc += P V over the tile's 64 kv rows, in order
+#pragma unroll 2
+      for (int j = 0; j < kRows; j += 4) {
+        float vv[4][kCols];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int t = 0; t < kCols; ++t) {
+            vv[u][t] = s_v[(j + u) * DP + lane + 32 * t];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float4 pj =
+              *reinterpret_cast<const float4*>(s_p + r * kRows + j);
+#pragma unroll
+          for (int t = 0; t < kCols; ++t) {
+            acc[r][t] = fmaf(pj.x, vv[0][t], acc[r][t]);
+            acc[r][t] = fmaf(pj.y, vv[1][t], acc[r][t]);
+            acc[r][t] = fmaf(pj.z, vv[2][t], acc[r][t]);
+            acc[r][t] = fmaf(pj.w, vv[3][t], acc[r][t]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int row = wr0 + r;
-      float s0 = sc[r][0] * scale;
-      float s1 = sc[r][1] * scale;
-      if (c0 >= s || (causal && c0 > row)) s0 = -INFINITY;
-      if (c1 >= s || (causal && c1 > row)) s1 = -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p0 + p1);
-      m[r] = m_new;
-      s_p[r * kRows + lane] = p0;
-      s_p[r * kRows + lane + 32] = p1;
+      if (row >= s) break;
+      const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-      for (int t = 0; t < kCols; ++t) acc[r][t] = acc[r][t] * alpha;
-    }
-    __syncwarp();
-
-    // acc += P V over the tile's 64 kv rows, in order
-#pragma unroll 2
-    for (int j = 0; j < kRows; j += 4) {
-      float vv[4][kCols];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) {
-          vv[u][t] = s_v[(j + u) * DP + lane + 32 * t];
-        }
+      for (int t = 0; t < kCols; ++t) {
+        const int c = oc * DP + lane + 32 * t;
+        if (c < d) store(o, (long long)row * d + c, acc[r][t] / denom);
       }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 pj = *reinterpret_cast<const float4*>(s_p + r * kRows + j);
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) {
-          acc[r][t] = fmaf(pj.x, vv[0][t], acc[r][t]);
-          acc[r][t] = fmaf(pj.y, vv[1][t], acc[r][t]);
-          acc[r][t] = fmaf(pj.z, vv[2][t], acc[r][t]);
-          acc[r][t] = fmaf(pj.w, vv[3][t], acc[r][t]);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-  T* o = out + bh * slab;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = wr0 + r;
-    if (row >= s) break;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      const int c = lane + 32 * t;
-      if (c < d) o[(long long)row * d + c] = from_f32<T>(acc[r][t] / denom);
     }
   }
 }
@@ -296,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int h,
                        int hkv, int s, int d, float scale, int causal) {
-  simt_block<T, DP>(q, k, v, out, h, hkv, s, d, scale, causal);
+  simt_block<DP, false>(q, k, v, out, h, hkv, s, d, scale, causal);
 }
 
 // DP = 64: three blocks fit an SM's shared memory (65,792 B each) when a
@@ -309,7 +384,16 @@ flash_attention_kernel_d64(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int h, int hkv, int s, int d, float scale,
                            int causal) {
-  simt_block<T, 64>(q, k, v, out, h, hkv, s, d, scale, causal);
+  simt_block<64, false>(q, k, v, out, h, hkv, s, d, scale, causal);
+}
+
+// Operands of mixed dtypes, or a head dim past kMaxD: each operand read
+// through its dtype code, d tiled in 128-column chunks.
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel_any(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out,
+                           int h, int hkv, int s, int d, float scale,
+                           int causal) {
+  simt_block<kMaxD, true>(q, k, v, out, h, hkv, s, d, scale, causal);
 }
 
 template <typename T, int DP>
@@ -321,22 +405,27 @@ constexpr auto simt_kernel() {
   }
 }
 
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* out,
-           long long bh, int h, int hkv, int s, int d, float scale,
-           int causal, cudaStream_t stream) {
+template <int DP, typename Kernel, typename... Args>
+int launch_simt(Kernel kernel, long long bh, int s, cudaStream_t stream,
+                Args... args) {
   constexpr size_t smem = sizeof(float) * smem_floats<DP>();
-  auto kernel = simt_kernel<T, DP>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)bh, (unsigned)((s + kRows - 1) / kRows));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, h, hkv, s, d, scale,
-      causal);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DP>
+int launch(const void* q, const void* k, const void* v, void* out,
+           long long bh, int h, int hkv, int s, int d, float scale,
+           int causal, cudaStream_t stream) {
+  return launch_simt<DP>(simt_kernel<T, DP>(), bh, s, stream, (const T*)q,
+                         (const T*)k, (const T*)v, (T*)out, h, hkv, s, d,
+                         scale, causal);
 }
 
 template <typename T>
@@ -788,24 +877,33 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // out[b, h, s, d] = softmax(scale * q k^T (masked)) v over contiguous
-// device tensors q [b, h, s, d], k and v [b, hkv, s, d], out like q, all
-// of one dtype: 0 float32, 1 float16, 2 bfloat16.  bh = b * h.  Returns
-// the cudaError_t of the launch (0 on success).
+// device tensors q [b, h, s, d], k and v [b, hkv, s, d], out like q in q's
+// dtype; each operand's dtype code: 0 float32, 1 float16, 2 bfloat16.
+// bh = b * h.  One dtype and d <= kMaxD run the kernels of that dtype;
+// mixed dtypes or a larger d the mixed kernel.  Returns the cudaError_t
+// of the launch (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int dtype, long long bh, int h, int hkv,
-                          int s, int d, float scale, int causal,
-                          void* stream) {
+                          void* out, int q_dtype, int k_dtype, int v_dtype,
+                          long long bh, int h, int hkv, int s, int d,
+                          float scale, int causal, void* stream) {
+  const auto bad_code = [](int c) { return c < 0 || c > 2; };
   if (bh < 1 || bh > 0x7fffffffLL || h < 1 || hkv < 1 || h % hkv ||
       bh % h || s < 1 || (s + kRows - 1) / kRows > 65535 || d < 1 ||
-      d > kMaxD || dtype < 0 || dtype > 2) {
+      bad_code(q_dtype) || bad_code(k_dtype) || bad_code(v_dtype)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
+  if (q_dtype != k_dtype || q_dtype != v_dtype || d > kMaxD) {
+    return launch_simt<kMaxD>(flash_attention_kernel_any, bh, s, st,
+                              AnyDtype{q, q_dtype}, AnyDtype{k, k_dtype},
+                              AnyDtype{v, v_dtype}, AnyOut{out, q_dtype}, h,
+                              hkv, s, d, scale, causal);
+  }
+  if (q_dtype == 0) {
     return launch_d<float>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
                            st);
   }
-  if (dtype == 1) {
+  if (q_dtype == 1) {
     return launch_d<__half>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
                             st);
   }

@@ -243,6 +243,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
 // 8j + 2(lane%4) + {0, 1} in d[4j..4j+1] and d[4j+2..4j+3]):
 //   ss_n64     d[32] (+)= A . B, m64n64k16, A and B K-major in shared
 //              memory; scale_d = 0 overwrites d;
+//   ss_n{64,128}_tb  d (+)= A . B, m64n{64,128}k16, A K-major and B
+//              MN-major in shared memory;
 //   rs_n{64,128}_tb  d (+)= A . B, m64n{64,128}k16, A from registers (the
 //              A fragment: pairs (row lane/4, cols 2(lane%4) + {0, 1}),
 //              (row + 8, same), (row, cols + 8), (row + 8, cols + 8)),
@@ -254,6 +256,22 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
                  HOPPER_ACC32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"              \
                  : HOPPER_ACC32_OPS(d)                                       \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                  \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_n64_tb(                          \
+      float(&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+                 HOPPER_ACC32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"              \
+                 : HOPPER_ACC32_OPS(d)                                       \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                  \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_n128_tb(                         \
+      float(&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB    \
+                 " " HOPPER_ACC64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"          \
+                 : HOPPER_ACC64_OPS(d)                                       \
                  : "l"(desc_a), "l"(desc_b), "r"(scale_d));                  \
   }                                                                          \
   static __device__ __forceinline__ void rs_n64_tb(                          \

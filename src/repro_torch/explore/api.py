@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -239,9 +239,10 @@ def _validate_request(k, chunk_size) -> None:
 def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
             engine: str = "auto", chunk_size: Optional[int] = None,
             strict: bool = False, block_points: int = 4096,
+            progress: Optional[Callable[[int, int], None]] = None,
             index_range: Optional[Tuple[int, int]] = None,
-            superchunk: Optional[int] = None, backend: str = "auto",
-            device="cuda", mesh=None,
+            pipeline_depth: int = 4, superchunk: Optional[int] = None,
+            backend: str = "auto", device="cuda", mesh=None,
             checkpoint_dir: Optional[str] = None, campaign=None,
             workers: Optional[int] = None, service=None) -> ExploreResult:
     """Score a :class:`DesignSpace`; one entry point for every engine.
@@ -254,8 +255,10 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
     2^18).  ``strict`` (grid engines) raises on pipeline stalls and
     infeasible points, like the scalar oracle.  ``block_points`` (the
     kernels' reduction block), ``superchunk`` (fused chunk ordinals per
-    dispatch) and ``index_range=(lo, hi)`` (stream only that slice of
-    the flat index space) tune the streaming engines.
+    dispatch), ``index_range=(lo, hi)`` (stream only that slice of the
+    flat index space), ``progress`` (called as ``progress(done, span)``
+    after every dispatch) and ``pipeline_depth`` (dispatches in flight
+    before the host waits for the oldest) tune the streaming engines.
 
     ``device`` (default ``"cuda"``) is where the sweep runs; ``backend``
     (fused engine) is ``"cuda"`` (the hand-written CUDA kernel),
@@ -289,8 +292,10 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
 
     if engine in ("monolithic", "chunked"):
         for name, val, default in (("index_range", index_range, None),
+                                   ("progress", progress, None),
                                    ("superchunk", superchunk, None),
                                    ("block_points", block_points, 4096),
+                                   ("pipeline_depth", pipeline_depth, 4),
                                    ("backend", backend, "auto")):
             if val != default:
                 raise ValueError(f"{name}= requires a streaming engine "
@@ -309,7 +314,7 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         chunk_size=chunk_size or _DEFAULT_CHUNK, metric=metric, k=k,
         block_points=block_points, index_range=index_range,
         superchunk=superchunk, backend=backend, engine=engine,
-        device=device)
+        device=device, progress=progress, pipeline_depth=pipeline_depth)
     return ExploreResult(
         space=space, engine=st.engine, metric=st.metric, k=st.k,
         n_points=st.n_points, n_feasible=st.n_feasible,

@@ -7,9 +7,13 @@ per-unit energies folds into per-category totals (plus the total and
 on-sensor columns) against a ``[U, C]`` weight matrix.
 
 * :func:`category_reduce` — the wrapper around the hand-written CUDA
-  kernel ``repro_torch/csrc/category_reduce.cu`` (one thread per row,
-  weights in shared memory).  For a CUDA tensor it launches the kernel or
-  raises; for a CPU tensor it runs the twin.
+  kernel ``repro_torch/csrc/category_reduce.cu``: a block of 256 rows
+  copies its contiguous ``[256, U]`` slice of the energies into shared
+  memory with coalesced 16-byte loads, each thread sums its row's C
+  columns in registers, and the ``[256, C]`` results leave as one
+  coalesced span.  It is bound by the bytes it moves, ``4 (U + C)`` a
+  row.  For a CUDA tensor it launches the kernel or raises; for a CPU
+  tensor it runs the twin.
 * :func:`category_reduce_torch` — the plain-torch twin: accumulates
   ``out[:, c] += e[:, u] * w[u, c]`` over ``u = 0 .. U-1`` in order, the
   kernel's order, so the two agree bit for bit on the card.

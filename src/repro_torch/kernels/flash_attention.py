@@ -9,17 +9,20 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
 ``[B, H, S, D]`` in ``q.dtype``.
 
 * :func:`flash_attention` — the wrapper around the hand-written CUDA
-  kernels of ``repro_torch/csrc/flash_attention.cu``.  It takes f32, f16
-  or bf16 operands of one dtype, any ``S >= 1`` and head dims up to 128,
-  and picks one of two routes (:func:`route`):
+  kernels of ``repro_torch/csrc/flash_attention.cu``.  Each operand is
+  f32, f16 or bf16 (the reference casts each to f32; the output is in
+  ``q.dtype``), with any ``S >= 1`` and any head dim, and it picks one of
+  two routes (:func:`route`):
 
-  - ``"wgmma"``, f16/bf16 with ``D % 8 == 0`` and 16-byte-aligned
-    bases: Hopper's tensor cores.  K/V tiles arrive by TMA into a ring of
-    shared-memory stages; ``Q K^T`` and ``P V`` are ``wgmma`` products with
-    f32 accumulators, and P keeps its f32 precision as the sum of two
-    halves, ``P_hi + P_lo``, each multiplied by V;
-  - ``"simt"``, everything else (f32 above all): FP32 on the CUDA cores,
-    K/V staged as f32 in shared memory.
+  - ``"wgmma"``, f16/bf16 operands of one dtype with ``D % 8 == 0``,
+    ``D <= 128`` and 16-byte-aligned bases: Hopper's tensor cores.  K/V
+    tiles arrive by TMA into a ring of shared-memory stages; ``Q K^T`` and
+    ``P V`` are ``wgmma`` products with f32 accumulators, and P keeps its
+    f32 precision as the sum of two halves, ``P_hi + P_lo``, each
+    multiplied by V;
+  - ``"simt"``, everything else (f32 above all, mixed dtypes, D > 128):
+    FP32 on the CUDA cores, K/V staged as f32 in shared memory, D tiled
+    in 128-column chunks past 128.
 
   For CUDA tensors it launches the route's kernel or raises; for CPU
   tensors it runs the twin.  It takes no block sizes: ``bq``/``bk`` were
@@ -63,7 +66,7 @@ COUNTS: Dict[str, int] = {"kernel_launches": 0, "wgmma_launches": 0,
 
 #: dtypes the kernel takes, with their codes in the C interface
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: the largest head dim the kernels stage (``kMaxD`` in the .cu source)
+#: the largest head dim of the wgmma route (``kMaxD`` in the .cu source)
 _MAX_D = 128
 #: dtypes the wgmma route takes
 _HALF = (torch.float16, torch.bfloat16)
@@ -98,11 +101,15 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor,
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention` launches for CUDA operands:
-    ``"wgmma"`` (tensor cores) for f16/bf16 with ``D`` a multiple of 8 (TMA
-    moves rows of 16-byte multiples) and every base 16-byte aligned (a
-    tensor map's address), ``"simt"`` otherwise."""
+    ``"wgmma"`` (tensor cores) for f16/bf16 operands of one dtype with
+    ``D`` a multiple of 8 (TMA moves rows of 16-byte multiples) up to 128
+    and every base 16-byte aligned (a tensor map's address), ``"simt"``
+    otherwise."""
+    d = q.shape[-1]
+    same = k.dtype == q.dtype and v.dtype == q.dtype
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    if q.dtype in _HALF and q.shape[-1] % 8 == 0 and aligned:
+    if q.dtype in _HALF and same and d % 8 == 0 and d <= _MAX_D \
+            and aligned:
         return "wgmma"
     return "simt"
 
@@ -149,9 +156,9 @@ def load_kernel_library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     lib.repro_flash_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention_wgmma.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -169,14 +176,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On CUDA tensors it launches the kernel of :func:`route` on the
     current stream (no synchronisation) or raises; on CPU tensors it runs
-    the twin.  The operands are f32, f16 or bf16, of one dtype; the
-    kernels take them contiguous, on one device, with ``D <= 128``.
+    the twin.  Each operand is f32, f16 or bf16 and the output is in
+    ``q.dtype``; the kernels take them contiguous, on one device.
     """
     b, h, hkv, s, d = _check_shapes(q, k, v)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes q, k, v of one dtype, "
-                         f"float32, float16 or bfloat16, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    if any(t.dtype not in _DTYPES for t in (q, k, v)):
+        raise ValueError(f"flash_attention takes float32, float16 or "
+                         f"bfloat16 operands, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     dev = q.device
     if dev.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
@@ -184,10 +191,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{dev}, {k.device}, {v.device}")
-    check_operands("flash_attention", dev, (q.dtype,), q=q, k=k, v=v)
-    if d > _MAX_D:
-        raise ValueError(f"flash_attention stages head dims up to {_MAX_D}, "
-                         f"got D = {d}")
+    check_operands("flash_attention", dev, tuple(_DTYPES), q=q, k=k, v=v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -201,8 +205,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         launch("flash_attention", lib.repro_flash_attention, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               _DTYPES[q.dtype], b * h, h, hkv, s, d, scale,
-               int(bool(causal)))
+               _DTYPES[q.dtype], _DTYPES[k.dtype], _DTYPES[v.dtype],
+               b * h, h, hkv, s, d, scale, int(bool(causal)))
         COUNTS["simt_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return out

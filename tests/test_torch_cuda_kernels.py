@@ -88,18 +88,38 @@ def test_block_stats_match_twins(cuda, n, bp):
         np.testing.assert_allclose(ks, ts, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("b,u", [(1, 1), (1000, 6), (100_003, 11)])
-def test_category_reduce_matches_twin(cuda, b, u):
+@pytest.mark.parametrize("b,u,c", [
+    (1, 1, 10), (1000, 6, 10), (100_003, 11, 10), (255, 11, 10),
+    (257, 32, 32), (2 ** 18 + 3, 11, 10), (300, 12, 1), (700, 33, 17),
+    (513, 7, 8), (1025, 64, 16)])
+def test_category_reduce_matches_twin(cuda, b, u, c):
+    """Bit-equal at odd and even U (the staged rows' two layouts), U past
+    32 (staged 32 units at a time), every column capacity and ragged B."""
     cr = _mod("category_reduce")
-    rng = np.random.default_rng(b + u)
+    rng = np.random.default_rng(b + u + c)
     e = torch.from_numpy(rng.uniform(1e-12, 1e-6, (b, u)).astype(
         np.float32)).to(cuda)
-    w = torch.from_numpy((rng.uniform(size=(u, 10)) > 0.5).astype(
+    w = torch.from_numpy((rng.uniform(size=(u, c)) > 0.5).astype(
         np.float32)).to(cuda)
     cr.reset_counts()
     ker = cr.category_reduce(e, w)
     assert cr.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
     assert torch.equal(ker, cr.category_reduce_torch(e, w))
+
+
+def test_category_reduce_unaligned_rows_match_twin(cuda):
+    """A view whose rows start 4 bytes past a 16-byte boundary: the
+    staged span's unaligned head and tail."""
+    cr = _mod("category_reduce")
+    rng = np.random.default_rng(9)
+    flat = torch.from_numpy(rng.uniform(1e-12, 1e-6, 1000 * 11 + 1).astype(
+        np.float32)).to(cuda)
+    e = flat[1:].view(1000, 11)
+    w = torch.from_numpy((rng.uniform(size=(11, 10)) > 0.5).astype(
+        np.float32)).to(cuda)
+    assert e.is_contiguous() and e.data_ptr() % 16 == 4
+    assert torch.equal(cr.category_reduce(e, w),
+                       cr.category_reduce_torch(e, w))
 
 
 @pytest.mark.parametrize("engine", ["staged", "monolithic", "chunked"])
@@ -199,22 +219,33 @@ def test_frame_event_matches_twin(cuda, shape, dtype):
     assert fe.frame_event(one, zero, 0.7).tolist() == [[1.0, 0.0]]
 
 
+def _matmul_case(cuda, a, b, want_route):
+    """One product against the twin: the K8 rule, one launch on the
+    planned route, and the same from run to run."""
+    from repro_torch.testing import ulp
+    mm = _mod("matmul")
+    mm.reset_counts()
+    ker = mm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.COUNTS["kernel_launches"] == 1 and mm.COUNTS["twin_calls"] == 0
+    assert mm.COUNTS[f"{want_route}_launches"] == 1, mm.COUNTS
+    twin = mm.matmul_torch(a, b)
+    assert ker.dtype == twin.dtype == a.dtype
+    bound = 1e-5 * (a.double().abs() @ b.double().abs())
+    if a.dtype != torch.float32:
+        bound = bound + ulp(torch.maximum(ker.abs(), twin.abs()), a.dtype)
+    err = (ker.double() - twin.double()).abs()
+    assert (err <= bound).all(), float((err / bound).max())
+    assert torch.equal(ker, mm.matmul(a, b))          # run to run
+
+
 @pytest.mark.parametrize("mkn", [(1, 64000, 900), (130, 150, 70), (1, 64, 1),
                                  (1024, 1024, 1024), (1, 900, 2),
                                  (5, 3000, 257), (64, 0, 3)])
 def test_matmul_matches_twin(cuda, mkn):
-    mm = _mod("matmul")
     m, k, n = mkn
     a, b = _rand(cuda, (m, k), m + k), _rand(cuda, (k, n), k + n)
-    mm.reset_counts()
-    ker = mm.matmul(a, b)
-    torch.cuda.synchronize()
-    assert mm.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
-    twin = mm.matmul_torch(a, b)
-    scale = a.double().abs().cpu() @ b.double().abs().cpu()
-    err = (ker.double() - twin.double()).abs().cpu()
-    assert (err <= 1e-5 * scale).all(), float((err - 1e-5 * scale).max())
-    assert torch.equal(ker, mm.matmul(a, b))          # run to run
+    _matmul_case(cuda, a, b, "skinny" if m <= 8 else "tile")
 
 
 @pytest.mark.parametrize("dtypes", [
@@ -224,24 +255,77 @@ def test_matmul_matches_twin(cuda, mkn):
 @pytest.mark.parametrize("mkn", [(1, 64000, 900), (1024, 1024, 1024),
                                  (130, 150, 70), (5, 3000, 257)])
 def test_matmul_half_matches_twin(cuda, mkn, dtypes):
-    from repro_torch.testing import ulp
-    mm = _mod("matmul")
+    from repro_torch.kernels.matmul import route
     m, k, n = mkn
     a = _rand(cuda, (m, k), m + k, dtypes[0])
     b = _rand(cuda, (k, n), k + n, dtypes[1])
-    mm.reset_counts()
-    ker = mm.matmul(a, b)
+    _matmul_case(cuda, a, b, route(m, n, k, a.dtype, b.dtype, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("mkn", [(130, 72, 1000), (9, 1024, 4096),
+                                 (1000, 200, 4104), (1024, 1024, 1024),
+                                 (256, 64, 136)])
+def test_matmul_wgmma_matches_twin(cuda, mkn, dtype):
+    """The tensor-core route at ragged M and N, K % 64 != 0 and split K."""
+    m, k, n = mkn
+    a = _rand(cuda, (m, k), m + k + 1, dtype)
+    b = _rand(cuda, (k, n), k + n + 1, dtype)
+    _matmul_case(cuda, a, b, "wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=str)
+def test_matmul_wgmma_positive_long_k(cuda, dtype):
+    """Positive operands at K = 16384, where a truncating accumulator's
+    bias adds up: the output within the K8 rule, and the route's own f32
+    sums (a split plan's partials, added on the host) within the f32 rule
+    of the twin's f32 sums."""
+    mm = _mod("matmul")
+    rng = np.random.default_rng(16)
+    a = torch.from_numpy(rng.uniform(size=(256, 16384)).astype(
+        np.float32)).to(dtype).to(cuda)
+    b = torch.from_numpy(rng.uniform(size=(16384, 256)).astype(
+        np.float32)).to(dtype).to(cuda)
+    _matmul_case(cuda, a, b, "wgmma")
+    p = mm.Plan("wgmma", 64, 2, 8192)
+    part = torch.empty((2, 256, 256), dtype=torch.float32, device=cuda)
+    mm.run(a, b, p, part=part)
+    got = part.double().sum(0)
+    twin = mm.matmul_torch(a.float(), b.float()).double()
+    rule = 1e-5 * (a.double() @ b.double())
+    assert ((got - twin).abs() <= rule).all(), \
+        float(((got - twin).abs() / rule).max())
+
+
+def test_matmul_offset_view_takes_the_tile_route(cuda):
+    """A contiguous operand 2 bytes past a 16-byte boundary is no TMA
+    base: it runs on the tile route, never on a tensor map that faults."""
+    from repro_torch.kernels.matmul import route
+    flat = torch.empty(130 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    a = flat[1:].view(130, 64)
+    a.copy_(_rand(cuda, (130, 64), 3, torch.bfloat16))
+    b = _rand(cuda, (64, 72), 4, torch.bfloat16)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    assert route(130, 72, 64, a.dtype, b.dtype, False) == "tile"
+    _matmul_case(cuda, a, b, "tile")
+
+
+def test_matmul_tiny_product_is_one_launch(cuda):
+    """The DNN's second layer, (1, 900, 2): one device kernel, no
+    scratch."""
+    from torch.profiler import ProfilerActivity, profile
+    mm = _mod("matmul")
+    a, b = _rand(cuda, (1, 900), 1), _rand(cuda, (900, 2), 2)
+    mm.matmul(a, b)
     torch.cuda.synchronize()
-    assert mm.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
-    twin = mm.matmul_torch(a, b)
-    assert ker.dtype == twin.dtype == dtypes[0]
-    scale = a.double().abs() @ b.double().abs()
-    bound = 1e-5 * scale
-    if dtypes[0] != torch.float32:
-        bound = bound + ulp(torch.maximum(ker.abs(), twin.abs()), dtypes[0])
-    err = (ker.double() - twin.double()).abs()
-    assert (err <= bound).all(), float((err / bound).max())
-    assert torch.equal(ker, mm.matmul(a, b))          # run to run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mm.matmul(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA" and "matmul" in e.name]
+    assert len(names) == 1 and "skinny" in names[0], names
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +434,44 @@ def test_flash_attention_simt_route(cuda):
 
 def test_flash_attention_refuses_what_it_does_not_stage(cuda):
     fa = _mod("flash_attention")
-    q = torch.zeros(1, 2, 8, 160, device=cuda)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros(1, 2, 16, 8, device=cuda).transpose(2, 3)
         fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        x = torch.zeros(1, 2, 16, 8, device=cuda, dtype=torch.float64)
+        fa.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtypes,d", [
+    ((torch.bfloat16, torch.float32, torch.float16), 64),
+    ((torch.float32, torch.bfloat16, torch.bfloat16), 128),
+    ((torch.float16, torch.float16, torch.float32), 40),
+    ((torch.float32,) * 3, 160), ((torch.bfloat16,) * 3, 256),
+    ((torch.float16,) * 3, 160), ((torch.float32, torch.float16,
+                                   torch.float16), 256)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
+    """Mixed operand dtypes and head dims past 128 run the SIMT route,
+    within the output dtype's FA_TOL (and one rounding of a half output)
+    of the twin, the same from run to run."""
+    fa = _mod("flash_attention")
+    q = _rand(cuda, (1, 4, 200, d), d, dtypes[0])
+    k = _rand(cuda, (1, 2, 200, d), d + 1, dtypes[1])
+    v = _rand(cuda, (1, 2, 200, d), d + 2, dtypes[2])
+    assert fa.route(q, k, v) == "simt"
+    fa.reset_counts()
+    ker = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
+                         "simt_launches": 1, "twin_calls": 0}
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    assert ker.dtype == twin.dtype == dtypes[0] and ker.shape == q.shape
+    tol = FA_TOL[dtypes[0]]
+    torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
+    if dtypes[0] != torch.float32:
+        assert half_rule(ker, twin) <= 1.0
+    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
 
 
 def test_functional_pipelines_on_cuda_match_cpu(cuda):

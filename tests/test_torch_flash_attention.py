@@ -92,6 +92,51 @@ def test_oracle_route_matches_reference_oracle(shape, causal, dtype):
                                       use_pallas=False), want, dtype)
 
 
+def _qkv_dtypes(shape, seed, dtypes):
+    """q, k, v of one dtype each, as torch tensors and as jax arrays
+    holding the same values."""
+    b, h, hkv, s, d = shape
+    rng = np.random.default_rng(seed)
+    out = []
+    for heads, dt in zip((h, hkv, hkv), dtypes):
+        t = torch.from_numpy(rng.normal(size=(b, heads, s, d)).astype(
+            np.float32)).to(dt)
+        out.append((t, jnp.asarray(t.float().numpy()).astype(JAX_DTYPE[dt])))
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtypes", [
+    (torch.bfloat16, torch.float32, torch.float16),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float16, torch.float32)],
+    ids=lambda d: "_".join(str(t)[6:] for t in d))
+def test_mixed_dtypes_match_reference_kernel(dtypes, causal):
+    """Each operand in its own dtype, as the reference takes them: the
+    output in q's dtype, within q's dtype's tolerance."""
+    from repro_torch.kernels import ops
+    shape = (1, 4, 2, 100, 32)
+    (q, qj), (k, kj), (v, vj) = _qkv_dtypes(shape, 31 + causal, dtypes)
+    want = ref_ops.flash_attention(qj, kj, vj, causal=causal, bq=64, bk=64)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert tuple(got.shape) == tuple(want.shape)
+    _assert_close(got, want, dtypes[0])
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dims_past_128_match_reference_kernel(d, dtype):
+    """Head dims the wgmma route does not take (D > 128) run the SIMT
+    route on the card; the twin takes them as the reference does."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import route
+    shape = (1, 2, 1, 100, d)
+    (q, qj), (k, kj), (v, vj) = _qkv(shape, d, dtype)
+    want = ref_ops.flash_attention(qj, kj, vj, causal=True, bq=64, bk=64)
+    _assert_close(ops.flash_attention(q, k, v, causal=True), want, dtype)
+    assert route(q, k, v) == "simt"
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_twin_independent_of_query_chunk(causal, monkeypatch):
     """Chunks of 1, 3 and 37 query rows against one chunk of all 100."""
@@ -143,9 +188,11 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     for bad in (torch.float64, torch.int32):
         with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
             fn(q.to(bad), k.to(bad), v.to(bad))
-    with pytest.raises(ValueError, match="one dtype"):
-        fn(q, k.half(), v.half())
-    assert COUNTS["twin_calls"] == 1
+    # mixed operand dtypes are taken, as the reference casts each to f32;
+    # the output is in q's dtype
+    mixed = fn(q, k.half(), v.bfloat16())
+    assert mixed.dtype == q.dtype and mixed.shape == q.shape
+    assert COUNTS["twin_calls"] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -231,4 +278,13 @@ def test_route_picks_the_tensor_cores_for_aligned_half_operands():
         flat = torch.empty(qh.numel() + 1, dtype=dt)
         shifted = flat[1:].view(qh.shape)
         assert shifted.is_contiguous() and route(shifted, kh, vh) == "simt"
+        # mixed operand dtypes and head dims past 128 take the SIMT kernel
+        assert route(qh, kh.float(), vh) == "simt"
+        assert route(qh, kh, vh.to(torch.float16 if dt == torch.bfloat16
+                                   else torch.bfloat16)) == "simt"
+        big = torch.zeros(1, 2, 16, 136, dtype=dt)
+        assert route(big, big[:, :1].contiguous(),
+                     big[:, :1].contiguous()) == "simt"
+        ok = torch.zeros(1, 2, 16, 128, dtype=dt)
+        assert route(ok, ok, ok) == "wgmma"
 
