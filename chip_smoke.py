@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``repro_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-probe [--src OTHER_CHECKOUT/src]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
 per source, all nine started together): K1 ``fused_sweep.cu``, K2
@@ -9,7 +10,9 @@ per source, all nine started together): K1 ``fused_sweep.cu``, K2
 K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8 ``matmul.cu``, and
 K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
 twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
-in f16 and bf16; K8 on each of its three routes, the wgmma route also
+in f16 and bf16; K5 and K6 on each of their routes, with offset views and
+outputs either side of their tiles; K8 on each of its three routes, the
+wgmma route also
 with positive operands at K = 16384, where its own f32 sums are held to
 the rule, and offset views on the tile route; K9 also with mixed operand
 dtypes and head dims past 128 on its SIMT route), then drives every
@@ -46,14 +49,23 @@ read just after:
   then K9's SIMT route (f32) at the same widths.
 
 It times every kernel (K8 also at 4096^3 bf16, with a probe of its tile
-widths, tensor-map encodes and enqueue times), prints its findings as
-JSON lines, and ends with the ``kernels`` line and the run's verdict::
+widths, tensor-map encodes and enqueue times; K6 with a probe of its tile
+heights; each library call's device time beside its CUDA-event time) and
+the host time of the launch path every wrapper shares (the
+``launch_probe`` line: each step, and each of K1-K9's wrappers at its
+headline shape), prints its findings as JSON lines, and ends with the
+``kernels`` line and the run's verdict::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
 Every check raises on failure, so the script exits nonzero and prints no
 verdict; it also exits nonzero without a CUDA device or without the
-repository's ``src/`` beside it.  It imports nothing of ``jax`` or of the
+repository's ``src/`` beside it.  ``--launch-probe`` is a tool apart,
+never part of the smoke run: it prints only the launch-path probe's line
+for what every checkout of the port offers (torch's steps, the operand
+check, the K1-K9 wrappers' host us and event ms), on this checkout or on
+the one whose ``src/`` is given with ``--src``, to hold two trees side by
+side.  It imports nothing of ``jax`` or of the
 JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
 engine (and one pass of the functional pipelines) reports device time
 by kernel and the device's busy share, and writes chrome traces to
@@ -73,7 +85,18 @@ from types import SimpleNamespace
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+
+def source_dir() -> Path:
+    """The port's sources: ``src/`` beside this script, or, for
+    ``--launch-probe`` alone, the ``src/`` of another checkout named by
+    ``--src DIR`` (to hold two trees side by side)."""
+    if "--launch-probe" in sys.argv[1:] and "--src" in sys.argv[1:-1]:
+        return Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+    return Path(__file__).resolve().parent / "src"
+
+
+sys.path.insert(0, str(source_dir()))
 
 import torch  # noqa: E402
 
@@ -376,17 +399,23 @@ def bound_ms(n_points, dims, knots, bytes_moved):
             else "bytes", fp, sfu)
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, reps=20, windows=1):
+    """CUDA-event ms per call of ``fn`` over ``reps`` back-to-back calls;
+    the median of ``windows`` such windows (a host-bound call's time moves
+    with the host's other work, and one window can catch a stall)."""
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    times = []
+    for _ in range(windows):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    return float(np.median(times))
 
 
 def device_ms(fn, needle, reps=20, tries=5):
@@ -417,6 +446,35 @@ def device_ms(fn, needle, reps=20, tries=5):
     raise AssertionError(f"device time of {needle}: {tries} profiler traces "
                          f"each held fewer than {reps // 2} of {reps} "
                          f"kernel records")
+
+
+def library_device_ms(fn, reps=20, tries=5):
+    """Device time per call of a library call ``fn``, all of its kernels
+    whatever their names, from ``torch.profiler`` over ``reps``
+    back-to-back calls: for each kernel name, its median span times the
+    number of times a call launches it (its records over ``reps``,
+    rounded, so a dropped record does not count).  A trace with no kernel
+    is taken again, up to ``tries`` times; then the run fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        total = sum(float(np.median(v)) * round(len(v) / reps)
+                    for v in spans.values())
+        if total > 0:
+            return total * 1e-3
+    raise AssertionError(f"library device time: {tries} profiler traces "
+                         f"held no kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +609,20 @@ def gaussian(shape, seed, dtype=torch.float32):
                             ).to(dtype).cuda()
 
 
+def frame(shape, seed, dtype=torch.float32, offset=False):
+    """:func:`gaussian` values; ``offset``: as a contiguous view one
+    element past a 16-byte boundary (no 16-byte copies)."""
+    x = gaussian(shape, seed, dtype)
+    if not offset:
+        return x
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    view = flat[1:].view(shape)
+    view.copy_(x)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "offset view is aligned")
+    return view
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -634,32 +706,86 @@ def functional_kernel_cases(fmods):
     cases = {"binning": [], "stencil_conv": [], "frame_event": [],
              "matmul": []}
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
-    for shape, f, dt in (((400, 640), 2, f32), ((720, 1280), 2, f32),
-                         ((17, 33), 3, f32), ((17, 33), 4, f32),
-                         ((17, 33), 2, f16), ((720, 1280), 2, f16),
-                         ((17, 33), 3, bf16), ((720, 1280), 2, bf16)):
-        x = gaussian(shape, sum(shape) + f, dt)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # (shape, factor, dtype, offset view, the route the plan must pick):
+    # the path's frames, odd crops, rows that are no whole 16-byte vector
+    # (and output rows that are none), and a base 4 (f32) or 2 (f16/bf16)
+    # bytes past one
+    for shape, f, dt, off, want in (
+            ((400, 640), 2, f32, False, "vec2"),
+            ((720, 1280), 2, f32, False, "vec2"),
+            ((17, 33), 3, f32, False, "scalar"),
+            ((17, 33), 4, f32, False, "scalar"),
+            ((17, 33), 2, f16, False, "scalar"),
+            ((720, 1280), 2, f16, False, "vec2"),
+            ((17, 33), 3, bf16, False, "scalar"),
+            ((720, 1280), 2, bf16, False, "vec2"),
+            ((63, 72), 2, f32, False, "vec2"),
+            ((41, 1288), 2, f32, False, "vec2"),
+            ((40, 1284), 2, f32, False, "vec2"),
+            ((40, 1282), 2, f32, False, "scalar"),
+            ((31, 1296), 2, bf16, False, "vec2"),
+            ((31, 1300), 2, f16, False, "scalar"),
+            ((9, 8), 2, f16, False, "vec2"),
+            ((720, 1280), 2, f32, True, "scalar"),
+            ((400, 640), 2, bf16, True, "scalar")):
+        x = frame(shape, sum(shape) + f, dt, off)
+        route = bn.plan(shape[1], f, dt, x.data_ptr() % 16 == 0)
+        check(route == want, f"binning {shape} f{f} {dt}: route {route}")
+        bn.reset_counts()
         cases["binning"].append(exact_case(
-            f"binning_{shape[0]}x{shape[1]}_f{f}_{dtype_name(dt)}",
+            f"binning_{shape[0]}x{shape[1]}_f{f}_{dtype_name(dt)}"
+            f"{'_offset' if off else ''}",
             lambda: bn.binning(x, f), lambda: bn.binning_torch(x, f)))
-    # the kernel sums in f32: its twin is the f32 sum rounded once
-    for shape, k, dt, taps_dt in (((360, 640), (3, 3), f32, f32),
-                                  ((720, 1280), (3, 3), f32, f32),
-                                  ((100, 140), (3, 5), f32, f32),
-                                  ((77, 45), (5, 5), f32, f32),
-                                  ((1000, 33), (2, 2), f32, f32),
-                                  ((720, 1280), (3, 3), f16, f32),
-                                  ((720, 1280), (3, 3), bf16, f32),
-                                  ((720, 1280), (3, 3), f16, f16),
-                                  ((720, 1280), (3, 3), bf16, bf16),
-                                  ((77, 45), (5, 5), bf16, bf16)):
-        x = gaussian(shape, shape[0], dt)
+        check(bn.COUNTS[f"{route}_launches"] == bn.COUNTS["kernel_launches"]
+              == 1, f"binning {shape}: launches {bn.COUNTS}")
+        cases["binning"][-1]["route"] = route
+    # the kernel sums in f32: its twin is the f32 sum rounded once.
+    # (shape, stencil, frame and tap dtypes, offset view, route): the path's
+    # frames; output rows one either side of a multiple of the planned
+    # tile's (16 or 32 rows at 8388 columns, 8 at small frames), and
+    # columns two either side (64 f32, 128 bf16: a 16-byte row pitch leaves
+    # ow = w - 2 even); each stencil size; rows that are no whole 16-byte
+    # vector; offset views
+    for shape, k, dt, taps_dt, off, want in (
+            ((360, 640), (3, 3), f32, f32, False, "k3x3"),
+            ((720, 1280), (3, 3), f32, f32, False, "k3x3"),
+            ((65, 8388), (3, 3), f32, f32, False, "k3x3"),
+            ((66, 8388), (3, 3), f32, f32, False, "k3x3"),
+            ((67, 8388), (3, 3), f32, f32, False, "k3x3"),
+            ((9, 64), (3, 3), f32, f32, False, "k3x3"),
+            ((10, 68), (3, 3), f32, f32, False, "k3x3"),
+            ((11, 128), (3, 3), bf16, bf16, False, "k3x3"),
+            ((9, 136), (3, 3), bf16, f32, False, "k3x3"),
+            ((100, 140), (3, 5), f32, f32, False, "generic"),
+            ((77, 48), (5, 5), f32, f32, False, "generic"),
+            ((77, 45), (5, 5), f32, f32, False, "scalar"),
+            ((1000, 36), (2, 2), f32, f32, False, "generic"),
+            ((1000, 33), (2, 2), f32, f32, False, "scalar"),
+            ((33, 72), (1, 1), f32, f32, False, "generic"),
+            ((720, 1280), (3, 3), f16, f32, False, "k3x3"),
+            ((720, 1280), (3, 3), bf16, f32, False, "k3x3"),
+            ((720, 1280), (3, 3), f16, f16, False, "k3x3"),
+            ((720, 1280), (3, 3), bf16, bf16, False, "k3x3"),
+            ((77, 45), (5, 5), bf16, bf16, False, "scalar"),
+            ((77, 48), (5, 5), f16, f32, False, "generic"),
+            ((360, 640), (3, 3), f32, f32, True, "scalar"),
+            ((720, 1280), (3, 3), bf16, bf16, True, "scalar")):
+        x = frame(shape, shape[0], dt, off)
         taps = gaussian(k, 10 * k[0] + k[1], taps_dt)
+        p = sc.plan(*shape, *k, dt, x.data_ptr() % 16 == 0, n_sm)
+        check(p.route == want, f"stencil {shape} {k} {dt}: route {p.route}")
+        sc.reset_counts()
         cases["stencil_conv"].append(exact_case(
             f"stencil_{shape[0]}x{shape[1]}_k{k[0]}x{k[1]}_"
-            f"{dtype_name(dt)}_taps_{dtype_name(taps_dt)}",
+            f"{dtype_name(dt)}_taps_{dtype_name(taps_dt)}"
+            f"{'_offset' if off else ''}",
             lambda: sc.stencil_conv(x, taps),
             lambda: sc.stencil_conv_torch(x, taps, acc_dtype=f32)))
+        check(sc.COUNTS[f"{p.route}_launches"]
+              == sc.COUNTS["kernel_launches"] == 1,
+              f"stencil {shape}: launches {sc.COUNTS}")
+        cases["stencil_conv"][-1].update(route=p.route, plan=p._asdict())
     for shape, dt, t in (((200, 320), f32, EDGAZE_THRESHOLD),
                          ((33, 47), f32, 0.5), ((33, 47), f16, 0.5),
                          ((200, 320), f16, EDGAZE_THRESHOLD),
@@ -822,15 +948,20 @@ def functional_path(fmods, kernel_mods):
         check(launches == want and twins == 0,
               f"functional {name}: launches {launches} (want {want}), "
               f"{twins} twin calls")
-        # the DNN's two products (M = 1) both run the skinny kernel
-        routes = {r: counts["matmul"][f"{r}_launches"]
-                  for r in ("wgmma", "tile", "skinny")}
-        check(routes["skinny"] == launches["matmul"],
-              f"functional {name}: matmul routes {routes}")
+        # the DNN's two products (M = 1) both run the skinny kernel; the
+        # frames (fresh, aligned allocations) bin on vec2 and take their
+        # Sobel stencils on k3x3
+        routes = {mod: {r[:-len("_launches")]: c for r, c in cs.items()
+                        if r.endswith("_launches") and r != "kernel_launches"}
+                  for mod, cs in counts.items() if mod != "frame_event"}
+        check(routes["matmul"]["skinny"] == launches["matmul"]
+              and routes["binning"]["vec2"] == launches["binning"]
+              and routes["stencil_conv"]["k3x3"] == launches["stencil_conv"],
+              f"functional {name}: routes {routes}")
         rec[name] = {"frames": FUNC_FRAMES, "wall_s": wall,
                      "frames_per_s": FUNC_FRAMES / wall,
                      "kernel_launches": launches, "twin_calls": twins,
-                     "matmul_route_launches": routes,
+                     "route_launches": routes,
                      "launches_per_frame": expected[name]}
 
     # the first frames against the same pipelines on the CPU
@@ -951,10 +1082,10 @@ def functional_timing(fmods, inputs):
                 (0, ops) if halves_only else (ops, 0), plain_reps)
 
     rows = {
-        "binning": ("binning_kernel",
+        "binning": ("binning",
                     [binning_row(rh, 2), binning_row(eg, 2)]
                     + [binning_row(rh.to(dt), 2) for dt in halves]),
-        "stencil_conv": ("stencil_conv_kernel",
+        "stencil_conv": ("stencil_",
                          [stencil_row(rh, sobel),
                           stencil_row(binned, sobel)]
                          + [stencil_row(rh.to(dt), sobel)
@@ -978,7 +1109,37 @@ def functional_timing(fmods, inputs):
                      in shape_rows]
     out["matmul_probe"] = matmul_probe(mm, events, inputs["w1"], hidden,
                                        inputs["w2"], big_a, big_b)
+    out["stencil_conv_probe"] = stencil_probe(sc, sobel, {
+        "720x1280": rh, "360x640": binned,
+        "720x1280 bf16": rh.to(torch.bfloat16)})
     return out
+
+
+def stencil_probe(sc, taps, frames):
+    """What K6's tile choice costs, measured here: device ms of each
+    ``rows`` (output rows a thread) of the frame's route at each frame,
+    every plan's output bit-equal to the twin; and the plan the wrapper
+    picks."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rec = {}
+    for label_, x in frames.items():
+        (h, w), (kh, kw) = x.shape, taps.shape
+        chosen = sc.plan(h, w, kh, kw, x.dtype, x.data_ptr() % 16 == 0,
+                         n_sm)
+        twin = sc.stencil_conv_torch(x, taps, acc_dtype=torch.float32)
+        by_rows = {}
+        for rows in sc.ROW_CHOICES:
+            p = chosen._replace(rows=rows, tile_h=chosen.tile_h
+                                // chosen.rows * rows)
+            check(torch.equal(sc.run(x, taps, p), twin),
+                  f"stencil probe {label_} rows {rows}: differs from twin")
+            blocks = -(-(h - kh + 1) // p.tile_h) * -(-(w - kw + 1)
+                                                      // p.tile_w)
+            by_rows[rows] = {"blocks": blocks, "device_ms": device_ms(
+                lambda: sc.run(x, taps, p), "stencil_")}
+        rec[label_] = {"chosen": chosen._asdict(), "by_rows": by_rows}
+    emit({"stencil_probe": rec})
+    return rec
 
 
 def host_us(fn, reps=50):
@@ -992,6 +1153,169 @@ def host_us(fn, reps=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e6
+
+
+def headline_calls(kmods, prep, compute):
+    """The wrapper of each of K1-K9 at its headline shape (``PERF.md``'s
+    kernel table), on inputs made here from seeds: label -> call."""
+    fs, gd, sr, cr, bn, sc, fe, mm, fa = (kmods[n] for n in KERNEL_SOURCES)
+    n_var = prep.n_var
+    start = 2 * n_var + CHUNK
+    dkw = dict(shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
+               chunk=CHUNK, lmax=prep.lmax)
+    kw = dict(dkw, compute=compute, metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names), block_points=4096,
+              kk=3)
+    row = prep.bank.fused[2]
+    vals, mask = stats_inputs(CHUNK, 1)
+    vid = (torch.arange(CHUNK, device="cuda") % 8).to(torch.int32)
+    e, w = reduce_inputs(CHUNK, 11, 10, 3)
+    rh, binned = gaussian((720, 1280), 1), gaussian((360, 640), 2)
+    sobel = torch.tensor([[1., 0., -1.], [2., 0., -2.], [1., 0., -1.]],
+                         device="cuda")
+    ev_a, ev_b = gaussian((200, 320), 3), gaussian((200, 320), 4)
+    events = (gaussian((1, 64000), 5) > 0).float()
+    w1 = gaussian((64000, 900), 6)
+    b, h, hkv, s, d, causal = ATTENTION_MODELS["qwen2_7b"]
+    q, k, v = attention_inputs(b, h, hkv, s, d, 7, torch.bfloat16)
+    return {
+        "K1_fused_sweep_2^18": lambda: fs.fused_sweep_block(
+            prep.table2, row, start, 0, 3 * n_var, **kw),
+        "K2_grid_decode_2^18": lambda: gd.grid_decode(prep.table2, start,
+                                                      **dkw),
+        "K3a_block_stats_2^18": lambda: sr.block_stats(vals, mask, 4096),
+        "K3b_block_stats_banked_2^18": lambda: sr.block_stats_banked(
+            vals, mask, vid, 8, 4096),
+        "K4_category_reduce_2^18": lambda: cr.category_reduce(e, w),
+        "K5_binning_720x1280": lambda: bn.binning(rh, 2),
+        "K6_stencil_conv_720x1280": lambda: sc.stencil_conv(rh, sobel),
+        "K6_stencil_conv_360x640": lambda: sc.stencil_conv(binned, sobel),
+        "K7_frame_event_200x320": lambda: fe.frame_event(ev_a, ev_b,
+                                                         EDGAZE_THRESHOLD),
+        "K8_matmul_1x64000x900": lambda: mm.matmul(events, w1),
+        "K9_flash_attention_qwen2_7b_bf16": lambda: fa.flash_attention(
+            q, k, v, causal),
+    }
+
+
+def launch_steps(dev):
+    """The launch path's steps that every checkout of the port offers:
+    torch's own calls and ``check_operands``: label -> call."""
+    from repro_torch.kernels import cuda_build
+    x = torch.empty((360, 640), device=dev)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    return {
+        "torch_empty_360x640": lambda: torch.empty((360, 640), device=dev),
+        "torch_empty_dtype_device": lambda: torch.empty(
+            (360, 640), dtype=torch.float32, device=dev),
+        "tensor_new_empty": lambda: x.new_empty((360, 640)),
+        "tensor_device_attr": lambda: x.device,
+        "tensor_data_ptr": x.data_ptr,
+        "check_operands_one_tensor": lambda: cuda_build.check_operands(
+            "probe", dev, (torch.float32,), x=x),
+        "torch_cuda_device_enter_exit": device_context,
+        "current_stream_cuda_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "torch_cuda_current_device": torch.cuda.current_device,
+        "raw_get_device": torch._C._cuda_getDevice,
+    }
+
+
+def c_entry_steps(kmods, dev):
+    """This checkout's C entries, called through ctypes as the wrappers
+    call them: ``repro_binning_noop`` (returns 0, launches nothing), and
+    K5's and K6's entries launching with the arguments their wrappers pass
+    at 720 x 1280 and 360 x 640 (label -> call); and, timed in C, the
+    launch of an empty kernel (``repro_binning_launch_us``: label -> a
+    call that returns its host us)."""
+    lib_bn = kmods["binning"].load_kernel_library()
+    lib_sc = kmods["stencil_conv"].load_kernel_library()
+    rh, out = torch.empty((720, 1280), device=dev), torch.empty(
+        (360, 640), device=dev)
+    taps = torch.ones((3, 3), device=dev)
+    sc_out = torch.empty((358, 638), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sc = kmods["stencil_conv"]
+    p = sc.plan(360, 640, 3, 3, torch.float32, True,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+    bin_args = [rh.data_ptr(), out.data_ptr(), 0, 1280, 360, 640, 2, 0.25,
+                1, stream]                      # f32, the vec2 route
+    sc_args = [out.data_ptr(), taps.data_ptr(), sc_out.data_ptr(), 0, 360,
+               640, 3, 3, sc.ROUTES[p.route], p.rows, p.tile_w // 16,
+               stream]                  # f32, k3x3 (which reads no nv)
+
+    def launch_alone():
+        torch.cuda.synchronize()
+        us = lib_bn.repro_binning_launch_us(200, stream)
+        torch.cuda.synchronize()
+        return us
+
+    return ({"ctypes_noop_call": lib_bn.repro_binning_noop,
+             "binning_c_entry_launch": lambda: lib_bn.repro_binning(
+                 *bin_args),
+             "stencil_c_entry_launch": lambda: lib_sc.repro_stencil_conv(
+                 *sc_args)},
+            {"cuda_launch_alone": launch_alone})
+
+
+def launch_probe(kmods, calls, entry_steps=None, timed_in_c=None,
+                 trials=7):
+    """Host microseconds a call takes to enqueue, for each step of the
+    launch path the wrappers share (:func:`launch_steps`, and
+    ``entry_steps``) and for each wrapper of ``calls``: the median and the
+    least of ``trials`` runs of :func:`host_us` (2000 calls a step, 200 a
+    wrapper; each trial visits every item in turn, so that a slow spell of
+    the host lands on all of them); each of ``timed_in_c``'s calls returns
+    its own host us.  Also each wrapper's CUDA-event ms, as
+    :func:`timing_row` takes them (20 calls, the median of 5 windows)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def spread(fns, reps):
+        runs = {k: [] for k in fns}
+        for _ in range(trials):
+            for k, fn in fns.items():
+                runs[k].append(fn() if reps is None else host_us(fn, reps))
+        return {k: {"median": float(np.median(v)), "min": float(min(v))}
+                for k, v in runs.items()}
+
+    rec = {"steps_us": spread({**launch_steps(dev),
+                               **(entry_steps or {})}, 2000),
+           "wrappers_us": spread(calls, 200),
+           "wrappers_event_ms": {k: time_ms(fn, 20, windows=5)
+                                 for k, fn in calls.items()},
+           "source": str(source_dir())}
+    rec["steps_us"].update(spread(timed_in_c or {}, None))
+    emit({"launch_probe": rec})
+    return rec
+
+
+def probe_main() -> int:
+    """``--launch-probe [--src DIR]``: a tool to hold two checkouts side by
+    side (run it once with each tree's ``src/``), never part of the smoke
+    run.  Builds the kernels of the checkout in use and prints the
+    :func:`launch_probe` line of what every checkout offers: torch's steps,
+    ``check_operands`` and the K1-K9 wrappers at their headline shapes."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; the probe "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core.batch import build_coeff_compute
+    from repro_torch.core.shard_sweep import _prepare_stream
+    from repro_torch.kernels import cuda_build
+    kmods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
+             for name in KERNEL_SOURCES}
+    cuda_build.build_libraries(KERNEL_SOURCES)
+    for mod in kmods.values():
+        mod.load_kernel_library()
+    prep = _prepare_stream(["edgaze", "rhythmic"], MEGA_GRIDS, device="cuda")
+    launch_probe(kmods, headline_calls(
+        kmods, prep, build_coeff_compute(prep.bank.dims)))
+    return 0
 
 
 def matmul_probe(mm, events, w1, hidden, w2, big_a, big_b):
@@ -1040,18 +1364,22 @@ def split_ops(nops):
 def timing_row(shape, ker, plain, lib, nbytes, nops, needle, reps=20,
                plain_reps=5):
     """One kernel's times at one shape: CUDA-event ms of back-to-back
-    wrapper calls, profiler device ms, the plain twin's and the library
-    call's ms, and the bound from the bytes it must move and the
+    wrapper calls (the median of 5 windows), profiler device ms, the plain twin's and the library
+    call's ms, the library call's device ms (all its kernels), and the
+    bound from the bytes it must move and the
     operations it must do.  ``nops`` is an FP32 count or ``(fp32, half)``:
     the half operations (products of two f16/bf16 values) at the tensor
     cores' rate, added to the FP32 ones' time at the CUDA cores' rate."""
     fp32_ops, half_ops = split_ops(nops)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = fp32_ops / PEAK_FP32 + half_ops / PEAK_HALF
-    return dict(shape=shape, ms=time_ms(ker, reps),
+    return dict(shape=shape, ms=time_ms(ker, reps, windows=5),
                 device_ms=device_ms(ker, needle, reps),
                 plain_ms=time_ms(plain, reps=plain_reps),
-                library_ms=time_ms(lib, reps) if lib is not None else None,
+                library_ms=time_ms(lib, reps, windows=5)
+                if lib is not None else None,
+                library_device_ms=library_device_ms(lib, reps)
+                if lib is not None else None,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, operations=fp32_ops + half_ops,
@@ -1405,6 +1733,10 @@ def main() -> int:
                           w=w_main))
     fcases = functional_kernel_cases(fmods)
     k9 = attention_cases(fa)
+    # launch-path probe: host us per step and per wrapper call
+    kmods = dict(zip(KERNEL_SOURCES, kernel_mods))
+    launch_probe(kmods, headline_calls(kmods, prep, compute),
+                 *c_entry_steps(kmods, torch.device("cuda", 0)))
 
     # ----- 3. the main path at full width: fused ----------------------------
     space = DesignSpace(["edgaze", "rhythmic"], MEGA_GRIDS)
@@ -1665,11 +1997,11 @@ def main() -> int:
         launches_f = sum(func[p]["kernel_launches"][name]
                          for p in ("edgaze", "fig5", "rhythmic"))
         head = ftimes[name][0]
-        extra = {}
-        if name == "matmul":
-            extra = {f"{r}_launches": func["edgaze"]["matmul_route_launches"][r]
-                     for r in ("wgmma", "tile", "skinny")}
-            extra["probe"] = ftimes["matmul_probe"]
+        extra = {f"{r}_launches": sum(func[p]["route_launches"][name][r]
+                                      for p in ("edgaze", "fig5", "rhythmic"))
+                 for r in func["edgaze"]["route_launches"].get(name, {})}
+        if name in ("matmul", "stencil_conv"):
+            extra["probe"] = ftimes[f"{name}_probe"]
         entries.append(dict(
             name=name, route="cuda", source=src + f"{name}.cu",
             replaces=f"src/repro/kernels/{name}.py:{line}",
@@ -1679,7 +2011,8 @@ def main() -> int:
             power_limit=power, **head, **extra,
             by_shape=ftimes[name]))
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "bytes", "operations", "half_operations")
+            "library_device_ms", "bound_ms", "bound_by", "bytes",
+            "operations", "half_operations")
     by_shape = [{k: r[k] for k in keys} for r in attn.values()]
     entries.append(dict(
         name="flash_attention", route="cuda",
@@ -1710,4 +2043,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(probe_main() if "--launch-probe" in sys.argv[1:] else main())

@@ -9,9 +9,15 @@ f32 accumulator is rounded to f16 at one place in each), bf16 at
 ``atol = rtol = 1e-2`` (one bf16 rounding), on both ``use_pallas``
 routes.
 
+Shapes also straddle the card's vec2 route (outputs of V - 1, V and
+V + 1 columns for its 2 f32 or 4 f16/bf16 outputs a thread, and of
+2V - 1, 2V, 2V + 1) and take the functional path's 400 x 640 and
+720 x 1280 frames.
+
 For a CPU tensor the wrapper runs the twin and counts a twin call; the
-CUDA kernel is held against the twin bit for bit on the card
-(``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+CUDA kernels are held against the twin bit for bit on the card
+(``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``), on the route
+that :func:`plan` picks (tested here).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +32,9 @@ def _img(shape, seed, dtype=np.float32):
     return np.random.default_rng(seed).normal(size=shape).astype(dtype)
 
 
-@pytest.mark.parametrize("shape", [(32, 64), (64, 96), (120, 160), (17, 33)])
+@pytest.mark.parametrize("shape", [(32, 64), (64, 96), (120, 160), (17, 33),
+                                   (9, 6), (10, 10), (17, 14), (16, 18),
+                                   (400, 640), (720, 1280)])
 @pytest.mark.parametrize("factor", [2, 3, 4])
 def test_twin_bit_equal_to_reference_kernel(shape, factor):
     from repro_torch.kernels.binning import binning_torch
@@ -35,6 +43,27 @@ def test_twin_bit_equal_to_reference_kernel(shape, factor):
     got = binning_torch(torch.from_numpy(img), factor).numpy()
     assert got.shape == (shape[0] // factor, shape[1] // factor)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (16, 16)])
+def test_twin_where_the_reference_sums_pairwise(shape):
+    """At frames 8 and 16 columns wide the reference kernel's CPU lowering
+    (XLA, interpret mode) sums each 2 x 2 window pairwise, ``(a + b) +
+    (c + d)``; the twin keeps the CUDA kernel's order, row by row from 0.
+    Each is exact to its order, and the two agree within 4 units in the
+    last place of the window's mean of magnitudes."""
+    from repro_torch.kernels.binning import binning_torch
+    img = _img(shape, seed=shape[1] * 2)
+    want = np.asarray(ref_binning(jnp.asarray(img), factor=2))
+    got = binning_torch(torch.from_numpy(img), 2).numpy()
+    a, b = img[0::2, 0::2], img[0::2, 1::2]
+    c, d = img[1::2, 0::2], img[1::2, 1::2]
+    quarter = np.float32(0.25)
+    np.testing.assert_array_equal(want, ((a + b) + (c + d)) * quarter)
+    np.testing.assert_array_equal(
+        got, ((((np.float32(0) + a) + b) + c) + d) * quarter)
+    mags = (np.abs(a) + np.abs(b) + np.abs(c) + np.abs(d)) * quarter
+    assert (np.abs(got - want) <= 4 * np.spacing(mags)).all()
 
 
 @pytest.mark.parametrize("factor", [2, 4])
@@ -82,7 +111,8 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     from repro_torch.kernels.binning import COUNTS, reset_counts
     reset_counts()
     out = fn(torch.from_numpy(_img((9, 12), seed=1)), 3)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    assert COUNTS == {"kernel_launches": 0, "vec2_launches": 0,
+                      "scalar_launches": 0, "twin_calls": 1}
     assert tuple(out.shape) == (3, 4)
     with pytest.raises(ValueError, match="2-D"):
         fn(torch.zeros(2, 8, 8))
@@ -106,3 +136,44 @@ def test_bf16_follows_each_reference_route(factor, use_pallas):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=["float16", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 14), (16, 16), (16, 18), (31, 33),
+                                   (400, 640), (720, 1280)])
+def test_twin_half_matches_reference_kernel(shape, dtype):
+    """f16 and bf16 frames at factor 2 around the vec2 route's 4 outputs
+    a thread (and twice that) and at the path's frames: within one
+    rounding of the dtype, the tolerances of the f16 and bf16 tests
+    above."""
+    from repro_torch.kernels.binning import binning_torch
+    img = torch.from_numpy(_img(shape, seed=shape[1])).to(dtype)
+    jdt = jnp.float16 if dtype == torch.float16 else jnp.bfloat16
+    want = ref_binning(jnp.asarray(img.float().numpy()).astype(jdt), factor=2)
+    got = binning_torch(img, 2)
+    assert got.dtype == dtype
+    tol = 5e-3 if dtype == torch.float16 else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+F32, F16, BF16 = torch.float32, torch.float16, torch.bfloat16
+
+
+@pytest.mark.parametrize("w,factor,dtype,aligned,want", [
+    (1280, 2, F32, True, "vec2"),         # the path's frames
+    (640, 2, F32, True, "vec2"),
+    (1280, 2, BF16, True, "vec2"),
+    (1280, 2, F32, False, "scalar"),      # an offset view
+    (1282, 2, F32, True, "scalar"),       # rows of 5128 bytes
+    (1284, 2, F32, True, "vec2"),         # output rows of 2568 bytes
+    (1300, 2, F16, True, "scalar"),       # rows of 2600 bytes
+    (1304, 2, F16, True, "vec2"),
+    (1280, 3, F32, True, "scalar"),
+    (1280, 4, BF16, True, "scalar")])
+def test_plan_picks_the_route(w, factor, dtype, aligned, want):
+    from repro_torch.kernels.binning import COUNTS, plan
+    assert plan(w, factor, dtype, aligned) == want
+    assert f"{want}_launches" in COUNTS

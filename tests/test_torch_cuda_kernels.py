@@ -12,9 +12,10 @@ index arithmetic; same summation order, built with ``--fmad=false``);
 block stats min / argmin / counts exact and sums rel 1e-5 (another
 summation order); engines rel 1e-6 on the top-k metric.  ``binning``,
 ``stencil_conv`` and ``frame_event`` bit-equal (same order) at f32, f16
-and bf16; ``matmul`` within ``1e-5 * (|a| @ |b|)`` elementwise (another
-summation order; one unit in the last place more for an f16 or bf16
-output) and the same from run to run; ``flash_attention`` within
+and bf16, ``binning`` and ``stencil_conv`` on every route (each launch
+counted on the route that ran); ``matmul`` within ``1e-5 * (|a| @ |b|)``
+elementwise (another summation order; one unit in the last place more
+for an f16 or bf16 output) and the same from run to run; ``flash_attention`` within
 ``atol = rtol`` 1e-5 (f32), 1e-2 (bf16), 2e-3 (f16), compared in f32
 (another summation order and an online softmax), its tensor-core route
 also within one rounding of the half output plus ``1e-5 (1 + |twin|)``
@@ -155,33 +156,145 @@ def _rand(cuda, shape, seed, dtype=np.float32):
     return torch.from_numpy(rng.normal(size=shape).astype(dtype)).to(cuda)
 
 
+def _offset(cuda, x):
+    """``x`` as a contiguous view one element past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _launched_on(mod, route):
+    """One launch, on ``route``, and no twin call."""
+    others = {k: v for k, v in mod.COUNTS.items()
+              if k not in ("kernel_launches", f"{route}_launches")}
+    assert mod.COUNTS["kernel_launches"] == 1, mod.COUNTS
+    assert mod.COUNTS[f"{route}_launches"] == 1, mod.COUNTS
+    assert not any(others.values()), mod.COUNTS
+
+
 @pytest.mark.parametrize("shape,factor,dtype", [
     ((400, 640), 2, np.float32), ((720, 1280), 2, np.float32),
     ((17, 33), 3, np.float32), ((17, 33), 4, np.float32),
     ((64, 96), 2, np.float16), ((33, 47), 3, np.float16),
-    ((720, 1280), 2, torch.bfloat16), ((33, 47), 3, torch.bfloat16)])
+    ((720, 1280), 2, torch.bfloat16), ((33, 47), 3, torch.bfloat16),
+    ((63, 72), 2, np.float32), ((41, 1288), 2, np.float32),
+    ((40, 1284), 2, np.float32), ((9, 8), 2, np.float32),
+    ((31, 1296), 2, torch.bfloat16), ((31, 1300), 2, np.float16),
+    ((40, 1282), 2, np.float32), ((9, 8), 2, np.float16),
+    ((16, 16), 2, np.float16), ((16, 32), 2, torch.bfloat16)])
 def test_binning_matches_twin(cuda, shape, factor, dtype):
+    """On the route the plan picks (vec2 where the rows are whole 16-byte
+    vectors, else scalar), bit-equal to the twin."""
     bn = _mod("binning")
     x = _rand(cuda, shape, sum(shape) + factor, dtype)
+    route = bn.plan(shape[1], factor, x.dtype, True)
     bn.reset_counts()
     ker = bn.binning(x, factor)
     torch.cuda.synchronize()
-    assert bn.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    _launched_on(bn, route)
     assert torch.equal(ker, bn.binning_torch(x, factor))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_binning_offset_view_takes_the_scalar_route(cuda, dtype):
+    bn = _mod("binning")
+    x = _offset(cuda, _rand(cuda, (720, 1280), 3, dtype))
+    bn.reset_counts()
+    ker = bn.binning(x, 2)
+    torch.cuda.synchronize()
+    _launched_on(bn, "scalar")
+    assert torch.equal(ker, bn.binning_torch(x, 2))
 
 
 @pytest.mark.parametrize("shape,k", [
     ((360, 640), (3, 3)), ((720, 1280), (3, 3)), ((100, 140), (3, 5)),
-    ((77, 45), (5, 5)), ((40, 40), (2, 2)), ((33, 70), (1, 1))])
+    ((77, 45), (5, 5)), ((40, 40), (2, 2)), ((33, 70), (1, 1)),
+    ((77, 48), (5, 5)), ((1000, 36), (2, 2)), ((33, 72), (1, 1)),
+    ((65, 8388), (3, 3)), ((66, 8388), (3, 3)), ((67, 8388), (3, 3)),
+    ((9, 64), (3, 3)), ((10, 68), (3, 3)), ((11, 132), (3, 3))])
 def test_stencil_conv_matches_twin(cuda, shape, k):
+    """On the route the plan picks (k3x3 for 3 x 3, generic for the rest,
+    scalar where the rows are no whole 16-byte vectors), bit-equal to the
+    twin; the 3 x 3 frames put output rows one either side of a multiple
+    of the planned tile's (16 or 32 rows at 8388 columns, 8 at small
+    frames)."""
     st = _mod("stencil_conv")
     x = _rand(cuda, shape, shape[0])
     taps = _rand(cuda, k, k[0] * 10 + k[1])
+    p = st.plan(*shape, *k, x.dtype, True,
+                torch.cuda.get_device_properties(0).multi_processor_count)
     st.reset_counts()
     ker = st.stencil_conv(x, taps)
     torch.cuda.synchronize()
-    assert st.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    _launched_on(st, p.route)
     assert torch.equal(ker, st.stencil_conv_torch(x, taps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [(3, 3), (5, 5)])
+def test_stencil_conv_offset_view_takes_the_scalar_route(cuda, k, dtype):
+    st = _mod("stencil_conv")
+    x = _offset(cuda, _rand(cuda, (360, 640), 4, dtype))
+    taps = _rand(cuda, k, 6, dtype)
+    st.reset_counts()
+    ker = st.stencil_conv(x, taps)
+    torch.cuda.synchronize()
+    _launched_on(st, "scalar")
+    assert torch.equal(ker, st.stencil_conv_torch(x, taps,
+                                                  acc_dtype=torch.float32))
+
+
+def test_binning_and_stencil_conv_refuse_what_they_do_not_take(cuda):
+    """A strided frame, or a stencil on another device, raises before any
+    launch: the wrappers check only what a call can change, and these
+    are such."""
+    bn, st = _mod("binning"), _mod("stencil_conv")
+    x = _rand(cuda, (64, 96), 1)
+    taps = _rand(cuda, (3, 3), 2)
+    bn.reset_counts()
+    st.reset_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.binning(x.t(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.stencil_conv(x[:, ::2], taps)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.stencil_conv(x, taps.t())
+    with pytest.raises(ValueError, match="tensor on cuda"):
+        st.stencil_conv(x, taps.cpu())
+    assert bn.COUNTS["kernel_launches"] == st.COUNTS["kernel_launches"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 4, 2, 1])
+@pytest.mark.parametrize("route,k", [("k3x3", (3, 3)), ("generic", (3, 5)),
+                                     ("scalar", (3, 3))])
+def test_stencil_conv_every_tile_matches_twin(cuda, route, k, rows, dtype):
+    """Each route at each rows-a-thread, forced through ``run``, with
+    output rows of tile - 1, tile and tile + 1 and columns past the
+    tile's: bit-equal to the twin."""
+    st = _mod("stencil_conv")
+    size = torch.empty((), dtype=dtype).element_size()
+    threads_y = 8 if route == "k3x3" else 4
+    tile_h, tile_w = threads_y * rows, 256 // size
+    taps = _rand(cuda, k, 9)
+    for oh in (tile_h - 1, tile_h, tile_h + 1):
+        if oh < 1:
+            continue
+        h, w = oh + k[0] - 1, 2 * tile_w + 8
+        x = _rand(cuda, (h, w), oh, dtype)
+        if route == "scalar":
+            x = _offset(cuda, x)
+        p = st.Plan(route, rows, tile_h, tile_w if route == "k3x3" else 32
+                    * (8 // size), 0)
+        st.reset_counts()
+        ker = st.run(x, taps, p)
+        torch.cuda.synchronize()
+        _launched_on(st, route)
+        assert torch.equal(ker, st.stencil_conv_torch(
+            x, taps, acc_dtype=torch.float32)), (route, rows, oh)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
@@ -196,7 +309,7 @@ def test_stencil_conv_half_matches_twin(cuda, shape, k, dtype):
         st.reset_counts()
         ker = st.stencil_conv(x, taps)
         torch.cuda.synchronize()
-        assert st.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+        _launched_on(st, "k3x3" if k == (3, 3) else "scalar")
         assert ker.dtype == dtype
         assert torch.equal(ker, st.stencil_conv_torch(
             x, taps, acc_dtype=torch.float32))

@@ -15,9 +15,15 @@ does and is held to it within one unit in the last place of the output
 dtype (plus the f32 tolerance above); ``use_pallas=False`` sums in the
 promoted dtype as ``stencil_conv_ref`` does and equals it bit for bit.
 
+Shapes also straddle the card's output tiles (64 and 128 columns, 8 and
+64 rows: outputs of tile - 1, tile and tile + 1) and take the functional
+path's 360 x 640 (Fig. 5's binned frame) and 720 x 1280 frames.
+
 For a CPU tensor the wrapper runs the twin (at f32 accumulation) and
-counts a twin call; the CUDA kernel is held against that twin bit for bit
-on the card.
+counts a twin call; the CUDA kernels are held against that twin bit for
+bit on the card, on the route that :func:`plan` picks from the shape,
+dtype, alignment and SM count (tested here: the routes, the tiles, and
+the refusal of a stencil whose tile does not fit in shared memory).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +33,8 @@ import torch
 from repro.kernels import ref
 from repro.kernels import stencil_conv as ref_stencil
 
-SHAPES = [(32, 48), (64, 96), (100, 140)]
+SHAPES = [(32, 48), (64, 96), (100, 140), (65, 65), (66, 66), (67, 67),
+          (360, 640), (720, 1280)]
 JAX_DTYPE = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16,
              torch.float32: jnp.float32}
 STENCILS = [(2, 2), (3, 3), (5, 5), (3, 5)]
@@ -85,11 +92,13 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     img, ker = _case((12, 10), (3, 3), seed=1)
     reset_counts()
     out = fn(torch.from_numpy(img), torch.from_numpy(ker))
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    none = {"kernel_launches": 0, "k3x3_launches": 0, "generic_launches": 0,
+            "scalar_launches": 0}
+    assert COUNTS == {**none, "twin_calls": 1}
     assert tuple(out.shape) == (10, 8)
     ops.stencil_conv(torch.from_numpy(img), torch.from_numpy(ker),
                      use_pallas=False)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 2}
+    assert COUNTS == {**none, "twin_calls": 2}
     with pytest.raises(ValueError, match="2-D"):
         fn(torch.zeros(12), torch.zeros(3, 3))
     with pytest.raises(ValueError, match="no 'valid' output"):
@@ -106,7 +115,11 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
 @pytest.mark.parametrize("taps_f32", [False, True])
 @pytest.mark.parametrize("use_pallas", [True, False])
 @pytest.mark.parametrize("shape,k", [((64, 96), (3, 3)),
-                                     ((100, 140), (3, 5))])
+                                     ((100, 140), (3, 5)),
+                                     ((9, 129), (3, 3)), ((10, 130), (3, 3)),
+                                     ((11, 131), (3, 3)),
+                                     ((360, 640), (3, 3)),
+                                     ((720, 1280), (3, 3))])
 def test_half_frames_follow_each_reference_route(shape, k, use_pallas,
                                                  taps_f32, dtype):
     from repro_torch.kernels import ops
@@ -148,3 +161,78 @@ def test_pallas_route_sums_in_f32():
     assert torch.equal(ops.stencil_conv(img_t, ker_t, use_pallas=False),
                        promoted)
     assert not torch.equal(f32, promoted)
+
+
+F32, F16, BF16 = torch.float32, torch.float16, torch.bfloat16
+
+
+@pytest.mark.parametrize("h,w,k,dtype,aligned,want", [
+    (360, 640, (3, 3), F32, True, "k3x3"),
+    (720, 1280, (3, 3), BF16, True, "k3x3"),
+    (720, 1280, (5, 5), F32, True, "generic"),
+    (100, 140, (3, 5), F32, True, "generic"),
+    (33, 72, (1, 1), F16, True, "generic"),
+    (360, 640, (3, 3), F32, False, "scalar"),       # an offset view
+    (360, 642, (3, 3), F32, True, "scalar"),        # rows of 2568 bytes
+    (360, 644, (3, 3), F16, True, "scalar"),        # rows of 1288 bytes
+    (360, 648, (3, 3), BF16, True, "k3x3"),         # rows of 1296 bytes
+    (77, 45, (5, 5), F32, True, "scalar")])
+def test_plan_picks_the_route(h, w, k, dtype, aligned, want):
+    from repro_torch.kernels.stencil_conv import MAX_SMEM, plan
+    p = plan(h, w, *k, dtype, aligned, 132)
+    assert p.route == want
+    assert p.tile_h == p.rows * (8 if want == "k3x3" else 4)
+    assert 0 < p.smem <= MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype,tile_w", [(F32, 64), (F16, 128),
+                                          (BF16, 128)])
+def test_plan_sizes_the_tile_to_fill_the_sms(dtype, tile_w):
+    """Fig. 5's binned 360 x 640 frame has a quarter of the outputs of a
+    720 x 1280 one: it takes fewer rows a thread.  Each plan takes the
+    most rows a thread whose blocks number three an SM (or one row); a
+    card with one SM takes the largest tile."""
+    from repro_torch.kernels.stencil_conv import ROW_CHOICES, plan
+    small = plan(360, 640, 3, 3, dtype, True, 132)
+    big = plan(720, 1280, 3, 3, dtype, True, 132)
+    assert small.tile_w == big.tile_w == tile_w
+    assert small.rows < big.rows
+    for p, (oh, ow) in ((small, (358, 638)), (big, (718, 1278))):
+        blocks = -(-oh // p.tile_h) * -(-ow // p.tile_w)
+        assert blocks >= 3 * 132 or p.rows == 1
+        if p.rows < ROW_CHOICES[0]:      # the next larger tile falls short
+            taller = 2 * p.tile_h
+            assert -(-oh // taller) * -(-ow // p.tile_w) < 3 * 132
+    assert plan(720, 1280, 3, 3, dtype, True, 1).rows == ROW_CHOICES[0]
+    tiny = plan(9, 64, 3, 3, dtype, True, 132)
+    assert tiny.rows == 1 and tiny.tile_h == 8
+
+
+@pytest.mark.parametrize("h,w,want", [
+    (720, 1280, (64, 8)),       # the widest tile, rows 8, fills the card
+    (400, 640, (64, 2)),        # the widest tile, fewer rows
+    (200, 300, (32, 1)),        # only a narrower tile reaches 3 an SM
+    (40, 64, (32, 1))])         # none does: the narrowest, one row
+def test_plan_sizes_a_generic_tile_widest_first(h, w, want):
+    """The generic route tries each width, widest first, and for each the
+    rows 8, 4, 2, 1, until its blocks number three an SM; a frame too
+    small for that at any tile takes the last: 32 columns, one row."""
+    from repro_torch.kernels.stencil_conv import plan
+    p = plan(h, w, 5, 5, F32, True, 132)
+    assert p.route == "generic" and (p.tile_w, p.rows) == want
+    blocks = -(-(h - 4) // p.tile_h) * -(-(w - 4) // p.tile_w)
+    assert (blocks >= 3 * 132) == (h != 40)
+
+
+def test_plan_refuses_a_stencil_too_large_for_shared_memory():
+    """The generic route narrows its tile for a tall stencil (a 1000 x 1
+    stencil's 32-column tile fits) and raises for one whose smallest tile
+    does not fit in 227 KB."""
+    from repro_torch.kernels.stencil_conv import MAX_SMEM, plan
+    tall = plan(1100, 64, 1000, 1, F32, True, 132)
+    assert tall.route == "generic" and tall.tile_w == 32
+    assert tall.smem <= MAX_SMEM
+    with pytest.raises(ValueError, match="shared-memory cap"):
+        plan(3000, 3000, 2000, 2000, F32, True, 132)
+    with pytest.raises(ValueError, match="shared-memory cap"):
+        plan(3000, 3000, 2000, 2000, F16, False, 132)
