@@ -10,7 +10,10 @@ per source, all nine started together): K1 ``fused_sweep.cu``, K2
 K6 ``stencil_conv.cu``, K7 ``frame_event.cu`` and K8 ``matmul.cu``, and
 K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
 twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
-in f16 and bf16; K5 and K6 on each of their routes, with offset views and
+in f16 and bf16; K1 on every cluster size of its plans, at the main-path
+chunk and on a bank past four slots, every candidate position equal to
+the twin's; K3a on every cluster size, on its vec4 and scalar routes;
+K5 and K6 on each of their routes, with offset views and
 outputs either side of their tiles; K8 on each of its three routes, the
 wgmma route also
 with positive operands at K = 16384, where its own f32 sums are held to
@@ -48,9 +51,12 @@ read just after:
   (whose distance from the twin is reported: it rounds P to bf16 once);
   then K9's SIMT route (f32) at the same widths.
 
-It times every kernel (K8 also at 4096^3 bf16, with a probe of its tile
-widths, tensor-map encodes and enqueue times; K6 with a probe of its tile
-heights; each library call's device time beside its CUDA-event time) and
+It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
+bound of the work its hoisting leaves, with a probe of K1's and K3a's
+cluster sizes, the ``fused_probe`` line; K8 also at 4096^3 bf16, with a
+probe of its tile widths, tensor-map encodes and enqueue times; K6 with a
+probe of its tile heights; each library call's device time beside its
+CUDA-event time) and
 the host time of the launch path every wrapper shares (the
 ``launch_probe`` line: each step, and each of K1-K9's wrappers at its
 headline shape), prints its findings as JSON lines, and ends with the
@@ -63,7 +69,8 @@ verdict; it also exits nonzero without a CUDA device or without the
 repository's ``src/`` beside it.  ``--launch-probe`` is a tool apart,
 never part of the smoke run: it prints only the launch-path probe's line
 for what every checkout of the port offers (torch's steps, the operand
-check, the K1-K9 wrappers' host us and event ms), on this checkout or on
+check, the K1-K9 wrappers' host us and event ms, and K1's and K3a's
+device ms), on this checkout or on
 the one whose ``src/`` is given with ``--src``, to hold two trees side by
 side.  It imports nothing of ``jax`` or of the
 JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
@@ -170,6 +177,26 @@ ATTENTION_MODELS = {
     "whisper_medium_encoder": (1, 16, 16, 1500, 64, False),
 }
 
+# the launch probe's device ms (both trees' kernels carry these names)
+PROBE_DEVICE = {"K1_fused_sweep_2^18": "fused_sweep_kernel",
+                "K1_fused_sweep_2^18_kk16": "fused_sweep_kernel",
+                "K3a_block_stats_2^18": "block_stats_kernel"}
+# the synthetic rows' grid: 9,216 points, every axis moving
+#: one value an axis: the grid K1's multi-pass cases widen
+PASS_GRID = {"cis_node": [130.0], "soc_node": [22.0], "mem_tech": [1.0],
+             "sys_rows": [16.0], "sys_cols": [32.0], "frame_rate": [60.0],
+             "active_fraction_scale": [1.0], "pixel_pitch_um": [3.0],
+             "vdd_scale": [1.0], "adc_bits": [10.0]}
+SYNTHETIC_GRID = {"cis_node": [130.0, 90.0, 45.0, 22.0],
+                  "soc_node": [14.0, 22.0],
+                  "mem_tech": [-1.0, 0.0, 1.0, 2.0],
+                  "sys_rows": [8.0, 64.0], "sys_cols": [16.0, 32.0],
+                  "frame_rate": [30.0, 120.0, 500.0, 3000.0],
+                  "active_fraction_scale": [0.25, 1.0],
+                  "pixel_pitch_um": [3.0, 5.0],
+                  "vdd_scale": [0.8, 1.0, 1.2],
+                  "adc_bits": [-1.0, 6.0, 12.0]}
+
 REL = 1e-6          # the reference's parity tolerance (values, top-k)
 REL_SUM = 1e-5      # block sums: 4096 f32 terms summed in another order
 REL_MEAN = 1e-5     # per-variant means: sums of such sums
@@ -248,6 +275,125 @@ def run_case(prep, fs, compute, *, name, variant, start, low, limit, chunk,
     return compare_blocks(name, ker, twin)
 
 
+def forced_case(fs, name, p, args, kw):
+    """K1 under a forced plan against its twin: the gates of
+    :func:`compare_blocks`, and every candidate position equal, the +inf
+    padding's too (the kernel's lexicographic merge gives the twin's
+    stable sort exactly); the launch counted on its cluster size."""
+    fs.reset_counts()
+    ker = fs.run(*args, p, **kw)
+    torch.cuda.synchronize()
+    check(fs.COUNTS[f"cluster{p.cluster}_launches"]
+          == fs.COUNTS["kernel_launches"] == 1,
+          f"{name}: launches {fs.COUNTS}")
+    twin = fs.fused_sweep_block_torch(*args, **kw)
+    check(torch.equal(ker[1].cpu(), twin[1].cpu()),
+          f"{name}: candidate positions differ from the twin's")
+    rec = compare_blocks(name, ker, twin)
+    rec["plan"] = p._asdict()
+    return rec
+
+
+def k1_staging(fs, dims, shape, n_var, n_variants, p):
+    """K1's passes under plan ``p`` (``fs.staging`` at the bank's row
+    width)."""
+    from repro_torch.core.plan_bank import BankDims, bank_layout
+    dims = BankDims(*(int(d) for d in dims))
+    return fs.staging(bank_layout(dims)["__width__"][0], dims, shape, n_var,
+                      n_variants, p)
+
+
+def fused_plan_cases(fs, prep, compute):
+    """K1 on every plan: each cluster size forced through ``fs.run`` at
+    the main-path chunk (``kk`` 3 and 16) and on the wide synthetic row
+    (every bank dim past 4: the 16-slot instantiation) over its 9,216
+    points in blocks of 4096 (the last ragged); on the plan the wrapper
+    picks, a grid whose timing each point computes itself; and blocks
+    whose CTAs take their points in passes."""
+    from repro_torch.core.batch import build_coeff_compute
+    from repro_torch.core.grid import ChunkedGrid, axis_tables, fused_table2
+    from repro_torch.core.plan_bank import bank_from_reference
+    from repro_torch.core.shard_sweep import _prepare_stream
+    from repro_torch.testing import synthetic_bank, synthetic_wide_bank
+    n_var = prep.n_var
+    kw = dict(compute=compute, metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
+              chunk=CHUNK, lmax=prep.lmax, block_points=4096)
+    args = (prep.table2, prep.bank.fused[2], 2 * n_var + CHUNK, 0,
+            3 * n_var)
+    recs = []
+    for cluster in fs.CLUSTER_CHOICES:
+        for kk in (3, 16):
+            recs.append(forced_case(
+                fs, f"main_chunk_cluster{cluster}_kk{kk}",
+                fs.make_plan(4096, kk, CHUNK, cluster), args,
+                dict(kw, kk=kk)))
+    dims, fused = synthetic_wide_bank(0)
+    grid = ChunkedGrid(SYNTHETIC_GRID)
+    table2 = torch.from_numpy(fused_table2(axis_tables([grid]))).cuda()
+    row = bank_from_reference({"fused": fused}, dims, device="cuda").fused[0]
+    n = len(grid)
+    wkw = dict(compute=build_coeff_compute(dims), metric="total_j",
+               axis_names=tuple(grid.names), shape=grid.shape, n_var=n,
+               total=n, chunk=n, lmax=max(grid.shape), block_points=4096,
+               kk=8)
+    for cluster in fs.CLUSTER_CHOICES:
+        recs.append(forced_case(
+            fs, f"wide_synthetic_cluster{cluster}",
+            fs.make_plan(4096, 8, n, cluster), (table2, row, 0, 0, n), wkw))
+    # 96 x 96 (sys_rows, sys_cols) pairs pass the shared memory a block
+    # has: each point times its own digital stages
+    grid = list(np.linspace(4.0, 128.0, 96))
+    pairs = _prepare_stream("edgaze", {
+        "variant": ["2d_in"], "sys_rows": grid, "sys_cols": grid},
+        device="cuda")
+    pkw = dict(compute=build_coeff_compute(pairs.bank.dims),
+               metric="total_j", axis_names=tuple(pairs.vgrids[0].names),
+               shape=pairs.vgrids[0].shape, n_var=pairs.n_var,
+               total=pairs.total, chunk=pairs.total, lmax=pairs.lmax,
+               block_points=4096, kk=3)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fs.plan(min(4096, pairs.total), 3, pairs.total, n_sm)
+    check(not k1_staging(fs, pairs.bank.dims, pairs.vgrids[0].shape,
+                         pairs.n_var, 1, p).tim,
+          "per_point_timing: the timing table fits; the case tables it")
+    recs.append(forced_case(
+        fs, "per_point_timing", p,
+        (pairs.table2, pairs.bank.fused[0], 0, 0, pairs.total), pkw))
+    # passes: 20 variants of 1,000 cis_node values in blocks of 16,384 on
+    # one CTA (passes of 8,000 points, restaging their variants' tables),
+    # and one block of 2^18 points a chunk on the wrapper's plan (clusters
+    # of 8, 32,768 points a CTA in 4 passes; the ragged second block's
+    # last ranks all padding)
+    cis = {"cis_node": list(np.linspace(14.0, 130.0, 1000))}
+    dims, fused = synthetic_bank(0)
+    row = bank_from_reference({"fused": fused}, dims, device="cuda").fused[0]
+    for name, sizes, n_variants, bp, start, chunk, forced in (
+            ("passes_restaged_cluster1", cis, 20, 16384, 0, 20_000, 1),
+            ("passes_one_block_a_chunk",
+             dict(cis, frame_rate=list(np.geomspace(15.0, 3000.0, 300))),
+             1, 1 << 18, 1000, 299_000, None)):
+        grid = ChunkedGrid(dict(PASS_GRID, **sizes))
+        table2 = torch.from_numpy(fused_table2(axis_tables(
+            [grid] * n_variants))).cuda()
+        n = len(grid)
+        mkw = dict(compute=build_coeff_compute(dims), metric="total_j",
+                   axis_names=tuple(grid.names), shape=grid.shape, n_var=n,
+                   total=n * n_variants, chunk=chunk, lmax=max(grid.shape),
+                   block_points=bp, kk=16)
+        p = fs.make_plan(bp, 16, chunk, forced) if forced \
+            else fs.plan(bp, 16, chunk, n_sm)
+        st = k1_staging(fs, dims, grid.shape, n, n_variants, p)
+        check(-(-p.rank_points // st.span) > 1,
+              f"{name}: {p} takes its points in one pass")
+        rec = forced_case(fs, name, p,
+                          (table2, row, start, 0, n * n_variants), mkw)
+        rec["staging"] = st._asdict()
+        recs.append(rec)
+    return recs
+
+
 def synthetic_case(fs):
     """The synthetic L=2 / D=3 bank row of the physics tests, from seed 0."""
     from repro_torch.core.batch import build_coeff_compute
@@ -255,15 +401,7 @@ def synthetic_case(fs):
     from repro_torch.core.plan_bank import bank_from_reference
     from repro_torch.testing import synthetic_bank
     dims, fused = synthetic_bank(0)
-    grid = ChunkedGrid({"cis_node": [130.0, 90.0, 45.0, 22.0],
-                        "soc_node": [14.0, 22.0],
-                        "mem_tech": [-1.0, 0.0, 1.0, 2.0],
-                        "sys_rows": [8.0, 64.0], "sys_cols": [16.0, 32.0],
-                        "frame_rate": [30.0, 120.0, 500.0, 3000.0],
-                        "active_fraction_scale": [0.25, 1.0],
-                        "pixel_pitch_um": [3.0, 5.0],
-                        "vdd_scale": [0.8, 1.0, 1.2],
-                        "adc_bits": [-1.0, 6.0, 12.0]})
+    grid = ChunkedGrid(SYNTHETIC_GRID)
     table2 = torch.from_numpy(fused_table2(axis_tables([grid]))).cuda()
     row = bank_from_reference({"fused": fused}, dims, device="cuda").fused[0]
     kw = dict(compute=build_coeff_compute(dims), metric="total_j",
@@ -308,6 +446,12 @@ def stats_case(sr, *, name, values, mask, bp, variant=None, n_variants=0):
         torch.cuda.synchronize()
         twin = sr.block_stats_banked_torch(values, mask, variant,
                                            n_variants, bp)
+    return stats_compare(name, ker, twin, values)
+
+
+def stats_compare(name, ker, twin, values, **extra):
+    """Block stats against their twin's: min, argmin and counts exact,
+    sums at rel 1e-5; emits and returns the record."""
     km, ka, ks, kc = (t.cpu().numpy() for t in ker)
     tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
     check(np.array_equal(km, tm) and np.array_equal(ka, ta),
@@ -320,9 +464,37 @@ def stats_case(sr, *, name, values, mask, bp, variant=None, n_variants=0):
     rec = dict(case=name, points=int(values.numel()), blocks=int(km.size),
                empty_blocks=int((tc == 0).sum()),
                max_abs_err=float(np.max(np.abs(ks - ts))),
-               sums_max_rel_err=sum_rel)
+               sums_max_rel_err=sum_rel, **extra)
     emit({"kernel_vs_twin": rec})
     return rec
+
+
+def stats_plan_cases(sr, vals, mask):
+    """K3a on every plan: each cluster size on the vec4 route (the
+    aligned main-path vector) and the scalar route (the same values one
+    element into their buffers), forced through ``sr.run``, each launch
+    counted on its route."""
+    off_v = torch.empty(CHUNK + 1, device="cuda")[1:]
+    off_m = torch.empty(CHUNK + 1, dtype=torch.bool, device="cuda")[1:]
+    off_v.copy_(vals)
+    off_m.copy_(mask)
+    recs = []
+    for cluster in sr.CLUSTER_CHOICES:
+        for route, (v, m) in (("vec4", (vals, mask)),
+                              ("scalar", (off_v, off_m))):
+            aligned = v.data_ptr() % 16 == 0 and m.data_ptr() % 4 == 0
+            p = sr.make_plan(CHUNK, 4096, cluster, aligned)
+            check(p.route == route, f"block stats plan {p}: not {route}")
+            sr.reset_counts()
+            ker = sr.run(v, m, p, 4096)
+            torch.cuda.synchronize()
+            check(sr.COUNTS[f"{route}_launches"]
+                  == sr.COUNTS["kernel_launches"] == 1,
+                  f"block stats {p}: launches {sr.COUNTS}")
+            recs.append(stats_compare(
+                f"stats_{route}_cluster{cluster}", ker,
+                sr.block_stats_torch(v, m, 4096), v, plan=p._asdict()))
+    return recs
 
 
 def reduce_case(cr, *, name, e, w):
@@ -391,8 +563,37 @@ def ops_per_point(dims, knots):
     return fp, sfu
 
 
-def bound_ms(n_points, dims, knots, bytes_moved):
+def hoisted_ops_per_point(dims, knots, shape, variants, rank_points):
+    """FP32 operations and special-function calls per design point that
+    the redesigned K1 still does (:func:`ops_per_point`'s count less what
+    its prologue tables: each digital row's and each memory row's node
+    interpolations and ``exp``, the cell area's ``node * 1e-6`` and
+    square, the ADC factor's sub, mul, two compares and ``exp``, the
+    digital timing and the memory rows' reads), plus the prologue's own
+    work spread over a CTA's ``rank_points`` points: for each of the
+    ``variants`` a CTA reaches, 4 node entries a cis_node and soc_node
+    value and F ADC entries an adc_bits value, each an interpolation and
+    an ``exp``, and the timing of each (sys_rows, sys_cols) pair; and 80
+    declared-node entries.  ``shape`` is the grid's axis sizes in
+    registry order."""
     fp, sfu = ops_per_point(dims, knots)
+    _v, _a, _l, f, d, m = dims
+    n_dyn, n_leak, n_hp, _n_fom = knots
+    interp = lambda n: 2 + math.ceil(math.log2(n - 1)) + 4  # noqa: E731
+    timing = (2 + 6 * d + 4 * d * (d - 1) // 2 + 4 * d + 1 if d else 0) \
+        + 3 * m
+    fp -= d * interp(n_dyn) + m * (interp(n_dyn) + interp(n_leak)
+                                   + interp(n_hp)) + 3 * m + 4 * f + timing
+    sfu -= d + 3 * m + f
+    entries = variants * (4 * (shape[0] + shape[1]) + f * shape[9]) + 80
+    fp += (entries * (interp(max(n_dyn, n_leak, n_hp)) + 2)
+           + variants * shape[3] * shape[4] * timing) / rank_points
+    sfu += entries / rank_points
+    return fp, sfu
+
+
+def bound_ms(n_points, dims, knots, bytes_moved, per_point=None):
+    fp, sfu = per_point or ops_per_point(dims, knots)
     t_ops = max(n_points * fp / PEAK_FP32, n_points * sfu / PEAK_SFU)
     t_bytes = bytes_moved / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes
@@ -1142,6 +1343,49 @@ def stencil_probe(sc, taps, frames):
     return rec
 
 
+def fused_probe(fs, sr, prep, compute, vals, mask):
+    """What K1's and K3a's cluster sizes cost, measured here: device ms of
+    each cluster size at the main-path chunk (K1 at ``kk`` 3 and 16, K3a
+    on its vec4 route), the plans the wrappers pick, and K3a's scalar
+    route on the same values one element into their buffers."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_var = prep.n_var
+    kw = dict(compute=compute, metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
+              chunk=CHUNK, lmax=prep.lmax, block_points=4096)
+    args = (prep.table2, prep.bank.fused[2], 2 * n_var + CHUNK, 0,
+            3 * n_var)
+    rec = {}
+    for kk in (3, 16):
+        by_cluster = {}
+        for c in fs.CLUSTER_CHOICES:
+            p = fs.make_plan(4096, kk, CHUNK, c)
+            by_cluster[c] = {"ctas": p.ctas, "device_ms": device_ms(
+                lambda: fs.run(*args, p, **kw, kk=kk), "fused_sweep_kernel")}
+        rec[f"fused_sweep_kk{kk}"] = {
+            "chosen": fs.plan(4096, kk, CHUNK, n_sm)._asdict(),
+            "by_cluster": by_cluster}
+    by_cluster = {}
+    for c in sr.CLUSTER_CHOICES:
+        p = sr.make_plan(CHUNK, 4096, c, True)
+        by_cluster[c] = {"ctas": p.ctas, "device_ms": device_ms(
+            lambda: sr.run(vals, mask, p, 4096), "block_stats_kernel")}
+    off_v = torch.empty(CHUNK + 1, device="cuda")[1:]
+    off_m = torch.empty(CHUNK + 1, dtype=torch.bool, device="cuda")[1:]
+    off_v.copy_(vals)
+    off_m.copy_(mask)
+    scalar = sr.plan(CHUNK, 4096, False, n_sm)
+    rec["block_stats"] = {
+        "chosen": sr.plan(CHUNK, 4096, True, n_sm)._asdict(),
+        "by_cluster": by_cluster,
+        "scalar_route": {"plan": scalar._asdict(), "device_ms": device_ms(
+            lambda: sr.run(off_v, off_m, scalar, 4096),
+            "block_stats_kernel")}}
+    emit({"fused_probe": rec})
+    return rec
+
+
 def host_us(fn, reps=50):
     """Host microseconds a call of ``fn`` takes to enqueue its work (no
     synchronise inside the window; the card runs behind)."""
@@ -1181,6 +1425,8 @@ def headline_calls(kmods, prep, compute):
     return {
         "K1_fused_sweep_2^18": lambda: fs.fused_sweep_block(
             prep.table2, row, start, 0, 3 * n_var, **kw),
+        "K1_fused_sweep_2^18_kk16": lambda: fs.fused_sweep_block(
+            prep.table2, row, start, 0, 3 * n_var, **dict(kw, kk=16)),
         "K2_grid_decode_2^18": lambda: gd.grid_decode(prep.table2, start,
                                                       **dkw),
         "K3a_block_stats_2^18": lambda: sr.block_stats(vals, mask, 4096),
@@ -1288,6 +1534,8 @@ def launch_probe(kmods, calls, entry_steps=None, timed_in_c=None,
            "wrappers_us": spread(calls, 200),
            "wrappers_event_ms": {k: time_ms(fn, 20, windows=5)
                                  for k, fn in calls.items()},
+           "wrappers_device_ms": {k: device_ms(calls[k], needle)
+                                  for k, needle in PROBE_DEVICE.items()},
            "source": str(source_dir())}
     rec["steps_us"].update(spread(timed_in_c or {}, None))
     emit({"launch_probe": rec})
@@ -1698,6 +1946,7 @@ def main() -> int:
                          variant=0, start=WIDE_POINTS - 70_000, low=0,
                          limit=WIDE_POINTS, chunk=CHUNK, bp=4096, kk=4,
                          idx_dtype=torch.int64))
+    recs += fused_plan_cases(fs, prep, compute)
 
     k2 = [decode_case(gd, prep, name="decode_main_chunk",
                       start=2 * n_var + CHUNK, chunk=CHUNK),
@@ -1714,6 +1963,7 @@ def main() -> int:
     k3a.append(stats_case(sr, name="stats_ragged_ties", values=rvals,
                           mask=rmask, bp=4096))
     check(k3a[0]["empty_blocks"] >= 1, "no all-masked block in the case")
+    k3a += stats_plan_cases(sr, vals, mask)
     vid = (torch.arange(CHUNK, device="cuda") % 8).to(torch.int32)
     vid[-5000:] = -1                          # padding rows
     k3b = [stats_case(sr, name="stats_banked_8_variants", values=vals,
@@ -1745,6 +1995,10 @@ def main() -> int:
     res = explore(space, engine="fused", chunk_size=CHUNK, k=3)
     launches = fs.COUNTS["kernel_launches"]
     twin_calls = fs.COUNTS["twin_calls"]
+    by_cluster = {c: fs.COUNTS[f"cluster{c}_launches"]
+                  for c in fs.CLUSTER_CHOICES}
+    check(sum(by_cluster.values()) == launches,
+          f"main path: launches by cluster size {by_cluster}")
     # folding stays on the device, so only prep and finalize may
     # synchronise, never once per chunk.  The sync debug mode's first use
     # in a process counts one sync more (seen on the card), so a probe
@@ -1792,6 +2046,7 @@ def main() -> int:
         "compile_s": res.compile_s, "wall_s": res.wall_s,
         "dispatches": res.dispatches, "superchunk": res.superchunk,
         "occupancy": res.occupancy, "kernel_launches": launches,
+        "launches_by_cluster": by_cluster,
         "twin_calls": twin_calls, "host_syncs": syncs,
         "progress_calls": len(calls), "event_wait_counts_as_sync":
         bool(wait_counted), "host_syncs_at_pipeline_depth_1": paced_syncs,
@@ -1834,6 +2089,7 @@ def main() -> int:
     st = staged()
     st_counts = dict(decode=gd.COUNTS["kernel_launches"],
                      stats=sr.COUNTS["kernel_launches"],
+                     stats_vec4=sr.COUNTS["vec4_launches"],
                      twins=sum(m.COUNTS[k] for m in kernel_mods
                                for k in m.COUNTS if "twin" in k))
     st_syncs = count_syncs(staged)
@@ -1842,6 +2098,9 @@ def main() -> int:
           f"staged: engine {st.engine}, {st.dispatches} dispatches")
     check(st_counts["decode"] == n_chunks and st_counts["stats"] == n_chunks
           and st_counts["twins"] == 0, f"staged: launches {st_counts}")
+    # the staged metric vectors are fresh, aligned allocations
+    check(st_counts["stats_vec4"] == n_chunks,
+          f"staged: block stats off the vec4 route {st_counts}")
     # the default pipeline_depth of 4 waits on an event after each of the
     # last n_chunks - 4 dispatches
     st_waits = wait_counted * max(0, n_chunks - 4)
@@ -1854,6 +2113,7 @@ def main() -> int:
         "points_per_s": st.points_per_sec, "dispatches": st.dispatches,
         "grid_decode_launches": st_counts["decode"],
         "block_stats_launches": st_counts["stats"],
+        "block_stats_vec4_launches": st_counts["stats_vec4"],
         "twin_calls": st_counts["twins"], "host_syncs": st_syncs,
         "event_waits_counted": st_waits,
         "vs_fused_max_rel_err": st_worst}})
@@ -1922,10 +2182,32 @@ def main() -> int:
         prep.table2, row, start, 0, 3 * n_var, **kw), reps=5)
     knots = tuple(len(xs) for xs, _ in interp_tables())
     n_blocks = CHUNK // 4096
-    bytes_moved = 4 * (prep.table2.numel() + row.numel()) \
-        + n_blocks * (3 * 8 + 8)
-    b_ms, b_by, fp, sfu = bound_ms(CHUNK, prep.bank.dims, knots,
-                                   bytes_moved)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    k1_plan = fs.plan(4096, 3, CHUNK, n_sm)
+
+    def k1_bounds(kk):
+        nbytes = 4 * (prep.table2.numel() + row.numel()) \
+            + n_blocks * (kk * 8 + 8)
+        hoisted = hoisted_ops_per_point(
+            prep.bank.dims, knots, prep.vgrids[0].shape, 1,
+            k1_plan.rank_points)
+        return (bound_ms(CHUNK, prep.bank.dims, knots, nbytes),
+                bound_ms(CHUNK, prep.bank.dims, knots, nbytes, hoisted))
+
+    (b_ms, b_by, fp, sfu), (h_ms, h_by, h_fp, h_sfu) = k1_bounds(3)
+    kw16 = dict(kw, kk=16)
+    (b16_ms, *_), (h16_ms, *_) = k1_bounds(16)
+
+    def k1_16():
+        return fs.fused_sweep_block(prep.table2, row, start, 0, 3 * n_var,
+                                    **kw16)
+    k1_kk16 = dict(
+        ms=time_ms(k1_16), device_ms=device_ms(k1_16, "fused_sweep_kernel"),
+        plain_ms=time_ms(lambda: fs.fused_sweep_block_torch(
+            prep.table2, row, start, 0, 3 * n_var, **kw16), reps=5),
+        bound_ms=b16_ms, hoisted_bound_ms=h16_ms,
+        plan=fs.plan(4096, 16, CHUNK, n_sm)._asdict())
+    probe = fused_probe(fs, sr, prep, compute, vals, mask)
 
     dkw = dict(shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
                chunk=CHUNK, lmax=prep.lmax)
@@ -1973,7 +2255,16 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": b_ms,
         "bound_by": b_by, "device_ms": device_ms(k1, "fused_sweep_kernel"),
         "library_ms": None, "points": CHUNK, "fp32_ops_per_point": fp,
-        "sfu_calls_per_point": sfu, "power_limit": power,
+        "sfu_calls_per_point": sfu, "hoisted_bound_ms": h_ms,
+        "hoisted_bound_by": h_by, "hoisted_fp32_ops_per_point": h_fp,
+        "hoisted_sfu_calls_per_point": h_sfu, "kk": 3,
+        "plan": k1_plan._asdict(),
+        "staging": k1_staging(fs, prep.bank.dims, prep.vgrids[0].shape,
+                              n_var, prep.table2.shape[1] // prep.lmax,
+                              k1_plan)._asdict(),
+        "kk16": k1_kk16,
+        "probe": probe["fused_sweep_kk3"]["by_cluster"],
+        "power_limit": power,
     }]
     for name, source, replaces, n_launch, cases, path in (
             ("grid_decode", "grid_decode.cu",
@@ -1988,11 +2279,15 @@ def main() -> int:
             ("category_reduce", "category_reduce.cu",
              "src/repro/kernels/category_reduce.py:22",
              ch_counts[0] + mo_counts[0], k4, "chunked + monolithic")):
+        extra = {}
+        if name == "block_stats":
+            extra = dict(plan=probe["block_stats"]["chosen"],
+                         probe=probe["block_stats"]["by_cluster"])
         entries.append(dict(
             name=name, route="cuda", source=src + source,
             replaces=replaces, launches=n_launch, path=path,
             max_abs_err=max(r["max_abs_err"] for r in cases),
-            points=CHUNK, power_limit=power, **times[name]))
+            points=CHUNK, power_limit=power, **times[name], **extra))
     for name, line in zip(FUNC_KERNELS, (23, 26, 18, 21)):
         launches_f = sum(func[p]["kernel_launches"][name]
                          for p in ("edgaze", "fig5", "rhythmic"))

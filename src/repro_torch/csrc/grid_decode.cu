@@ -5,8 +5,7 @@
 // Flat stream indices [start, start + chunk) decode into the (n_axes,
 // chunk) f32 axis-value matrix and the (chunk,) int32 variant ids:
 // variant-major, C order within a variant, the tail clamped to
-// total - 1.  The index arithmetic is decode_index of grid_decode.cuh,
-// the same code the fused megakernel (fused_sweep.cu) inlines.
+// total - 1.  The index arithmetic is decode_index of grid_decode.cuh.
 //
 // One thread per index.  What bounds it on the card: the bytes written,
 // 4 * (n_axes + 1) per index (44 B at the registry's 10 axes); the axis

@@ -1,6 +1,8 @@
-// Flat stream index -> grid point decode, shared by the fused sweep
-// megakernel (fused_sweep.cu) and the standalone decode kernel
-// (grid_decode.cu), so the two can never drift apart.
+// Flat stream index -> grid point decode of the standalone decode kernel
+// (grid_decode.cu), by runtime divisions.  The fused sweep megakernel
+// (fused_sweep.cu) decodes the same indices by exact magic multipliers
+// instead; tests/test_torch_fused_sweep.py holds that arithmetic equal to
+// this one's twin at the int32 ceiling and on int64.
 //
 // Same arithmetic as the reference's
 // repro/kernels/grid_decode.py::decode_axis_values and the host oracle

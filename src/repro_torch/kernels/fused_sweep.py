@@ -26,14 +26,23 @@ Two implementations share that contract:
   tests hold against the reference, and what ``chip_smoke.py`` holds the
   kernel against on the card.
 
-:data:`COUNTS` counts kernel launches and twin calls; each is bumped at
-the one place the kernel is launched or the twin runs.
+On the card each block of ``block_points`` is spread over a thread-block
+cluster of 1-8 CTAs; :func:`plan` picks the cluster size and the points a
+CTA stages a pass from the block size, ``kk``, the chunk and the SM count
+(pure Python, cached per shape), :func:`staging` sizes each pass's tables
+from the axis table's geometry, and :func:`run` launches a forced
+:class:`Plan`.  The kernel decodes without a division, by the exact magic
+multipliers of :func:`magic`.
+
+:data:`COUNTS` counts kernel launches (in all, and by cluster size) and
+twin calls; each is bumped at the one place the kernel is launched or the
+twin runs.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +55,13 @@ from ..core.plan_bank import (BankDims, LAYOUT_FIELDS, bank_layout,
 from .cuda_build import launch, load_library
 from .grid_decode import grid_strides
 
-#: launches of the CUDA kernel / calls of the torch twin since the last
-#: :func:`reset_counts`
-COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
+#: the cluster sizes a plan may take (CTAs a block; 8 is the portable cap)
+CLUSTER_CHOICES = (1, 2, 4, 8)
+#: launches of the CUDA kernel (in all, and by cluster size) / calls of the
+#: torch twin since the last :func:`reset_counts`
+COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0,
+                          **{f"cluster{c}_launches": 0
+                             for c in CLUSTER_CHOICES}}
 
 #: the kernel's other metrics, in its ``Out`` enum order; the library
 #: reports each one's code at ABI probes 8..15, checked at load time
@@ -59,9 +72,29 @@ KERNEL_OUTPUTS: Tuple[str, ...] = tuple(
     f"cat_{c}_j" for c in CATEGORIES) + _OTHER_METRICS
 assert set(KERNEL_OUTPUTS) == set(OUT_KEYS), (KERNEL_OUTPUTS, OUT_KEYS)
 
-THREADS = 256                  # threads per block (the .cu's kThreads)
-_MAX_AXES, _MAX_SLOTS, _MAX_LIST, _MAX_KNOTS = 16, 16, 32, 32
+THREADS = 256                  # threads per CTA (the .cu's kThreads)
+_WARPS = THREADS // 32
+_MAX_AXES, _MAX_SLOTS, _MAX_KNOTS = 16, 16, 32
 _MAX_SMEM = 232_448            # bytes of shared memory one H100 block may use
+#: the most points of a block one CTA evaluates in a pass (their metric
+#: values are staged in shared memory for the top-kk); a CTA with more
+#: takes them in passes
+MAX_TILE = 8192
+#: a plan takes the smallest cluster whose CTAs number at least this many
+#: an SM (a 2^18-point chunk in blocks of 4096 is 64 blocks: cluster 4,
+#: 256 CTAs), as long as each CTA keeps a point for every thread.
+#: On an H100 (chip_smoke.py's fused_probe line, device ms by cluster
+#: size at 2^18 points in blocks of 4096; PERF.md) clusters of 4 are the
+#: fastest at kk 3 and 16: at 8 the per-CTA prologue and merges count
+#: twice as often, and not every cluster of 8 finds its SMs free at once.
+_CTAS_PER_SM = 1
+#: shared-memory words that do not scale with the table: the
+#: interpolation knots (xs, ys, dx, dy of 4 tables) and the per-slot
+#: declared nodes (5 x 16); the node tables take 4 kinds of each cis and
+#: soc value
+_KNOT_WORDS, _DECL_WORDS, _NODE_KINDS = 4 * 4 * _MAX_KNOTS, 5 * _MAX_SLOTS, 4
+#: registry axes whose values the kernel tables (AXES order)
+_CIS, _SOC, _ROWS, _COLS, _ADC = 0, 1, 3, 4, 9
 
 
 def reset_counts() -> None:
@@ -73,6 +106,134 @@ def reset_counts() -> None:
 def _blocks(block_points: int, chunk: int) -> Tuple[int, int]:
     bp = max(min(block_points, chunk), 1)
     return bp, -(-chunk // bp)
+
+
+class Plan(NamedTuple):
+    """How one launch runs: ``cluster`` CTAs a block of ``bp`` points,
+    ``rank_points`` of them a CTA, taken in passes of at most ``tile``
+    (``ppt`` a thread); each warp keeps its ``kw`` least (value, position)
+    pairs of a pass, each CTA its ``kc`` least, and the block gives
+    ``kout`` = min(kk, bp) before the padding; ``ctas`` in all."""
+    cluster: int
+    rank_points: int
+    tile: int
+    ppt: int
+    kw: int
+    kc: int
+    kout: int
+    ctas: int
+
+
+def make_plan(bp: int, kk: int, chunk: int, cluster: int) -> Plan:
+    """The :class:`Plan` of blocks of ``bp`` points over ``chunk`` points
+    on clusters of ``cluster`` CTAs; raises ``ValueError`` on what the
+    kernel does not take."""
+    if cluster not in CLUSTER_CHOICES:
+        raise ValueError(f"cluster must be one of {CLUSTER_CHOICES}, got "
+                         f"{cluster}")
+    if bp < 1 or kk < 1 or chunk < 1:
+        raise ValueError(f"bp, kk and chunk must be >= 1, got bp={bp}, "
+                         f"kk={kk}, chunk={chunk}")
+    rank_points = -(-bp // cluster)
+    tile = min(rank_points, MAX_TILE)
+    ppt = -(-tile // THREADS)
+    return Plan(cluster, rank_points, tile, ppt, min(kk, 32 * ppt),
+                min(kk, rank_points), min(kk, bp), -(-chunk // bp) * cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(bp: int, kk: int, chunk: int, n_sm: int) -> Plan:
+    """The plan for blocks of ``bp`` points over ``chunk`` points on a
+    card with ``n_sm`` SMs: the smallest cluster (1, 2, 4, 8) that takes
+    a CTA's points in one pass of at most :data:`MAX_TILE` (8 past 8 x
+    that), grown while the CTAs number fewer than ``_CTAS_PER_SM`` an SM
+    and each CTA keeps at least one point a thread (blocks of 256 points
+    or fewer take one CTA)."""
+    nb = -(-chunk // max(bp, 1))
+    cluster = next((c for c in CLUSTER_CHOICES if -(-bp // c) <= MAX_TILE),
+                   CLUSTER_CHOICES[-1])
+    for c in CLUSTER_CHOICES:
+        if c <= cluster:
+            continue
+        if nb * cluster >= _CTAS_PER_SM * n_sm or -(-bp // c) < THREADS:
+            break
+        cluster = c
+    return make_plan(bp, kk, chunk, cluster)
+
+
+class Staging(NamedTuple):
+    """How a CTA's passes table the axis values: at most ``span`` points a
+    pass, reaching at most ``nv`` variants, whose (sys_rows, sys_cols)
+    timing is tabled when ``tim``; ``smem`` words of shared memory."""
+    span: int
+    nv: int
+    tim: bool
+    smem: int
+
+
+def smem_floats(width: int, dims, shape: Sequence[int], p: Plan, nv: int,
+                tim: bool) -> int:
+    """4-byte words of shared memory one CTA of plan ``p`` uses (the .cu
+    source's ``layout_of``): the row, the knots, the declared nodes; for
+    ``nv`` variants their axis values, the node tables over their cis and
+    soc values, the ADC factors over their adc values and, when ``tim``,
+    the timing of their (sys_rows, sys_cols) pairs; a pass's point keys,
+    the warps' lists, the CTA's running and merged lists, the cluster's
+    lists as rank 0 gathers them, and the partial sums (the warps', the
+    CTA's and, as rank 0 gathers them, the cluster's)."""
+    _v, _a, _l, n_fom, n_dig, n_mem = (int(d) for d in dims)
+    per_var = (sum(shape) + _NODE_KINDS * (shape[_CIS] + shape[_SOC])
+               + n_fom * shape[_ADC])
+    if tim:
+        per_var += shape[_ROWS] * shape[_COLS] * (n_dig + 1 + n_mem)
+    return (width + _KNOT_WORDS + _DECL_WORDS + nv * per_var + p.tile
+            + 2 * _WARPS * p.kw + 4 * p.kc + 2 * p.cluster * p.kc
+            + 2 * _WARPS + 2 + 2 * p.cluster)
+
+
+def staging(width: int, dims, shape: Sequence[int], n_var: int,
+            n_variants: int, p: Plan) -> Staging:
+    """The passes of plan ``p`` over ``n_variants`` variants of ``n_var``
+    points on a grid of axis sizes ``shape``: a pass of the plan's whole
+    tile, unless the tables of the variants it may reach do not fit one
+    CTA's shared memory; then the longest pass whose variants' do.  The
+    timing table is kept when it fits what is left.  Raises
+    ``ValueError`` when a pass that may straddle two variants (one, with
+    one variant) does not fit."""
+    words = _MAX_SMEM // 4
+
+    def reach(span):             # the most variants `span` points reach
+        return min(n_variants, (span - 1) // n_var + 2)
+
+    span = p.tile
+    if smem_floats(width, dims, shape, p, reach(span), False) > words:
+        base = smem_floats(width, dims, shape, p, 0, False)
+        per_var = smem_floats(width, dims, shape, p, 1, False) - base
+        need = min(n_variants, 2)
+        if base + need * per_var > words:
+            raise ValueError(
+                f"a pass's tables for {need} variant(s) of axis sizes "
+                f"{tuple(shape)}, the row and a CTA's {p.tile} points need "
+                f"{4 * (base + need * per_var)} bytes of shared memory; "
+                f"one block has {_MAX_SMEM}")
+        span = ((words - base) // per_var - 1) * n_var
+    nv = reach(span)
+    tim = smem_floats(width, dims, shape, p, nv, True) <= words
+    return Staging(span, nv, tim, smem_floats(width, dims, shape, p, nv, tim))
+
+
+def magic(d: int, bits: int) -> Tuple[int, int]:
+    """The exact magic multiplier and shift of divisor ``d`` for
+    ``bits``-bit unsigned dividends below ``2 ** (bits - 1)``:
+    ``n // d == (mulhi(n, m) + n) >> s`` with ``mulhi(n, m) = (n * m) >>
+    bits`` (Granlund and Montgomery, PLDI'94, Fig. 4.1).  0 when ``d`` is
+    not below ``2 ** (bits - 1)``."""
+    if d < 1:
+        raise ValueError(f"divisor must be >= 1, got {d}")
+    if d >= 1 << (bits - 1):
+        return 0, 0
+    s = (d - 1).bit_length()                 # ceil(log2 d)
+    return ((1 << bits) * ((1 << s) - d)) // d + 1, s
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +301,21 @@ class _Params(ctypes.Structure):
         *[(n, ctypes.c_longlong) for n in
           ("start", "low", "limit", "total", "n_var", "chunk")],
         ("shape", ctypes.c_longlong * _MAX_AXES),
-        ("stride", ctypes.c_longlong * _MAX_AXES),
+        ("mul64_var", ctypes.c_ulonglong),
+        ("mul64", ctypes.c_ulonglong * _MAX_AXES),
+        ("mul32_var", ctypes.c_uint),
+        ("mul32", ctypes.c_uint * _MAX_AXES),
+        ("shift_var", ctypes.c_int),
+        ("shift", ctypes.c_int * _MAX_AXES),
         *[(n, ctypes.c_int) for n in
-          ("bp", "kk", "list_len", "lmax", "table_cols", "width", "n_axes",
-           "metric", "A", "L", "F", "D", "M", "n_units")],
+          ("bp", "kk", "cluster", "rank_points", "tile", "ppt", "kw", "kc",
+           "kout", "smem", "span", "nv", "tim", "sum_shape")],
+        ("pre", ctypes.c_int * _MAX_AXES),
+        *[(n, ctypes.c_int) for n in
+          ("lmax", "table_cols", "width", "n_axes", "metric", "A", "L", "F",
+           "D", "M", "n_units")],
         ("off", ctypes.c_int * len(LAYOUT_FIELDS)),
         ("n_knots", ctypes.c_int * 4),
-        *[(n, (ctypes.c_float * _MAX_KNOTS) * 4)
-          for n in ("xs", "ys", "dx", "dy")],
         *[(n, ctypes.c_float) for n in
           ("c_sram_access", "c_stt_read", "c_stt_write", "c_stt_leak",
            "c_utsv", "c_mipi", "c_ln2", "c_inv_ln10")],
@@ -155,6 +323,8 @@ class _Params(ctypes.Structure):
 
 
 _LIB = {}
+_SMS: Dict[int, int] = {}
+_KNOTS: Dict[int, torch.Tensor] = {}
 
 
 def load_kernel_library() -> ctypes.CDLL:
@@ -167,40 +337,58 @@ def load_kernel_library() -> ctypes.CDLL:
     lib.repro_fused_sweep_abi.argtypes = [ctypes.c_int]
     lib.repro_fused_sweep_abi.restype = ctypes.c_int
     want = (ctypes.sizeof(_Params), len(LAYOUT_FIELDS), _MAX_AXES,
-            _MAX_SLOTS, _MAX_LIST, _MAX_KNOTS, len(CATEGORIES), len(AXES)) \
-        + tuple(KERNEL_OUTPUTS.index(m) for m in _OTHER_METRICS)
+            _MAX_SLOTS, CLUSTER_CHOICES[-1], _MAX_KNOTS, len(CATEGORIES),
+            len(AXES)) \
+        + tuple(KERNEL_OUTPUTS.index(m) for m in _OTHER_METRICS) \
+        + (THREADS, 2 * _NODE_KINDS, _DECL_WORDS)
     got = tuple(lib.repro_fused_sweep_abi(i) for i in range(len(want)))
     if got != want:
         raise RuntimeError(f"fused_sweep.cu ABI mismatch: library reports "
                            f"{got}, the wrapper expects {want}")
     lib.repro_fused_sweep.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Params),
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.repro_fused_sweep.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
 
 
-def _interp_params(p: _Params) -> None:
+def _knot_table() -> np.ndarray:
+    """The interpolation knots as the kernel stages them: xs, ys, dx, dy,
+    each ``[4 tables][_MAX_KNOTS]`` f32 (zero past a table's knots), and
+    each table's knot count."""
+    out = np.zeros((4, 4, _MAX_KNOTS), np.float32)
+    counts = []
     for t, (xs, ys) in enumerate(interp_tables()):
         n = len(xs)
         if n > _MAX_KNOTS:
             raise ValueError(f"interp table {t} has {n} knots; the kernel "
                              f"takes at most {_MAX_KNOTS}")
-        p.n_knots[t] = n
-        for i in range(n):
-            p.xs[t][i] = float(xs[i])
-            p.ys[t][i] = float(ys[i])
-        for i in range(n - 1):
-            p.dx[t][i] = float(np.float32(xs[i + 1] - xs[i]))
-            p.dy[t][i] = float(np.float32(ys[i + 1] - ys[i]))
+        if not np.all(np.diff(np.asarray(xs, np.float32)) > 0):
+            raise ValueError(f"interp table {t}'s knots do not increase "
+                             f"strictly; the kernel locates a segment by "
+                             f"binary search")
+        counts.append(n)
+        out[0, t, :n] = xs
+        out[1, t, :n] = ys
+        out[2, t, :n - 1] = np.float32(np.diff(np.asarray(xs, np.float32)))
+        out[3, t, :n - 1] = np.float32(np.diff(np.asarray(ys, np.float32)))
+    return out, counts
+
+
+def _knots(dev: torch.device) -> torch.Tensor:
+    """The knot table on ``dev``, made once per device."""
+    t = _KNOTS.get(dev.index)
+    if t is None:
+        t = _KNOTS[dev.index] = torch.from_numpy(_knot_table()[0]).to(dev)
+    return t
 
 
 @functools.lru_cache(maxsize=32)
 def _static_params(dims: BankDims, metric: str, shape: Tuple[int, ...],
                    n_var: int, total: int, chunk: int, lmax: int,
-                   table_cols: int, bp: int, kk: int) -> bytes:
+                   table_cols: int, bp: int, kk: int, p_: Plan) -> bytes:
     """The launch parameters that stay fixed across a sweep's chunks, as
     the raw bytes of a :class:`_Params` (built once per sweep shape: the
     knot tables alone take ~0.5 ms of Python to fill); raises
@@ -209,31 +397,37 @@ def _static_params(dims: BankDims, metric: str, shape: Tuple[int, ...],
         if val > _MAX_SLOTS:
             raise ValueError(f"bank dim {name}={val} exceeds the CUDA "
                              f"kernel's cap of {_MAX_SLOTS} slots")
-    if len(shape) > _MAX_AXES:
-        raise ValueError(f"{len(shape)} axes exceed the kernel's cap of "
-                         f"{_MAX_AXES}")
-    list_len = min(kk, -(-bp // THREADS))
-    if list_len > _MAX_LIST:
-        raise ValueError(f"kk={kk} at block_points={bp} needs a "
-                         f"{list_len}-entry per-thread list; the kernel "
-                         f"keeps at most {_MAX_LIST}")
+    if len(shape) != len(AXES):
+        raise ValueError(f"the kernel decodes the {len(AXES)} registry "
+                         f"axes; got {len(shape)}")
     if metric not in KERNEL_OUTPUTS:
         raise KeyError(f"unknown metric {metric!r}; valid: "
                        f"{sorted(KERNEL_OUTPUTS)}")
+    width = bank_layout(dims)["__width__"][0]
+    st = staging(width, dims, shape, int(n_var), int(table_cols) // int(lmax),
+                 p_)
     p = _Params()
     p.total, p.n_var, p.chunk = int(total), int(n_var), int(chunk)
-    for a, (s, st) in enumerate(zip(shape, grid_strides(shape))):
-        p.shape[a], p.stride[a] = int(s), int(st)
-    p.bp, p.kk, p.list_len, p.lmax = bp, int(kk), list_len, int(lmax)
-    p.table_cols = int(table_cols)
-    p.width = bank_layout(dims)["__width__"][0]
+    p.mul64_var, p.shift_var = magic(int(n_var), 64)
+    p.mul32_var = magic(int(n_var), 32)[0]
+    for a, size in enumerate(shape):
+        p.shape[a] = int(size)
+        p.mul64[a], p.shift[a] = magic(int(size), 64)
+        p.mul32[a] = magic(int(size), 32)[0]
+        p.pre[a] = int(sum(shape[:a]))
+    p.bp, p.kk = bp, int(kk)
+    (p.cluster, p.rank_points, p.tile, p.ppt, p.kw, p.kc, p.kout) = p_[:7]
+    p.smem, p.span, p.nv, p.tim = st.smem, st.span, st.nv, int(st.tim)
+    p.sum_shape = int(sum(shape))
+    p.lmax, p.table_cols, p.width = int(lmax), int(table_cols), width
     p.n_axes = len(shape)
     p.metric = KERNEL_OUTPUTS.index(metric)
     p.A, p.L, p.F, p.D, p.M = tuple(dims)[1:]
     p.n_units = dims.n_units
     for i, o in enumerate(layout_offsets(dims)):
         p.off[i] = int(o)
-    _interp_params(p)
+    for t, n in enumerate(_knot_table()[1]):
+        p.n_knots[t] = n
     p.c_sram_access = _F32["sram_access"]
     p.c_stt_read = _F32["stt_read"]
     p.c_stt_write = _F32["stt_write"]
@@ -247,15 +441,22 @@ def _static_params(dims: BankDims, metric: str, shape: Tuple[int, ...],
 
 def kernel_params(dims, *, metric: str, shape: Sequence[int], n_var: int,
                   total: int, chunk: int, lmax: int, table_cols: int,
-                  bp: int, kk: int, start: int, low: int,
-                  limit: int) -> _Params:
-    """The kernel's launch parameters for one chunk."""
-    p = _Params.from_buffer_copy(_static_params(
+                  bp: int, kk: int, start: int, low: int, limit: int,
+                  p: Plan) -> _Params:
+    """The kernel's launch parameters for one chunk under plan ``p``."""
+    params = _Params.from_buffer_copy(_static_params(
         BankDims(*(int(d) for d in dims)), metric,
         tuple(int(s) for s in shape), int(n_var), int(total), int(chunk),
-        int(lmax), int(table_cols), int(bp), int(kk)))
-    p.start, p.low, p.limit = int(start), int(low), int(limit)
-    return p
+        int(lmax), int(table_cols), int(bp), int(kk), p))
+    params.start, params.low, params.limit = int(start), int(low), int(limit)
+    return params
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev.index).multi_processor_count
+    return _SMS[dev.index]
 
 
 def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
@@ -265,10 +466,10 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
                       idx_dtype=torch.int32):
     """Same signature and return contract as :func:`fused_sweep_block_torch`.
 
-    On a CUDA tensor it launches the hand-written kernel on the current
-    stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  ``compute`` must come from ``build_coeff_compute`` (the kernel
-    reads the bank dims off it).
+    On a CUDA tensor it launches the hand-written kernel under
+    :func:`plan` on the current stream (no synchronisation) or raises; on
+    a CPU tensor it runs the twin.  ``compute`` must come from
+    ``build_coeff_compute`` (the kernel reads the bank dims off it).
     """
     if table2.device.type == "cpu":
         return fused_sweep_block_torch(
@@ -279,19 +480,38 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
     if table2.device.type != "cuda":
         raise ValueError(f"fused_sweep_block runs on CUDA or CPU tensors, "
                          f"got {table2.device}")
+    bp, _nb = _blocks(block_points, chunk)
+    p = plan(bp, kk, chunk, _sm_count(table2.device))
+    return run(table2, row, start, low, limit, p, compute=compute,
+               metric=metric, axis_names=axis_names, shape=shape,
+               n_var=n_var, total=total, chunk=chunk, lmax=lmax,
+               block_points=block_points, kk=kk, idx_dtype=idx_dtype)
+
+
+def run(table2: torch.Tensor, row: torch.Tensor, start, low, limit,
+        p: Plan, *, compute, metric: str, axis_names, shape, n_var: int,
+        total: int, chunk: int, lmax: int, block_points: int = 4096,
+        kk: int = 16, idx_dtype=torch.int32):
+    """Launch the kernel under plan ``p`` (from :func:`plan` or
+    :func:`make_plan` for this ``block_points``, ``kk`` and ``chunk``) on
+    CUDA operands; the contract of :func:`fused_sweep_block`."""
     dims = BankDims(*compute.dims)
     n_axes, vl = table2.shape
     bp, nb = _blocks(block_points, chunk)
-    params = kernel_params(dims, metric=metric, shape=shape, n_var=n_var,
-                           total=total, chunk=chunk, lmax=lmax,
-                           table_cols=vl, bp=bp, kk=kk, start=start,
-                           low=low, limit=limit)
-    width = params.width
-    row = row.reshape(-1)
+    if p.ctas != nb * p.cluster or p.kout != min(kk, bp) \
+            or p.cluster * p.rank_points < bp:
+        raise ValueError(f"{p} is not a plan for blocks of {bp} points, "
+                         f"kk={kk}, chunk={chunk}")
     if tuple(axis_names) != AXES or tuple(table2.shape[:1]) != (len(shape),):
         raise ValueError(f"the kernel decodes the registry axes {AXES} in "
                          f"order; got axis_names={tuple(axis_names)} and a "
                          f"table of shape {tuple(table2.shape)}")
+    params = kernel_params(dims, metric=metric, shape=shape, n_var=n_var,
+                           total=total, chunk=chunk, lmax=lmax,
+                           table_cols=vl, bp=bp, kk=kk, start=start,
+                           low=low, limit=limit, p=p)
+    width = params.width
+    row = row.reshape(-1)
     for name, t, n in (("table2", table2, None), ("row", row, width)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got "
@@ -311,10 +531,6 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
     if idx_dtype == torch.int32 and total + chunk >= 2 ** 31:
         raise ValueError(f"total + chunk = {total + chunk} needs int64 "
                          f"indices")
-    smem = 4 * (width + n_axes * vl)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"row + axis table need {smem} bytes of shared "
-                         f"memory; one block has {_MAX_SMEM}")
     lib = load_kernel_library()
     dev = table2.device
     cand_v = torch.empty((nb, kk), dtype=torch.float32, device=dev)
@@ -322,8 +538,9 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
     sums = torch.empty((nb,), dtype=torch.float32, device=dev)
     counts = torch.empty((nb,), dtype=torch.float32, device=dev)
     launch("fused_sweep", lib.repro_fused_sweep, dev, table2.data_ptr(),
-           row.data_ptr(), ctypes.byref(params),
+           row.data_ptr(), _knots(dev).data_ptr(), ctypes.byref(params),
            int(idx_dtype == torch.int64), cand_v.data_ptr(),
            cand_l.data_ptr(), sums.data_ptr(), counts.data_ptr())
+    COUNTS[f"cluster{p.cluster}_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return cand_v, cand_l, sums, counts

@@ -15,8 +15,8 @@ already keeps on the device for the fused engine
 ``(V, n_axes, Lmax)`` stack and transposes it per call.)
 
 * :func:`grid_decode` — the wrapper around the hand-written CUDA kernel
-  ``repro_torch/csrc/grid_decode.cu``, whose index arithmetic is the
-  fused megakernel's (``csrc/grid_decode.cuh``).  For a CUDA tensor it
+  ``repro_torch/csrc/grid_decode.cu`` (index arithmetic in
+  ``csrc/grid_decode.cuh``).  For a CUDA tensor it
   launches the kernel or raises; for a CPU tensor it runs the twin.
 * :func:`grid_decode_torch` — the plain-torch twin.
 

@@ -14,30 +14,99 @@ carry variant -1 and match no id.
 * :func:`block_stats` / :func:`block_stats_banked` — wrappers around the
   hand-written CUDA kernels of ``repro_torch/csrc/stream_reduce.cu``.  For
   a CUDA tensor they launch the kernel or raise; for a CPU tensor they
-  run the twin.
+  run the twin.  :func:`plan` spreads each of K3a's blocks over a cluster
+  of 1-8 CTAs and picks its route, ``"vec4"`` (16-byte value and 4-byte
+  mask loads, where bases and blocks are aligned) or ``"scalar"``;
+  :func:`run` launches a forced :class:`Plan`.
 * :func:`block_stats_torch` / :func:`block_stats_banked_torch` — the
   plain-torch twins.  Min and argmin agree with the kernel exactly; the
   sums add in another order (rel 1e-5 over a 4096-point block).
 * :func:`masked_stats` — the global fold of :func:`block_stats`.
 
-:data:`COUNTS` counts launches and twin calls of each kernel.
+:data:`COUNTS` counts launches (K3a's also by route) and twin calls of
+each kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 
 from .cuda_build import check_operands, launch, load_library
 
-#: launches of the CUDA kernels / calls of the torch twins since the
-#: last :func:`reset_counts`
-COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0,
+#: K3a's cluster sizes (CTAs a block)
+CLUSTER_CHOICES = (1, 2, 4, 8)
+#: launches of the CUDA kernels (K3a's also by route) / calls of the torch
+#: twins since the last :func:`reset_counts`
+COUNTS: Dict[str, int] = {"kernel_launches": 0, "vec4_launches": 0,
+                          "scalar_launches": 0, "twin_calls": 0,
                           "banked_kernel_launches": 0,
                           "banked_twin_calls": 0}
+#: threads of a K3a CTA (the .cu source's kStatsThreads)
+STATS_THREADS = 128
+#: a plan takes the smallest cluster whose CTAs number at least this many
+#: an SM, as long as each CTA keeps a 4-point vector for every thread.
+#: On an H100 (chip_smoke.py's fused_probe line, vec4 at 2^18 points in
+#: blocks of 4096; PERF.md) clusters of 2 and 4 are the fastest, within
+#: a few percent of each other.
+_CTAS_PER_SM = 1
 
 _LIB = {}
+_SMS: Dict[int, int] = {}
+
+
+class Plan(NamedTuple):
+    """How one K3a launch runs: its route, ``cluster`` CTAs a block,
+    ``rank_points`` points of a block a CTA, ``ctas`` in all."""
+    route: str
+    cluster: int
+    rank_points: int
+    ctas: int
+
+
+def make_plan(b: int, bp: int, cluster: int, aligned: bool) -> Plan:
+    """The :class:`Plan` of ``[b]`` points in blocks of ``bp`` on
+    clusters of ``cluster`` CTAs: ``"vec4"`` where ``aligned`` (values
+    16-byte, mask 4-byte) and ``bp`` and each CTA's slice are whole
+    4-point vectors, else ``"scalar"``; raises ``ValueError`` on a cluster
+    size the kernel does not take."""
+    if cluster not in CLUSTER_CHOICES:
+        raise ValueError(f"cluster must be one of {CLUSTER_CHOICES}, got "
+                         f"{cluster}")
+    if b < 1 or bp < 1:
+        raise ValueError(f"b and bp must be >= 1, got b={b}, bp={bp}")
+    rank_points = -(-bp // cluster)
+    vec = aligned and bp % 4 == 0
+    if vec:
+        rank_points = -(-rank_points // 4) * 4
+    return Plan("vec4" if vec else "scalar", cluster, rank_points,
+                -(-b // bp) * cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, bp: int, aligned: bool, n_sm: int) -> Plan:
+    """The plan for ``[b]`` points in blocks of ``bp`` on a card with
+    ``n_sm`` SMs: the smallest cluster (1, 2, 4, 8) whose CTAs number at
+    least ``_CTAS_PER_SM`` an SM, as long as each CTA keeps a 4-point
+    vector for each of its threads (the largest such when none reaches
+    that count)."""
+    nb = -(-b // max(bp, 1))
+    cluster = 1
+    for c in CLUSTER_CHOICES[1:]:
+        if nb * cluster >= _CTAS_PER_SM * n_sm \
+                or -(-bp // c) < 4 * STATS_THREADS:
+            break
+        cluster = c
+    return make_plan(b, bp, cluster, aligned)
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev.index).multi_processor_count
+    return _SMS[dev.index]
 
 
 def reset_counts() -> None:
@@ -113,8 +182,8 @@ def load_kernel_library() -> ctypes.CDLL:
         return lib
     lib = load_library("stream_reduce")
     ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.repro_block_stats.argtypes = [ptr, ptr, ll, i, ptr, ptr, ptr, ptr,
-                                      ptr]
+    lib.repro_block_stats.argtypes = [ptr, ptr, ll, i, i, i, i, ptr, ptr,
+                                      ptr, ptr, ptr]
     lib.repro_block_stats.restype = ctypes.c_int
     lib.repro_block_stats_banked.argtypes = [ptr, ptr, ptr, ll, i, i, ptr,
                                              ptr, ptr, ptr, ptr]
@@ -157,10 +226,32 @@ def block_stats(values: torch.Tensor, mask: torch.Tensor,
     if b == 0:
         raise ValueError("block_stats needs at least one point")
     bp = max(min(int(block_points), b), 1)
+    aligned = values.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0
+    return _launch(values, mask, plan(b, bp, aligned, _sm_count(dev)), b,
+                   bp, dev)
+
+
+def run(values: torch.Tensor, mask: torch.Tensor, p: Plan,
+        block_points: int = 4096):
+    """Launch K3a under plan ``p`` (from :func:`plan` or
+    :func:`make_plan`) on CUDA operands; the contract of
+    :func:`block_stats`."""
+    dev = _cuda_inputs(values, mask)
+    b = _check(values, mask)
+    bp = max(min(int(block_points), b), 1)
+    if p.ctas != -(-b // bp) * p.cluster or p.cluster * p.rank_points < bp:
+        raise ValueError(f"{p} is not a plan for {b} points in blocks of "
+                         f"{bp}")
+    return _launch(values, mask, p, b, bp, dev)
+
+
+def _launch(values, mask, p: Plan, b: int, bp: int, dev):
     outs = _outputs((-(-b // bp),), dev)
     lib = load_kernel_library()
     launch("block_stats", lib.repro_block_stats, dev, values.data_ptr(),
-           mask.data_ptr(), b, bp, *(o.data_ptr() for o in outs))
+           mask.data_ptr(), b, bp, p.cluster, p.rank_points,
+           int(p.route == "vec4"), *(o.data_ptr() for o in outs))
+    COUNTS[f"{p.route}_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return outs
 

@@ -15,6 +15,9 @@ scattering into the SAME analog slot (the scatter-add must sum them),
 fixed-node stage, explicit memory energies beside computed ones, and a
 stacked die.  The parity tests and ``chip_smoke.py`` feed this row to the
 reference, the torch twin and the CUDA kernel alike.
+:func:`synthetic_wide_bank` draws a row past four slots in every dim
+(``WIDE_DIMS``), the widths at which the fused-sweep kernel takes its
+16-slot instantiation.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from .core.plan_bank import BankDims, bank_layout
 
 #: dims of the synthetic bank: V=1, A=3, L=2, F=1, D=3, M=2
 SYNTHETIC_DIMS = BankDims(1, 3, 2, 1, 3, 2)
+#: dims of the wide synthetic bank: V=1, A=5, L=6, F=5, D=6, M=5
+WIDE_DIMS = BankDims(1, 5, 6, 5, 6, 5)
 
 
 def synthetic_bank(seed: int = 0) -> Tuple[BankDims, np.ndarray]:
@@ -74,6 +79,65 @@ def synthetic_bank(seed: int = 0) -> Tuple[BankDims, np.ndarray]:
     cats = [0, 1, 3, 4, 4, 4, 2, 5, 7, 6]
     for i, cat in enumerate(cats):
         weights[i, cat] = 1.0
+        weights[i, c] = 1.0
+        weights[i, c + 1] = 1.0 if i < units - 1 else 0.0
+    vals["weights"] = weights
+    layout = bank_layout(dims)
+    fused = np.zeros((1, layout["__width__"][0]), np.float32)
+    for name, v in vals.items():
+        off, shape = layout[name]
+        size = int(np.prod(shape)) if shape else 1
+        fused[0, off:off + size] = np.asarray(v, np.float32).reshape(size)
+    return dims, fused
+
+
+def synthetic_wide_bank(seed: int = 0) -> Tuple[BankDims, np.ndarray]:
+    """``(dims, fused)``: a ``(1, W)`` f32 fused row of :data:`WIDE_DIMS`
+    drawn from ``seed``: linear and FoM terms scattered over the analog
+    slots with repeats, FoM reference bits at and above 1, a digital DAG
+    with an invalid stage, every node role, memory technology and
+    explicit-energy override."""
+    dims = WIDE_DIMS
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, n: rng.uniform(lo, hi, n)          # noqa: E731
+    cyc = lambda opts, n: np.resize(np.asarray(opts, float), n)  # noqa: E731
+    nan = np.nan
+    c = len(CATEGORIES)
+    A, L, F, D, M = tuple(dims)[1:]
+    edge_mask = np.tril(rng.uniform(size=(D, D)) > 0.4, -1).astype(float)
+    edge_mask[np.arange(1, D), np.arange(D - 1)] = 1.0     # a chain, and more
+    vals = {
+        "a_const": u(1e-13, 1e-11, A), "a_pad_coeff": u(0.05, 0.5, A),
+        "a_ops": u(1e4, 1e6, A),
+        "lin_arr": rng.integers(0, A, L), "lin_coeff": u(1e-7, 1e-5, L),
+        "lin_inv": u(1.0, 8.0, L),
+        "fom_arr": rng.integers(0, A, F), "fom_scale": u(0.5, 2.0, F),
+        "fom_inv": u(1.0, 4.0, F), "fom_bits": cyc([10.0, 1.0, 8.0], F),
+        "d_valid": cyc([1.0, 1.0, 0.0], D), "d_is_sys": cyc([1.0, 0.0], D),
+        "d_dyn": u(1e-7, 1e-5, D), "d_role": cyc([0.0, 1.0, 2.0], D),
+        "d_node": cyc([65.0, 40.0, 28.0, 90.0], D),
+        "d_static": u(1e-5, 1e-3, D), "d_clock": u(1e8, 5e8, D),
+        "d_cycles": u(1e4, 1e6, D), "d_macs": cyc([5e6, 0.0], D),
+        "d_util": cyc([0.8, 1.0], D),
+        "d_edge_w": edge_mask * u(0.25, 1.0, D * D).reshape(D, D),
+        "d_edge_mask": edge_mask,
+        "m_reads_fixed": u(1e3, 1e5, M), "m_reads_dnn2": u(1e4, 1e6, M),
+        "m_writes": u(1e3, 1e5, M), "m_bits_total": u(1e5, 1e7, M),
+        "m_bits_pa": cyc([64.0, 128.0, 32.0], M), "m_size_f": u(0.5, 2.0, M),
+        "m_alpha": u(0.1, 1.0, M), "m_role": cyc([0.0, 1.0, 2.0], M),
+        "m_node": cyc([65.0, 28.0, 45.0], M),
+        "m_area_role": cyc([0.0, 1.0, 2.0, 1.0], M),
+        "m_tech": cyc([0.0, 1.0, 2.0], M),
+        "m_read_x": cyc([nan, 3e-12, nan], M),
+        "m_write_x": cyc([nan, nan, 5e-12], M),
+        "m_leak_x": cyc([nan, 2e-6], M),
+        "n_phases": 2.0, "stacked": 0.0, "n_pixels": 640.0 * 400.0,
+        "utsv_bytes": 2.5e5, "mipi_bytes": 4e4,
+    }
+    units = dims.n_units
+    weights = np.zeros((units, c + 2))
+    for i in range(units):
+        weights[i, i % c] = 1.0
         weights[i, c] = 1.0
         weights[i, c + 1] = 1.0 if i < units - 1 else 0.0
     vals["weights"] = weights

@@ -8,7 +8,10 @@ a fixture, never at import).  On the card:
 Tolerances: ``cand_v`` rel 1e-6 and ``cand_l`` equal where finite (the
 kernel keeps the twin's operation order, built with ``--fmad=false``);
 ``counts`` exact; ``sums`` rel 1e-5 (block sums add up to 4096 f32 terms
-in another order).
+in another order).  Every cluster size of the kernel's plans is forced
+through ``fused_sweep.run`` and counted on its route; there the
+candidates' positions are also held equal at the +inf padding, which the
+kernel's lexicographic merge gives exactly as the twin's stable sort.
 """
 import numpy as np
 import pytest
@@ -66,8 +69,173 @@ def test_kernel_matches_twin(cuda, case):
     fs.reset_counts()
     ker = fs.fused_sweep_block(*args, **kw)
     torch.cuda.synchronize()
-    assert fs.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    # blocks of 256 points or fewer take one CTA a block
+    assert fs.COUNTS == {"kernel_launches": 1, "twin_calls": 0,
+                         "cluster1_launches": 1, "cluster2_launches": 0,
+                         "cluster4_launches": 0, "cluster8_launches": 0}
     _assert_close(ker, fs.fused_sweep_block_torch(*args, **kw))
+
+
+@pytest.fixture(scope="module")
+def wide_prep(cuda):
+    """Two Ed-Gaze variants of 1,728 points each, so blocks of up to
+    4096 straddle the variants."""
+    from repro_torch.core.shard_sweep import _prepare_stream
+    grids = dict(GRIDS, sys_cols=[16.0, 32.0], active_fraction_scale=[
+        0.5, 1.0])
+    return _prepare_stream("edgaze", grids, device=cuda)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("kk", [1, 3, 16, 32])
+@pytest.mark.parametrize("case", [
+    # a chunk that straddles the two variants, low and limit inside it
+    dict(metric="total_j", start=1000, low=1003, limit=2900, chunk=2500,
+         bp=1024, idx_dtype=torch.int32),
+    # tie-heavy: the area depends on the pitch and the nodes alone
+    dict(metric="area_mm2", start=0, low=0, limit=None, chunk=None,
+         bp=4096, idx_dtype=torch.int32),
+    # int64 indices, a ragged last block
+    dict(metric="total_j", start=77, low=0, limit=None, chunk=3000,
+         bp=512, idx_dtype=torch.int64),
+])
+def test_kernel_every_cluster_matches_twin(cuda, wide_prep, cluster, kk,
+                                           case):
+    from repro_torch.core.batch import build_coeff_compute
+    from repro_torch.kernels import fused_sweep as fs
+    prep = wide_prep
+    chunk = case["chunk"] or prep.total
+    kw = dict(compute=build_coeff_compute(prep.bank.dims),
+              metric=case["metric"], axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=prep.n_var,
+              total=prep.total, chunk=chunk, lmax=prep.lmax,
+              block_points=case["bp"], kk=kk, idx_dtype=case["idx_dtype"])
+    variant = case["start"] // prep.n_var
+    args = (prep.table2, prep.bank.fused[variant], case["start"],
+            case["low"], case["limit"] or prep.total)
+    p = fs.make_plan(min(case["bp"], chunk), kk, chunk, cluster)
+    fs.reset_counts()
+    ker = fs.run(*args, p, **kw)
+    torch.cuda.synchronize()
+    assert fs.COUNTS["kernel_launches"] == 1
+    assert fs.COUNTS[f"cluster{cluster}_launches"] == 1
+    twin = fs.fused_sweep_block_torch(*args, **kw)
+    _assert_close(ker, twin)
+    np.testing.assert_array_equal(ker[1].cpu().numpy(),
+                                  twin[1].cpu().numpy())
+    if case["metric"] == "area_mm2":          # ties did occur
+        cv = twin[0].cpu().numpy()
+        assert np.any(cv[:, 1:] == cv[:, :-1]) or kk == 1
+
+
+def _staging(fs, prep, p):
+    from repro_torch.core.plan_bank import BankDims, bank_layout
+    dims = BankDims(*prep.bank.dims)
+    return fs.staging(bank_layout(dims)["__width__"][0], dims,
+                      prep.vgrids[0].shape, prep.n_var,
+                      prep.table2.shape[1] // prep.lmax, p)
+
+
+def test_kernel_per_point_timing_matches_twin(cuda):
+    """96 x 96 (sys_rows, sys_cols) pairs of (D + 1 + M) = 8 words pass
+    the shared memory a block has, so each point times its own digital
+    stages: the path every other case tables."""
+    from repro_torch.core.batch import build_coeff_compute
+    from repro_torch.core.shard_sweep import _prepare_stream
+    from repro_torch.kernels import fused_sweep as fs
+    grid = list(np.linspace(4.0, 128.0, 96))
+    prep = _prepare_stream("edgaze", {"variant": ["2d_in"],
+                                      "sys_rows": grid, "sys_cols": grid,
+                                      "frame_rate": [30.0, 2000.0]},
+                           device=cuda)
+    dims = prep.bank.dims
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert not _staging(fs, prep, fs.plan(1024, 8, prep.total, n_sm)).tim
+    kw = dict(compute=build_coeff_compute(dims), metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=prep.n_var,
+              total=prep.total, chunk=prep.total, lmax=prep.lmax,
+              block_points=1024, kk=8)
+    args = (prep.table2, prep.bank.fused[0], 0, 0, prep.total)
+    ker = fs.fused_sweep_block(*args, **kw)
+    torch.cuda.synchronize()
+    twin = fs.fused_sweep_block_torch(*args, **kw)
+    _assert_close(ker, twin)
+    np.testing.assert_array_equal(ker[1].cpu().numpy(),
+                                  twin[1].cpu().numpy())
+
+
+def _synthetic_prep(cuda, sizes, n_variants):
+    """The synthetic row on a grid of registry axes (``sizes`` values
+    each, 1 elsewhere), repeated over ``n_variants`` variants."""
+    from types import SimpleNamespace
+    from repro_torch.core.grid import ChunkedGrid, axis_tables, fused_table2
+    from repro_torch.core.plan_bank import bank_from_reference
+    from repro_torch.testing import synthetic_bank
+    dims, fused = synthetic_bank(0)
+    grid = ChunkedGrid({
+        "cis_node": [130.0], "soc_node": [22.0], "mem_tech": [1.0],
+        "sys_rows": [16.0], "sys_cols": [32.0], "frame_rate": [60.0],
+        "active_fraction_scale": [1.0], "pixel_pitch_um": [3.0],
+        "vdd_scale": [1.0], "adc_bits": [10.0], **sizes})
+    bank = bank_from_reference({"fused": fused}, dims, device=cuda)
+    table2 = torch.from_numpy(fused_table2(axis_tables(
+        [grid] * n_variants))).to(cuda)
+    return SimpleNamespace(bank=bank, vgrids=[grid], n_var=len(grid),
+                           total=len(grid) * n_variants,
+                           lmax=max(grid.shape), table2=table2)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, None])
+@pytest.mark.parametrize("case", [
+    # 20 variants of 1,000 cis_node values: a tile's variants do not fit,
+    # so passes of 8,000 points restage their variants' tables
+    dict(sizes={"cis_node": list(np.linspace(14.0, 130.0, 1000))},
+         n_variants=20, bp=16384, start=0, chunk=20_000,
+         passes={1: (3, True), 2: (2, True), None: (1, False)}),
+    # one block a chunk, 300,000 points: 32,768 a CTA of 8, in passes of
+    # 8,192; the second, ragged block's last ranks are padding
+    dict(sizes={"cis_node": list(np.linspace(14.0, 130.0, 1000)),
+                "frame_rate": list(np.geomspace(15.0, 3000.0, 300))},
+         n_variants=1, bp=2 ** 18, start=1000, chunk=299_000,
+         passes={1: (32, False), 2: (16, False), None: (4, False)}),
+])
+def test_kernel_multi_pass_matches_twin(cuda, cluster, case):
+    """Blocks whose CTAs take their points in passes (forced clusters of
+    1 and 2, and the plan the wrapper picks: one pass on the first grid)
+    against the twin, every candidate position equal."""
+    from repro_torch.core.batch import build_coeff_compute
+    from repro_torch.kernels import fused_sweep as fs
+    prep = _synthetic_prep(cuda, case["sizes"], case["n_variants"])
+    bp, chunk = case["bp"], case["chunk"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fs.plan(bp, 16, chunk, n_sm) if cluster is None \
+        else fs.make_plan(bp, 16, chunk, cluster)
+    st = _staging(fs, prep, p)
+    # (passes a CTA, passes cut short of the tile)
+    assert (-(-p.rank_points // st.span), st.span < p.tile) \
+        == case["passes"][cluster]
+    kw = dict(compute=build_coeff_compute(prep.bank.dims), metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=prep.n_var,
+              total=prep.total, chunk=chunk, lmax=prep.lmax,
+              block_points=bp, kk=16)
+    args = (prep.table2, prep.bank.fused[0], case["start"], 0, prep.total)
+    fs.reset_counts()
+    ker = fs.run(*args, p, **kw)
+    torch.cuda.synchronize()
+    assert fs.COUNTS[f"cluster{p.cluster}_launches"] == 1
+    twin = fs.fused_sweep_block_torch(*args, **kw)
+    _assert_close(ker, twin)
+    np.testing.assert_array_equal(ker[1].cpu().numpy(),
+                                  twin[1].cpu().numpy())
+
+
+def test_plan_fills_the_card_at_the_main_path_shape(cuda):
+    from repro_torch.kernels import fused_sweep as fs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fs.plan(4096, 3, 2 ** 18, n_sm)
+    assert p.ctas >= n_sm and p.cluster > 1
 
 
 def test_kernel_matches_twin_synthetic_int64(cuda):

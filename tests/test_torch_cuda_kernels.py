@@ -89,6 +89,54 @@ def test_block_stats_match_twins(cuda, n, bp):
         np.testing.assert_allclose(ks, ts, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,bp", [(2 ** 18, 4096), (5003, 1024), (77, 128),
+                                  (4099, 4099)])
+def test_block_stats_every_plan_matches_twin(cuda, cluster, offset, n, bp):
+    """K3a on every cluster size, on the vec4 route (aligned) and on the
+    scalar route (an offset view: values and mask one element in; or a
+    block of 77 or 4099 points, not whole vectors), with a ragged tail,
+    exact ties and an all-masked block."""
+    sr = _mod("stream_reduce")
+    rng = np.random.default_rng(n + offset)
+    vals_all = torch.from_numpy(rng.choice(np.float32([0.5, 1.25, 2.0]),
+                                           n + offset)).to(cuda)
+    mask_all = torch.from_numpy(rng.uniform(size=n + offset) > 0.3).to(cuda)
+    vals, mask = vals_all[offset:], mask_all[offset:]
+    mask[: min(bp, n)] = False                # an all-masked block
+    aligned = vals.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0
+    assert aligned == (offset == 0)
+    p = sr.make_plan(n, min(bp, n), cluster, aligned)
+    assert p.route == ("vec4" if aligned and min(bp, n) % 4 == 0
+                       else "scalar")
+    sr.reset_counts()
+    ker = sr.run(vals, mask, p, bp)
+    torch.cuda.synchronize()
+    assert sr.COUNTS["kernel_launches"] == 1
+    assert sr.COUNTS[f"{p.route}_launches"] == 1
+    twin = sr.block_stats_torch(vals, mask, bp)
+    km, ka, ks, kc = (t.cpu().numpy() for t in ker)
+    tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
+    np.testing.assert_array_equal(km, tm)
+    np.testing.assert_array_equal(ka, ta)
+    np.testing.assert_array_equal(kc, tc)
+    np.testing.assert_allclose(ks, ts, rtol=1e-5, atol=0)
+    assert tc[0] == 0 and km[0] == np.inf and ka[0] == 0
+
+
+def test_block_stats_plan_fills_the_card(cuda):
+    sr = _mod("stream_reduce")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    vals = torch.ones(2 ** 18, device=cuda)
+    mask = torch.ones(2 ** 18, dtype=torch.bool, device=cuda)
+    sr.reset_counts()
+    sr.block_stats(vals, mask, 4096)
+    torch.cuda.synchronize()
+    assert sr.COUNTS["vec4_launches"] == 1
+    assert sr.plan(2 ** 18, 4096, True, n_sm).ctas >= n_sm
+
+
 @pytest.mark.parametrize("b,u,c", [
     (1, 1, 10), (1000, 6, 10), (100_003, 11, 10), (255, 11, 10),
     (257, 32, 32), (2 ** 18 + 3, 11, 10), (300, 12, 1), (700, 33, 17),

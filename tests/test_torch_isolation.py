@@ -231,5 +231,7 @@ def test_kernel_wrapper_on_cpu_tensors_runs_the_twin():
         axis_names=tuple(prep.vgrids[0].names), shape=prep.vgrids[0].shape,
         n_var=prep.n_var, total=prep.total, chunk=prep.n_var, lmax=prep.lmax,
         block_points=4, kk=2)
-    assert fs.COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    assert fs.COUNTS == {"kernel_launches": 0, "twin_calls": 1,
+                         "cluster1_launches": 0, "cluster2_launches": 0,
+                         "cluster4_launches": 0, "cluster8_launches": 0}
     assert [tuple(t.shape) for t in out] == [(1, 2), (1, 2), (1,), (1,)]

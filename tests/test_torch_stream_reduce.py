@@ -90,5 +90,94 @@ def test_wrappers_on_cpu_run_the_twins():
     block_stats(torch.from_numpy(vals), torch.from_numpy(mask), 64)
     block_stats_banked(torch.from_numpy(vals), torch.from_numpy(mask),
                        torch.from_numpy(vid), 2, 64)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1,
+    assert COUNTS == {"kernel_launches": 0, "vec4_launches": 0,
+                      "scalar_launches": 0, "twin_calls": 1,
                       "banked_kernel_launches": 0, "banked_twin_calls": 1}
+
+
+# ---------------------------------------------------------------------------
+# K3a's plan and its cluster merge, emulated in plain torch (the kernel
+# runs on the card only)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bp", [8, 32, 64, 256, 1024, 4096, 4099])
+@pytest.mark.parametrize("b", [2 ** 18, 100_003, 50])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_covers_every_block(bp, b, aligned):
+    from repro_torch.kernels.stream_reduce import STATS_THREADS, plan
+    bp = min(bp, b)
+    p = plan(b, bp, aligned, 132)
+    assert p.cluster in (1, 2, 4, 8)
+    assert p.cluster * p.rank_points >= bp
+    assert (p.cluster - 1) * p.rank_points < bp       # no empty CTA
+    assert p.ctas == -(-b // bp) * p.cluster
+    assert p.route == ("vec4" if aligned and bp % 4 == 0 else "scalar")
+    if p.route == "vec4":
+        assert p.rank_points % 4 == 0
+    if p.cluster > 1:                   # a vector for every thread
+        assert p.rank_points >= 4 * STATS_THREADS
+
+
+def test_plan_fills_the_card_at_the_main_path_shape():
+    from repro_torch.kernels.stream_reduce import plan
+    p = plan(2 ** 18, 4096, True, 132)
+    assert p == ("vec4", 4, 1024, 256)
+    assert plan(2 ** 18, 4096, False, 132).route == "scalar"
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 16])
+def test_make_plan_refuses_past_the_caps(cluster):
+    from repro_torch.kernels.stream_reduce import make_plan
+    with pytest.raises(ValueError):
+        make_plan(4096, 4096, cluster, True)
+
+
+def _cluster_stats(vals, mask, bp, p):
+    """K3a's reduction under plan ``p``: each rank's slice of a block
+    reduced to (min, first argmin, sum, count), the slices combined
+    lexicographically in rank order."""
+    b = vals.shape[0]
+    out = []
+    for g in range(-(-b // bp)):
+        best = (np.inf, None)
+        s = c = 0.0
+        for r in range(p.cluster):
+            lo = g * bp + r * p.rank_points
+            hi = min(g * bp + bp, lo + p.rank_points, b)
+            first = r * p.rank_points
+            if first >= bp:
+                continue
+            v = np.where(mask[lo:hi], vals[lo:hi], np.inf)
+            if v.size and v.min() < np.inf:
+                cand = (v.min(), first + int(np.argmin(v)))
+            else:
+                cand = (np.inf, first)
+            if best[1] is None or cand[0] < best[0] or (
+                    cand[0] == best[0] and cand[1] < best[1]):
+                best = cand
+            s += float(np.where(mask[lo:hi], vals[lo:hi], 0).sum())
+            c += float(mask[lo:hi].sum())
+        out.append((best[0], best[1], s, c))
+    return [np.array(col) for col in zip(*out)]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,bp", [(4096 * 3 + 17, 4096), (5003, 1024),
+                                  (77, 128)])
+def test_cluster_merge_emulation_equals_the_twin(cluster, b, bp):
+    """Tie-heavy values (three of them), an all-masked block and ranks,
+    a ragged tail: the slices' partials combined in rank order give the
+    twin's min, first argmin and count exactly."""
+    from repro_torch.kernels.stream_reduce import (block_stats_torch,
+                                                   make_plan)
+    vals, mask, _ = _case(b, seed=b + cluster, ties=True)
+    bp = min(bp, b)
+    mask[:bp] = False                           # an all-masked block
+    p = make_plan(b, bp, cluster, True)
+    mins, amins, sums, counts = _cluster_stats(vals, mask, bp, p)
+    tm, ta, ts, tc = block_stats_torch(torch.from_numpy(vals),
+                                       torch.from_numpy(mask), bp)
+    np.testing.assert_array_equal(mins, tm.numpy())
+    np.testing.assert_array_equal(amins, ta.numpy())
+    np.testing.assert_array_equal(counts, tc.numpy())
+    np.testing.assert_allclose(sums, ts.numpy(), rtol=1e-5, atol=1e-6)
+    assert counts[0] == 0 and mins[0] == np.inf and amins[0] == 0
