@@ -12,9 +12,12 @@ K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
 twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
 in f16 and bf16; K1 on every cluster size of its plans, at the main-path
 chunk and on a bank past four slots, every candidate position equal to
-the twin's; K3a on every cluster size, on its vec4 and scalar routes;
+the twin's; K2 on its vec4 and scalar routes, int32 and int64 (past
+2^31 and 2^32), across variants and past the end, on 1 and 16 axes;
+K3a on every cluster size, on its vec4 and scalar routes;
 K5 and K6 on each of their routes, with offset views and
-outputs either side of their tiles; K8 on each of its three routes, the
+outputs either side of their tiles; K7 on vec4, vec8 and scalar, with
+offset views; K8 on each of its three routes, the
 wgmma route also
 with positive operands at K = 16384, where its own f32 sums are held to
 the rule, and offset views on the tile route; K9 also with mixed operand
@@ -56,8 +59,10 @@ bound of the work its hoisting leaves, with a probe of K1's and K3a's
 cluster sizes, the ``fused_probe`` line; K8 also at 4096^3 bf16, with a
 probe of its tile widths, tensor-map encodes and enqueue times; K6 with a
 probe of its tile heights; each library call's device time beside its
-CUDA-event time) and
-the host time of the launch path every wrapper shares (the
+CUDA-event time; K2 on int64 too, beside torch's fill of the same
+bytes; K2's and K7's launch floors, the device ms of a launch of one
+thread, beside an empty kernel's, the ``launch_floor_device_ms`` line)
+and the host time of the launch path every wrapper shares (the
 ``launch_probe`` line: each step, and each of K1-K9's wrappers at its
 headline shape), prints its findings as JSON lines, and ends with the
 ``kernels`` line and the run's verdict::
@@ -69,8 +74,9 @@ verdict; it also exits nonzero without a CUDA device or without the
 repository's ``src/`` beside it.  ``--launch-probe`` is a tool apart,
 never part of the smoke run: it prints only the launch-path probe's line
 for what every checkout of the port offers (torch's steps, the operand
-check, the K1-K9 wrappers' host us and event ms, and K1's and K3a's
-device ms), on this checkout or on
+check, the K1-K9 wrappers' host us and event ms, and the device ms of
+K1, K3a, K2 (int32, int64 and at a chunk of 4) and K7 (f32, bf16 and a
+frame of one 16-byte vector)), on this checkout or on
 the one whose ``src/`` is given with ``--src``, to hold two trees side by
 side.  It imports nothing of ``jax`` or of the
 JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
@@ -180,7 +186,14 @@ ATTENTION_MODELS = {
 # the launch probe's device ms (both trees' kernels carry these names)
 PROBE_DEVICE = {"K1_fused_sweep_2^18": "fused_sweep_kernel",
                 "K1_fused_sweep_2^18_kk16": "fused_sweep_kernel",
-                "K3a_block_stats_2^18": "block_stats_kernel"}
+                "K2_grid_decode_2^18": "grid_decode_",
+                "K2_grid_decode_2^18_int64": "grid_decode_",
+                "K2_grid_decode_chunk4": "grid_decode_",
+                "K3a_block_stats_2^18": "block_stats_kernel",
+                "K7_frame_event_200x320": "frame_event",
+                "K7_frame_event_200x320_bf16": "frame_event",
+                "K7_frame_event_1x4": "frame_event",
+                "K7_frame_event_1x8_bf16": "frame_event"}
 # the synthetic rows' grid: 9,216 points, every axis moving
 #: one value an axis: the grid K1's multi-pass cases widen
 PASS_GRID = {"cis_node": [130.0], "soc_node": [22.0], "mem_tech": [1.0],
@@ -417,21 +430,93 @@ def synthetic_case(fs):
 # ---------------------------------------------------------------------------
 # K2, K3a, K3b, K4 vs their twins
 # ---------------------------------------------------------------------------
-def decode_case(gd, prep, *, name, start, chunk, idx_dtype=torch.int32):
-    """K2 against its twin: axis values and variant ids bit-equal."""
-    kw = dict(shape=prep.vgrids[0].shape, n_var=prep.n_var,
+def decode_case(gd, prep, *, name, start, chunk, idx_dtype=torch.int32,
+                route="vec4"):
+    """K2 against its twin: axis values and variant ids bit-equal, one
+    launch, on ``route``.  ``prep`` is a stream prep or a
+    :func:`decode_grid`."""
+    kw = dict(shape=tuple(prep.vgrids[0].shape), n_var=prep.n_var,
               total=prep.total, chunk=chunk, lmax=prep.lmax,
               idx_dtype=idx_dtype)
+    gd.reset_counts()
     kv, kid = gd.grid_decode(prep.table2, start, **kw)
     torch.cuda.synchronize()
+    check(gd.COUNTS["kernel_launches"] == gd.COUNTS[f"{route}_launches"] == 1,
+          f"{name}: launches {gd.COUNTS}, want one on {route}")
     tv, tid = gd.grid_decode_torch(prep.table2, start, **kw)
     check(torch.equal(kv, tv) and torch.equal(kid, tid),
           f"{name}: grid_decode differs from its twin")
-    rec = dict(case=name, points=chunk, start=int(start),
+    rec = dict(case=name, points=chunk, start=int(start), route=route,
+               idx=dtype_name(idx_dtype), axes=len(kw["shape"]),
                past_total=max(0, start + chunk - prep.total),
+               variants_crossed=int(kid.max() - kid.min()),
                max_abs_err=float((kv - tv).abs().max()))
     emit({"kernel_vs_twin": rec})
     return rec
+
+
+def decode_grid(shape, n_variants):
+    """A synthetic decode input shaped like a stream prep: an axis table
+    on the card whose every entry names its own (axis, column), so equal
+    values mean equal indices."""
+    lmax = max(shape)
+    n_var = math.prod(shape)
+    table2 = torch.arange(len(shape) * n_variants * lmax,
+                          dtype=torch.float32, device="cuda").reshape(
+                              len(shape), -1)
+    return SimpleNamespace(table2=table2, n_var=n_var, lmax=lmax,
+                           total=n_var * n_variants,
+                           vgrids=[SimpleNamespace(shape=shape)])
+
+
+def decode_cases(gd, prep, wide):
+    """K2 on each route and edge: the main chunk (vec4), a chunk of
+    4,099 (scalar), starts that are no multiple of 4, the tail past
+    total, a chunk across a variant boundary, int64 past 2^31 and 2^32
+    and at the end of the space, 1 and 16 axes."""
+    n_var = prep.n_var
+    past_2_32 = decode_grid((1500, 1500, 3, 1, 1, 1, 1, 1, 1000, 1), 3)
+    one_axis = decode_grid((7,), 3)
+    axes16 = decode_grid((2, 3, 2, 1, 2, 2, 3, 2, 2, 1, 2, 2, 2, 3, 2, 2),
+                         2)
+    i64 = torch.int64
+    recs = [
+        decode_case(gd, prep, name="decode_main_chunk",
+                    start=2 * n_var + CHUNK, chunk=CHUNK),
+        decode_case(gd, prep, name="decode_chunk_4099",
+                    start=2 * n_var + 12345, chunk=4099, route="scalar"),
+        decode_case(gd, prep, name="decode_start_1_mod_4",
+                    start=2 * n_var + CHUNK + 1, chunk=CHUNK),
+        decode_case(gd, prep, name="decode_start_3_mod_4_int64",
+                    start=2 * n_var + 7, chunk=CHUNK, idx_dtype=i64),
+        decode_case(gd, prep, name="decode_tail_past_total",
+                    start=prep.total - 1000, chunk=4099, route="scalar"),
+        decode_case(gd, prep, name="decode_tail_past_total_vec4",
+                    start=prep.total - 1001, chunk=4096),
+        decode_case(gd, prep, name="decode_across_variants",
+                    start=3 * n_var - 777, chunk=CHUNK),
+        decode_case(gd, wide, name="decode_int64_beyond_2^31",
+                    start=WIDE_POINTS - 70_000, chunk=CHUNK, idx_dtype=i64),
+        decode_case(gd, past_2_32, name="decode_int64_beyond_2^32",
+                    start=2 ** 32 - 3001, chunk=CHUNK, idx_dtype=i64),
+        decode_case(gd, past_2_32, name="decode_int64_beyond_2^32_scalar",
+                    start=2 ** 32 - 3001, chunk=5001, idx_dtype=i64,
+                    route="scalar"),
+        decode_case(gd, past_2_32, name="decode_int64_end_of_space",
+                    start=past_2_32.total - 3001, chunk=4096,
+                    idx_dtype=i64),
+        decode_case(gd, one_axis, name="decode_one_axis", start=4,
+                    chunk=24),
+        decode_case(gd, axes16, name="decode_16_axes", start=50_001,
+                    chunk=40_000),
+        decode_case(gd, axes16, name="decode_16_axes_int64_scalar",
+                    start=axes16.total - 77, chunk=4099, idx_dtype=i64,
+                    route="scalar"),
+    ]
+    check(all(r["past_total"] > 0 for r in recs if "tail" in r["case"]
+              or "end" in r["case"]), "decode tail does not cross total")
+    check(recs[6]["variants_crossed"] == 1, "decode does not cross variants")
+    return recs
 
 
 def stats_case(sr, *, name, values, mask, bp, variant=None, n_variants=0):
@@ -987,25 +1072,52 @@ def functional_kernel_cases(fmods):
               == sc.COUNTS["kernel_launches"] == 1,
               f"stencil {shape}: launches {sc.COUNTS}")
         cases["stencil_conv"][-1].update(route=p.route, plan=p._asdict())
-    for shape, dt, t in (((200, 320), f32, EDGAZE_THRESHOLD),
-                         ((33, 47), f32, 0.5), ((33, 47), f16, 0.5),
-                         ((200, 320), f16, EDGAZE_THRESHOLD),
-                         ((200, 320), bf16, EDGAZE_THRESHOLD),
-                         ((33, 47), bf16, 0.5)):
-        cur, prev = gaussian(shape, 1, dt), gaussian(shape, 2, dt)
+    # (shape, dtype, threshold, offset views, the route the plan must
+    # pick): the path's frame in each dtype, ragged frames, frames of one
+    # 16-byte vector (the launch floor's), offset views
+    for shape, dt, t, off, want in (
+            ((200, 320), f32, EDGAZE_THRESHOLD, False, "vec4"),
+            ((200, 320), f16, EDGAZE_THRESHOLD, False, "vec8"),
+            ((200, 320), bf16, EDGAZE_THRESHOLD, False, "vec8"),
+            ((33, 47), f32, 0.5, False, "scalar"),
+            ((33, 47), f16, 0.5, False, "scalar"),
+            ((33, 47), bf16, 0.5, False, "scalar"),
+            ((1, 3), f32, 0.5, False, "scalar"),
+            ((1, 3), bf16, 0.5, False, "scalar"),
+            ((1, 4), f32, 0.5, False, "vec4"),
+            ((1, 8), bf16, 0.5, False, "vec8"),
+            ((400, 640), f32, 0.5, False, "vec4"),
+            ((200, 320), f32, EDGAZE_THRESHOLD, True, "scalar"),
+            ((200, 320), bf16, EDGAZE_THRESHOLD, True, "scalar")):
+        cur, prev = frame(shape, 1, dt, off), frame(shape, 2, dt, off)
+        fe.reset_counts()
         cases["frame_event"].append(exact_case(
-            f"frame_event_{shape[0]}x{shape[1]}_{dtype_name(dt)}",
+            f"frame_event_{shape[0]}x{shape[1]}_{dtype_name(dt)}"
+            f"{'_offset' if off else ''}",
             lambda: fe.frame_event(cur, prev, t),
             lambda: fe.frame_event_torch(cur, prev, t)))
-    # the f32 rounding case: f32(0.7) - 0 >= 0.7 is an event; NaN is not
-    cur = torch.tensor([[0.7, float("nan"), 0.69999]], device="cuda")
-    prev = torch.zeros_like(cur)
-    rec = exact_case("frame_event_f32_threshold_and_nan",
-                     lambda: fe.frame_event(cur, prev, 0.7),
-                     lambda: fe.frame_event_torch(cur, prev, 0.7))
-    check(fe.frame_event(cur, prev, 0.7).tolist() == [[1.0, 0.0, 0.0]],
-          "frame_event: 0.7 rounding case")
-    cases["frame_event"].append(rec)
+        check(fe.COUNTS[f"{want}_launches"] == fe.COUNTS["kernel_launches"]
+              == 1, f"frame_event {shape} {dt}: launches {fe.COUNTS}, want "
+              f"one on {want}")
+        cases["frame_event"][-1]["route"] = want
+    # the f32 rounding case: f32(0.7) - 0 >= 0.7 is an event; NaN is not;
+    # on the scalar route (3 elements) and on each 16-byte one
+    for dt, n, want in ((f32, 3, "scalar"), (f32, 8, "vec4"),
+                        (f16, 8, "vec8"), (bf16, 16, "vec8")):
+        cur = torch.zeros((1, n), device="cuda", dtype=dt)
+        cur[0, :3] = torch.tensor([0.7, float("nan"), 0.69999])
+        prev = torch.zeros_like(cur)
+        fe.reset_counts()
+        rec = exact_case(f"frame_event_threshold_and_nan_{dtype_name(dt)}_"
+                         f"{want}", lambda: fe.frame_event(cur, prev, 0.7),
+                         lambda: fe.frame_event_torch(cur, prev, 0.7))
+        check(fe.COUNTS[f"{want}_launches"] == 1,
+              f"frame_event threshold case: launches {fe.COUNTS}")
+        if dt == f32:
+            check(fe.frame_event(cur, prev, 0.7)[0, :3].tolist()
+                  == [1.0, 0.0, 0.0], "frame_event: 0.7 rounding case")
+        rec["route"] = want
+        cases["frame_event"].append(rec)
     # (m, k, n), dtypes, the route the plan must pick, and the options:
     # ragged M and N, K % 64 != 0 and split K on the wgmma route; positive
     # operands at K = 16384; an offset view, which must take the tile route
@@ -1150,14 +1262,15 @@ def functional_path(fmods, kernel_mods):
               f"functional {name}: launches {launches} (want {want}), "
               f"{twins} twin calls")
         # the DNN's two products (M = 1) both run the skinny kernel; the
-        # frames (fresh, aligned allocations) bin on vec2 and take their
-        # Sobel stencils on k3x3
+        # frames (fresh, aligned allocations) bin on vec2, take their
+        # Sobel stencils on k3x3 and their events on vec4
         routes = {mod: {r[:-len("_launches")]: c for r, c in cs.items()
                         if r.endswith("_launches") and r != "kernel_launches"}
-                  for mod, cs in counts.items() if mod != "frame_event"}
+                  for mod, cs in counts.items()}
         check(routes["matmul"]["skinny"] == launches["matmul"]
               and routes["binning"]["vec2"] == launches["binning"]
-              and routes["stencil_conv"]["k3x3"] == launches["stencil_conv"],
+              and routes["stencil_conv"]["k3x3"] == launches["stencil_conv"]
+              and routes["frame_event"]["vec4"] == launches["frame_event"],
               f"functional {name}: routes {routes}")
         rec[name] = {"frames": FUNC_FRAMES, "wall_s": wall,
                      "frames_per_s": FUNC_FRAMES / wall,
@@ -1418,6 +1531,10 @@ def headline_calls(kmods, prep, compute):
     sobel = torch.tensor([[1., 0., -1.], [2., 0., -2.], [1., 0., -1.]],
                          device="cuda")
     ev_a, ev_b = gaussian((200, 320), 3), gaussian((200, 320), 4)
+    ev_ha, ev_hb = ev_a.bfloat16(), ev_b.bfloat16()
+    ev4 = gaussian((1, 4), 7), gaussian((1, 4), 8)
+    ev8 = (gaussian((1, 8), 7, torch.bfloat16),
+           gaussian((1, 8), 8, torch.bfloat16))
     events = (gaussian((1, 64000), 5) > 0).float()
     w1 = gaussian((64000, 900), 6)
     b, h, hkv, s, d, causal = ATTENTION_MODELS["qwen2_7b"]
@@ -1429,6 +1546,10 @@ def headline_calls(kmods, prep, compute):
             prep.table2, row, start, 0, 3 * n_var, **dict(kw, kk=16)),
         "K2_grid_decode_2^18": lambda: gd.grid_decode(prep.table2, start,
                                                       **dkw),
+        "K2_grid_decode_2^18_int64": lambda: gd.grid_decode(
+            prep.table2, start, **dict(dkw, idx_dtype=torch.int64)),
+        "K2_grid_decode_chunk4": lambda: gd.grid_decode(
+            prep.table2, start, **dict(dkw, chunk=4)),
         "K3a_block_stats_2^18": lambda: sr.block_stats(vals, mask, 4096),
         "K3b_block_stats_banked_2^18": lambda: sr.block_stats_banked(
             vals, mask, vid, 8, 4096),
@@ -1438,6 +1559,11 @@ def headline_calls(kmods, prep, compute):
         "K6_stencil_conv_360x640": lambda: sc.stencil_conv(binned, sobel),
         "K7_frame_event_200x320": lambda: fe.frame_event(ev_a, ev_b,
                                                          EDGAZE_THRESHOLD),
+        "K7_frame_event_200x320_bf16": lambda: fe.frame_event(
+            ev_ha, ev_hb, EDGAZE_THRESHOLD),
+        "K7_frame_event_1x4": lambda: fe.frame_event(ev4[0], ev4[1], 0.5),
+        "K7_frame_event_1x8_bf16": lambda: fe.frame_event(ev8[0], ev8[1],
+                                                          0.5),
         "K8_matmul_1x64000x900": lambda: mm.matmul(events, w1),
         "K9_flash_attention_qwen2_7b_bf16": lambda: fa.flash_attention(
             q, k, v, causal),
@@ -1948,14 +2074,7 @@ def main() -> int:
                          idx_dtype=torch.int64))
     recs += fused_plan_cases(fs, prep, compute)
 
-    k2 = [decode_case(gd, prep, name="decode_main_chunk",
-                      start=2 * n_var + CHUNK, chunk=CHUNK),
-          decode_case(gd, prep, name="decode_tail_past_total",
-                      start=prep.total - 1000, chunk=4099),
-          decode_case(gd, wide, name="decode_int64_beyond_2^31",
-                      start=WIDE_POINTS - 70_000, chunk=CHUNK,
-                      idx_dtype=torch.int64)]
-    check(k2[1]["past_total"] > 0, "decode tail does not cross total")
+    k2 = decode_cases(gd, prep, wide)
     vals, mask = stats_inputs(CHUNK, 1, empty_block=(5 * 4096, 6 * 4096))
     k3a = [stats_case(sr, name="stats_main_chunk", values=vals, mask=mask,
                       bp=4096)]
@@ -2088,6 +2207,7 @@ def main() -> int:
     reset_all(kernel_mods)
     st = staged()
     st_counts = dict(decode=gd.COUNTS["kernel_launches"],
+                     decode_vec4=gd.COUNTS["vec4_launches"],
                      stats=sr.COUNTS["kernel_launches"],
                      stats_vec4=sr.COUNTS["vec4_launches"],
                      twins=sum(m.COUNTS[k] for m in kernel_mods
@@ -2098,9 +2218,11 @@ def main() -> int:
           f"staged: engine {st.engine}, {st.dispatches} dispatches")
     check(st_counts["decode"] == n_chunks and st_counts["stats"] == n_chunks
           and st_counts["twins"] == 0, f"staged: launches {st_counts}")
-    # the staged metric vectors are fresh, aligned allocations
-    check(st_counts["stats_vec4"] == n_chunks,
-          f"staged: block stats off the vec4 route {st_counts}")
+    # the staged metric vectors are fresh, aligned allocations, and every
+    # chunk decodes 2^18 points
+    check(st_counts["stats_vec4"] == n_chunks
+          and st_counts["decode_vec4"] == n_chunks,
+          f"staged: decode or block stats off the vec4 route {st_counts}")
     # the default pipeline_depth of 4 waits on an event after each of the
     # last n_chunks - 4 dispatches
     st_waits = wait_counted * max(0, n_chunks - 4)
@@ -2112,6 +2234,7 @@ def main() -> int:
         "points": st.n_points, "eval_s": st.eval_s,
         "points_per_s": st.points_per_sec, "dispatches": st.dispatches,
         "grid_decode_launches": st_counts["decode"],
+        "grid_decode_vec4_launches": st_counts["decode_vec4"],
         "block_stats_launches": st_counts["stats"],
         "block_stats_vec4_launches": st_counts["stats_vec4"],
         "twin_calls": st_counts["twins"], "host_syncs": st_syncs,
@@ -2231,9 +2354,46 @@ def main() -> int:
             lambda: torch.matmul(e_main, w_main),
             4 * (CHUNK * 11 + 11 * 10 + CHUNK * 10), 2 * CHUNK * 11 * 10),
     }
+    # K2's kernels are grid_decode_{vec4,scalar}_kernel
     times = {name: timing_row(f"{CHUNK} points", ker, plain, lib, nbytes,
-                              nops, f"{name}_kernel")
+                              nops, "grid_decode_" if name == "grid_decode"
+                              else f"{name}_kernel")
              for name, (ker, plain, lib, nbytes, nops) in timed.items()}
+    # K2 on int64 indices, and the launch floors: K2 at a chunk of 4 and K7
+    # on a frame of one 16-byte vector, one thread each
+    dkw64 = dict(dkw, idx_dtype=torch.int64)
+    k2_int64 = timing_row(
+        f"{CHUNK} points int64",
+        lambda: gd.grid_decode(prep.table2, start, **dkw64),
+        lambda: gd.grid_decode_torch(prep.table2, start, **dkw64), None,
+        *timed["grid_decode"][3:], "grid_decode_")
+    fe = fmods["frame_event"]
+    ev4 = gaussian((1, 4), 7), gaussian((1, 4), 8)
+    ev8 = gaussian((1, 8), 7, torch.bfloat16), gaussian((1, 8), 8,
+                                                        torch.bfloat16)
+    lib_bn = fmods["binning"].load_kernel_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    floors = {
+        "empty_kernel": device_ms(
+            lambda: lib_bn.repro_binning_launch_us(1, stream),
+            "empty_kernel"),
+        "grid_decode": {
+            f"chunk 4 {dtype_name(dt)}": device_ms(
+                lambda: gd.grid_decode(prep.table2, start,
+                                       **dict(dkw, chunk=4, idx_dtype=dt)),
+                "grid_decode_")
+            for dt in (torch.int32, torch.int64)},
+        "frame_event": {
+            "1x4 float32": device_ms(lambda: fe.frame_event(*ev4, 0.5),
+                                     "frame_event"),
+            "1x8 bfloat16": device_ms(lambda: fe.frame_event(*ev8, 0.5),
+                                      "frame_event")}}
+    # K2's yardstick: the same bytes written by torch's fill kernel
+    # (another function: no library call decodes the grid)
+    filled = torch.empty((n_axes + 1, CHUNK), device="cuda")
+    store_floor = library_device_ms(filled.zero_)
+    emit({"launch_floor_device_ms": floors,
+          "grid_decode_store_floor_device_ms": store_floor})
 
     profile_path("main_path", lambda: explore(space, engine="fused",
                                               chunk_size=CHUNK, k=3))
@@ -2280,6 +2440,18 @@ def main() -> int:
              "src/repro/kernels/category_reduce.py:22",
              ch_counts[0] + mo_counts[0], k4, "chunked + monolithic")):
         extra = {}
+        if name == "grid_decode":
+            keys = ("ms", "device_ms", "plain_ms", "bound_ms")
+            extra = dict(
+                store_floor_device_ms=store_floor,
+                empty_kernel_device_ms=floors["empty_kernel"],
+                route_launches={"vec4": st_counts["decode_vec4"],
+                                "scalar": st_counts["decode"]
+                                - st_counts["decode_vec4"]},
+                floor_device_ms=floors[name]["chunk 4 int32"],
+                floor_device_ms_by_shape=floors[name],
+                by_idx={"int32": {k: times[name][k] for k in keys},
+                        "int64": {k: k2_int64[k] for k in keys}})
         if name == "block_stats":
             extra = dict(plan=probe["block_stats"]["chosen"],
                          probe=probe["block_stats"]["by_cluster"])
@@ -2297,6 +2469,10 @@ def main() -> int:
                  for r in func["edgaze"]["route_launches"].get(name, {})}
         if name in ("matmul", "stencil_conv"):
             extra["probe"] = ftimes[f"{name}_probe"]
+        if name == "frame_event":
+            extra.update(floor_device_ms=floors[name]["1x4 float32"],
+                         floor_device_ms_by_shape=floors[name],
+                         empty_kernel_device_ms=floors["empty_kernel"])
         entries.append(dict(
             name=name, route="cuda", source=src + f"{name}.cu",
             replaces=f"src/repro/kernels/{name}.py:{line}",

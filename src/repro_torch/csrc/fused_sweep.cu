@@ -77,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_decode.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -224,19 +226,7 @@ __device__ __forceinline__ float interp(const float* kn, int n, int t,
   return ys[i] + ((x - xs[i]) / dx[i]) * dy[i];
 }
 
-// Division by a host-made magic multiplier: floor(n / d) for n < 2^31
-// (32-bit) or n < 2^63 (64-bit); exact (Granlund & Montgomery, PLDI'94,
-// Fig. 4.1, with the sum kept in range by the bound on n).
-__device__ __forceinline__ unsigned int fdiv(unsigned int n, unsigned int m,
-                                             int s) {
-  return (__umulhi(n, m) + n) >> s;
-}
-__device__ __forceinline__ unsigned long long fdiv(unsigned long long n,
-                                                   unsigned long long m,
-                                                   int s) {
-  return (__umul64hi(n, m) + n) >> s;
-}
-
+// The divisors' magic multipliers by index type (fdiv: grid_decode.cuh).
 template <typename IdxT> struct Magic;
 template <> struct Magic<int> {
   using U = unsigned int;

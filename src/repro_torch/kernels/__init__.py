@@ -3,7 +3,9 @@
 * ``fused_sweep`` (K1) — the fused decode -> evaluate -> reduce sweep
   megakernel of the fused streaming engine;
 * ``grid_decode`` (K2) — flat stream indices -> axis values + variant
-  ids, for the staged engine;
+  ids, for the staged engine: a thread takes four positions of one
+  output row, decodes the first without a division (magic multipliers,
+  shared with K1), steps to the rest and stores 16 bytes;
 * ``stream_reduce`` (K3a/K3b) — per-block (and per-variant) masked
   min / argmin / sum / count, for the staged engine;
 * ``category_reduce`` (K4) — ``[B, U] @ [U, C]`` per-category sums of

@@ -47,6 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: loaded libraries by source name: (handle, build log, build seconds)
 _LOADED: Dict[str, Tuple[ctypes.CDLL, str, float]] = {}
+#: SM count by device index
+_SMS: Dict[int, int] = {}
 
 
 def nvcc_path() -> str:
@@ -144,6 +146,16 @@ def check_operands(name: str, device, dtypes, **tensors) -> None:
                 f"{' or '.join(str(d) for d in dtypes)} tensor on {device}, "
                 f"got {t.dtype} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (its index, or the current
+    device when it has none); read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def launch(name: str, entry, device, *args) -> None:

@@ -9,10 +9,14 @@ wrapper hands it to the kernel as a C ``float`` and the twin rounds it to
 f32 first (``cur = f32(0.7)``, ``prev = 0``, ``threshold = 0.7`` is an
 event in f32 and none in f64).
 
-* :func:`frame_event` — the wrapper around the hand-written CUDA kernel
-  ``repro_torch/csrc/frame_event.cu`` (one thread per element, float4
-  loads where aligned).  It takes two 2-D frames of one shape and one
-  dtype, f32, f16 or bf16.  For a CUDA tensor it launches the kernel or
+* :func:`frame_event` — the wrapper around the hand-written CUDA kernels
+  ``repro_torch/csrc/frame_event.cu``.  It takes two 2-D frames of one
+  shape and one dtype, f32, f16 or bf16.  :func:`plan` picks the route
+  before the launch: ``"vec4"`` (f32) or ``"vec8"``
+  (f16/bf16), one 16-byte load of each frame and one 16-byte store a
+  thread, where the element count is a whole number of 16-byte vectors
+  and both frames' bases are 16-byte aligned; ``"scalar"`` (one element
+  a thread) otherwise.  For a CUDA tensor it launches the kernel or
   raises; for a CPU tensor it runs the twin.
 * :func:`frame_event_torch` — the plain-torch twin
   (``repro.kernels.ref.frame_event_ref``); kernel and twin agree bit for
@@ -20,9 +24,11 @@ event in f32 and none in f64).
 
 What bounds the kernel on the card: the bytes, two reads and one write
 per element (0.77 MB for the 200 x 320 f32 frames of Ed-Gaze, 0.23 us at
-3.35 TB/s).
+3.35 TB/s).  At that size the launch itself is most of a call's device
+time: ``chip_smoke.py`` measures that floor on a frame of one vector.
 
-:data:`COUNTS` counts kernel launches and twin calls.
+:data:`COUNTS` counts kernel launches, in all and by route, and twin
+calls.
 """
 from __future__ import annotations
 
@@ -34,9 +40,11 @@ import torch
 
 from .cuda_build import check_operands, launch, load_library
 
-#: launches of the CUDA kernel / calls of the torch twin since the last
-#: :func:`reset_counts`
-COUNTS: Dict[str, int] = {"kernel_launches": 0, "twin_calls": 0}
+#: launches of the CUDA kernels (in all, and by route) / calls of the torch
+#: twin since the last :func:`reset_counts`
+COUNTS: Dict[str, int] = {"kernel_launches": 0, "vec4_launches": 0,
+                          "vec8_launches": 0, "scalar_launches": 0,
+                          "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -48,6 +56,15 @@ def reset_counts() -> None:
     """Zero the launch / twin-call counters."""
     for key in COUNTS:
         COUNTS[key] = 0
+
+
+def plan(n: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The route for frames of ``n`` elements of ``dtype``: ``"vec4"``
+    (f32) or ``"vec8"`` (f16/bf16), 16 bytes of each frame a thread, where
+    ``n`` is a whole number of 16-byte vectors and the frames are 16-byte
+    ``aligned``; ``"scalar"`` (one element a thread) otherwise."""
+    vec = 16 // dtype.itemsize
+    return f"vec{vec}" if aligned and n % vec == 0 else "scalar"
 
 
 def _check_shapes(cur: torch.Tensor, prev: torch.Tensor) -> None:
@@ -74,7 +91,7 @@ def load_kernel_library() -> ctypes.CDLL:
     lib = load_library("frame_event")
     lib.repro_frame_event.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.repro_frame_event.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
@@ -84,10 +101,10 @@ def frame_event(cur: torch.Tensor, prev: torch.Tensor,
                 threshold: float = 0.1) -> torch.Tensor:
     """``|cur - prev| >= threshold`` over two 2-D frames, in ``cur.dtype``.
 
-    On a CUDA tensor it launches the hand-written kernel on the current
-    stream (no synchronisation) or raises; on a CPU tensor it runs the
-    twin.  Both frames are f32, f16 or bf16, of one dtype; the kernel
-    takes them contiguous.
+    On a CUDA tensor it launches the kernel of :func:`plan` on the
+    current stream (no synchronisation) or raises; on a CPU tensor it runs
+    the twin.  Both frames are f32, f16 or bf16, of one dtype; the kernel
+    takes them contiguous (an unaligned view takes the scalar route).
     """
     _check_shapes(cur, prev)
     if cur.dim() != 2 or cur.dtype not in _DTYPES or prev.dtype != cur.dtype:
@@ -104,9 +121,12 @@ def frame_event(cur: torch.Tensor, prev: torch.Tensor,
     out = torch.empty_like(cur)
     if out.numel() == 0:
         return out
-    lib = load_kernel_library()
-    launch("frame_event", lib.repro_frame_event, dev, cur.data_ptr(),
-           prev.data_ptr(), out.data_ptr(), _DTYPES[cur.dtype], cur.numel(),
-           float(threshold))
+    route = plan(cur.numel(), cur.dtype,
+                 (cur.data_ptr() | prev.data_ptr() | out.data_ptr()) % 16 == 0)
+    launch("frame_event", load_kernel_library().repro_frame_event, dev,
+           cur.data_ptr(), prev.data_ptr(), out.data_ptr(),
+           _DTYPES[cur.dtype], cur.numel(), float(threshold),
+           route != "scalar")
+    COUNTS[f"{route}_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return out

@@ -32,7 +32,8 @@ CTA stages a pass from the block size, ``kk``, the chunk and the SM count
 (pure Python, cached per shape), :func:`staging` sizes each pass's tables
 from the axis table's geometry, and :func:`run` launches a forced
 :class:`Plan`.  The kernel decodes without a division, by the exact magic
-multipliers of :func:`magic`.
+multipliers of :func:`repro_torch.kernels.grid_decode.magic` (``fdiv`` of
+``csrc/grid_decode.cuh``), as K2 does.
 
 :data:`COUNTS` counts kernel launches (in all, and by cluster size) and
 twin calls; each is bumped at the one place the kernel is launched or the
@@ -52,8 +53,8 @@ from ..core.batch import _F32, INV_LN10_F32, OUT_KEYS, interp_tables
 from ..core.energy import CATEGORIES
 from ..core.plan_bank import (BankDims, LAYOUT_FIELDS, bank_layout,
                               layout_offsets)
-from .cuda_build import launch, load_library
-from .grid_decode import grid_strides
+from .cuda_build import launch, load_library, sm_count
+from .grid_decode import grid_strides, magic
 
 #: the cluster sizes a plan may take (CTAs a block; 8 is the portable cap)
 CLUSTER_CHOICES = (1, 2, 4, 8)
@@ -222,20 +223,6 @@ def staging(width: int, dims, shape: Sequence[int], n_var: int,
     return Staging(span, nv, tim, smem_floats(width, dims, shape, p, nv, tim))
 
 
-def magic(d: int, bits: int) -> Tuple[int, int]:
-    """The exact magic multiplier and shift of divisor ``d`` for
-    ``bits``-bit unsigned dividends below ``2 ** (bits - 1)``:
-    ``n // d == (mulhi(n, m) + n) >> s`` with ``mulhi(n, m) = (n * m) >>
-    bits`` (Granlund and Montgomery, PLDI'94, Fig. 4.1).  0 when ``d`` is
-    not below ``2 ** (bits - 1)``."""
-    if d < 1:
-        raise ValueError(f"divisor must be >= 1, got {d}")
-    if d >= 1 << (bits - 1):
-        return 0, 0
-    s = (d - 1).bit_length()                 # ceil(log2 d)
-    return ((1 << bits) * ((1 << s) - d)) // d + 1, s
-
-
 # ---------------------------------------------------------------------------
 # plain-torch twin
 # ---------------------------------------------------------------------------
@@ -323,7 +310,6 @@ class _Params(ctypes.Structure):
 
 
 _LIB = {}
-_SMS: Dict[int, int] = {}
 _KNOTS: Dict[int, torch.Tensor] = {}
 
 
@@ -452,13 +438,6 @@ def kernel_params(dims, *, metric: str, shape: Sequence[int], n_var: int,
     return params
 
 
-def _sm_count(dev: torch.device) -> int:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev.index).multi_processor_count
-    return _SMS[dev.index]
-
-
 def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
                       limit, *, compute, metric: str, axis_names, shape,
                       n_var: int, total: int, chunk: int, lmax: int,
@@ -481,7 +460,7 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
         raise ValueError(f"fused_sweep_block runs on CUDA or CPU tensors, "
                          f"got {table2.device}")
     bp, _nb = _blocks(block_points, chunk)
-    p = plan(bp, kk, chunk, _sm_count(table2.device))
+    p = plan(bp, kk, chunk, sm_count(table2.device))
     return run(table2, row, start, low, limit, p, compute=compute,
                metric=metric, axis_names=axis_names, shape=shape,
                n_var=n_var, total=total, chunk=chunk, lmax=lmax,

@@ -55,7 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .cuda_build import check_operands, launch, load_library
+from .cuda_build import check_operands, launch, load_library, sm_count
 
 #: launches of the CUDA kernels (in all, and by route) / calls of the
 #: torch twin since the last :func:`reset_counts`
@@ -88,7 +88,6 @@ _TWIN_ELEMS = 1 << 24
 _INT_MAX = 2 ** 31 - 1
 
 _LIB = {}
-_SMS: Dict[int, int] = {}
 
 
 class Plan(NamedTuple):
@@ -191,13 +190,6 @@ def plan(m: int, n: int, k: int, a_dtype, b_dtype, aligned: bool,
     return Plan(r, tile_n, max(1, -(-k // depth)), depth)
 
 
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [M, K] @ b [K, N]`` with an f32 accumulator, in ``a.dtype``.
 
@@ -222,7 +214,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"kernel's int32 indexing")
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     return run(a, b, plan(m, n, k, a.dtype, b.dtype, aligned,
-                          _sm_count(dev)))
+                          sm_count(dev)))
 
 
 def run(a: torch.Tensor, b: torch.Tensor, p: Plan,

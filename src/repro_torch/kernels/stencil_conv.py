@@ -41,7 +41,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from .cuda_build import check_operands, launch, load_library
+from .cuda_build import check_operands, launch, load_library, sm_count
 
 #: launches of the CUDA kernels (in all, and by route) / calls of the torch
 #: twin since the last :func:`reset_counts`
@@ -73,7 +73,6 @@ _BLOCKS_PER_SM = 3
 MAX_SMEM = 232448
 
 _LIB = {}
-_SMS: Dict[int, int] = {}
 
 
 class Plan(NamedTuple):
@@ -204,13 +203,6 @@ def plan(h: int, w: int, kh: int, kw: int, dtype: torch.dtype,
                 _smem_bytes(route, kh, kw, rows, tile_w, size))
 
 
-def _sm_count(dev: torch.device) -> int:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev.index).multi_processor_count
-    return _SMS[dev.index]
-
-
 def stencil_conv(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """'valid' 2-D correlation of a frame with a stencil, f32 accumulation,
     in the frame's dtype.
@@ -241,7 +233,7 @@ def stencil_conv(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
                        kernel=kernel)
     (h, w), (kh, kw) = image.shape, kernel.shape
     p = plan(h, w, kh, kw, image.dtype, image.data_ptr() % 16 == 0,
-             _sm_count(dev))
+             sm_count(dev))
     return _launch(image, kernel, p, dev, h, w, kh, kw)
 
 

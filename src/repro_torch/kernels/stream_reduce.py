@@ -34,7 +34,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from .cuda_build import check_operands, launch, load_library
+from .cuda_build import check_operands, launch, load_library, sm_count
 
 #: K3a's cluster sizes (CTAs a block)
 CLUSTER_CHOICES = (1, 2, 4, 8)
@@ -54,7 +54,6 @@ STATS_THREADS = 128
 _CTAS_PER_SM = 1
 
 _LIB = {}
-_SMS: Dict[int, int] = {}
 
 
 class Plan(NamedTuple):
@@ -100,13 +99,6 @@ def plan(b: int, bp: int, aligned: bool, n_sm: int) -> Plan:
             break
         cluster = c
     return make_plan(b, bp, cluster, aligned)
-
-
-def _sm_count(dev: torch.device) -> int:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev.index).multi_processor_count
-    return _SMS[dev.index]
 
 
 def reset_counts() -> None:
@@ -227,7 +219,7 @@ def block_stats(values: torch.Tensor, mask: torch.Tensor,
         raise ValueError("block_stats needs at least one point")
     bp = max(min(int(block_points), b), 1)
     aligned = values.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0
-    return _launch(values, mask, plan(b, bp, aligned, _sm_count(dev)), b,
+    return _launch(values, mask, plan(b, bp, aligned, sm_count(dev)), b,
                    bp, dev)
 
 

@@ -1,4 +1,5 @@
-"""Helpers of the parity checks: synthetic PlanBank rows and the ulp.
+"""Helpers of the parity checks: synthetic PlanBank rows, the ulp and the
+kernels' division by magic multipliers.
 
 :func:`ulp` is one unit in the last place of a float dtype at given
 magnitudes: an f16 or bf16 result rounded once from two f32 sums that
@@ -18,6 +19,10 @@ reference, the torch twin and the CUDA kernel alike.
 :func:`synthetic_wide_bank` draws a row past four slots in every dim
 (``WIDE_DIMS``), the widths at which the fused-sweep kernel takes its
 16-slot instantiation.
+
+:func:`fdiv` is the decode's division of K1 and K2 (``fdiv`` of
+``csrc/grid_decode.cuh``) in torch, so that the CPU tests hold the
+kernels' index arithmetic to floor division and to ``grid_decode_torch``.
 """
 from __future__ import annotations
 
@@ -167,3 +172,36 @@ def half_rule(got: torch.Tensor, want: torch.Tensor) -> float:
     rule = ulp(torch.maximum(g.abs(), w.abs()), got.dtype) \
         + 1e-5 * (1.0 + w.abs())
     return float(((g - w).abs() / rule).max())
+
+
+def mulhi(n: torch.Tensor, m: int, bits: int) -> torch.Tensor:
+    """``(n * m) >> bits`` for int64 ``n >= 0``: directly at 32 bits (n <
+    2^31, m < 2^32), in 16-bit limbs at 64 (the product has 128 bits)."""
+    if bits == 32:
+        return (n * m) >> 32
+    nl = [(n >> (16 * i)) & 0xFFFF for i in range(4)]
+    ml = [(m >> (16 * i)) & 0xFFFF for i in range(4)]
+    cols = [0] * 8
+    for i in range(4):
+        for j in range(4):
+            cols[i + j] = cols[i + j] + nl[i] * ml[j]
+    carry, limbs = 0, []
+    for k in range(8):
+        c = cols[k] + carry
+        limbs.append(c & 0xFFFF)
+        carry = c >> 16
+    return limbs[4] | (limbs[5] << 16) | (limbs[6] << 32) | (limbs[7] << 48)
+
+
+def fdiv(n: torch.Tensor, d: int, bits: int) -> torch.Tensor:
+    """The kernels' ``(mulhi(n, m) + n) >> s`` with ``d``'s multiplier
+    (:func:`repro_torch.kernels.grid_decode.magic`), without overflowing
+    int64."""
+    from .kernels.grid_decode import magic
+    m, s = magic(d, bits)
+    if m == 0:
+        raise ValueError(f"no {bits}-bit multiplier divides by {d}")
+    t = mulhi(n, m, bits)
+    if s == 0:
+        return t + n
+    return ((t >> 1) + (n >> 1) + (t & n & 1)) >> (s - 1)

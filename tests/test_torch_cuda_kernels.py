@@ -8,12 +8,14 @@ a fixture, never at import).  On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: ``grid_decode`` and ``category_reduce`` bit-equal (same
-index arithmetic; same summation order, built with ``--fmad=false``);
+index arithmetic, ``grid_decode`` on both routes and index widths, past
+2^32, on 1 and 16 axes; same summation order, built with
+``--fmad=false``);
 block stats min / argmin / counts exact and sums rel 1e-5 (another
 summation order); engines rel 1e-6 on the top-k metric.  ``binning``,
 ``stencil_conv`` and ``frame_event`` bit-equal (same order) at f32, f16
-and bf16, ``binning`` and ``stencil_conv`` on every route (each launch
-counted on the route that ran); ``matmul`` within ``1e-5 * (|a| @ |b|)``
+and bf16, ``binning``, ``stencil_conv`` and ``frame_event`` on every
+route (each launch counted on the route that ran); ``matmul`` within ``1e-5 * (|a| @ |b|)``
 elementwise (another summation order; one unit in the last place more
 for an f16 or bf16 output) and the same from run to run; ``flash_attention`` within
 ``atol = rtol`` 1e-5 (f32), 1e-2 (bf16), 2e-3 (f16), compared in f32
@@ -46,24 +48,68 @@ def _mod(name):
     return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
-@pytest.mark.parametrize("start,chunk,idx_dtype", [
-    (0, 1000, torch.int32), (37, 4099, torch.int32),
-    (130, 777, torch.int64)])
-def test_grid_decode_matches_twin(cuda, start, chunk, idx_dtype):
+@pytest.mark.parametrize("start,chunk,idx_dtype,route", [
+    (0, 1000, torch.int32, "vec4"), (37, 4099, torch.int32, "scalar"),
+    (130, 777, torch.int64, "scalar"), (5, 4096, torch.int32, "vec4"),
+    (130, 4096, torch.int64, "vec4"), (3, 3, torch.int32, "scalar"),
+    # the tail past total, clamped inside a thread's run (start < 0: that
+    # far before the end); every chunk here crosses variants (12 points)
+    (-10, 4096, torch.int32, "vec4"), (-9, 4099, torch.int64, "scalar"),
+    (-7, 8, torch.int64, "vec4")])
+def test_grid_decode_matches_twin(cuda, start, chunk, idx_dtype, route):
     from repro_torch.core.shard_sweep import _prepare_stream
     gd = _mod("grid_decode")
     prep = _prepare_stream(["edgaze", "rhythmic"],
                            {"cis_node": [130.0, 65.0, 28.0],
                             "frame_rate": [15.0, 60.0],
                             "mem_tech": ["sram", "stt"]}, device=cuda)
+    if start < 0:
+        start += prep.total
     kw = dict(shape=prep.vgrids[0].shape, n_var=prep.n_var,
               total=prep.total, chunk=chunk, lmax=prep.lmax,
               idx_dtype=idx_dtype)
     gd.reset_counts()
     kv, kid = gd.grid_decode(prep.table2, start, **kw)
     torch.cuda.synchronize()
-    assert gd.COUNTS == {"kernel_launches": 1, "twin_calls": 0}
+    assert gd.COUNTS["kernel_launches"] == gd.COUNTS[f"{route}_launches"] \
+        == 1 and gd.COUNTS["twin_calls"] == 0, gd.COUNTS
     tv, tid = gd.grid_decode_torch(prep.table2, start, **kw)
+    assert torch.equal(kv, tv) and torch.equal(kid, tid)
+
+
+@pytest.mark.parametrize("shape,n_variants,start,chunk,idx_dtype", [
+    # int64 past 2^31 and 2^32 and at the end of the space, both routes
+    ((1500, 1500, 3, 1, 1, 1, 1, 1, 1000, 1), 3, 2 ** 31 - 102, 4096,
+     torch.int64),
+    ((1500, 1500, 3, 1, 1, 1, 1, 1, 1000, 1), 3, 2 ** 32 - 3001, 5001,
+     torch.int64),
+    ((1500, 1500, 3, 1, 1, 1, 1, 1, 1000, 1), 3, -3001, 2 ** 18,
+     torch.int64),
+    # one axis; sixteen (the kernel's cap), two of them of size 1
+    ((7,), 3, 4, 24, torch.int32),
+    ((2, 3, 2, 1, 2, 2, 3, 2, 2, 1, 2, 2, 2, 3, 2, 2), 2, 1_000_001, 4099,
+     torch.int32),
+    ((2, 3, 2, 1, 2, 2, 3, 2, 2, 1, 2, 2, 2, 3, 2, 2), 2, -77, 4096,
+     torch.int64)])
+def test_grid_decode_wide_grids_match_twin(cuda, shape, n_variants, start,
+                                           chunk, idx_dtype):
+    """Synthetic tables whose every entry names its own (axis, column)."""
+    gd = _mod("grid_decode")
+    n_var = int(np.prod(shape))
+    total = n_var * n_variants
+    lmax = max(shape)
+    table2 = torch.arange(len(shape) * n_variants * lmax,
+                          dtype=torch.float32, device=cuda).reshape(
+                              len(shape), -1)
+    kw = dict(shape=shape, n_var=n_var, total=total, chunk=chunk, lmax=lmax,
+              idx_dtype=idx_dtype)
+    start %= total
+    gd.reset_counts()
+    kv, kid = gd.grid_decode(table2, start, **kw)
+    torch.cuda.synchronize()
+    route = "vec4" if chunk % 4 == 0 else "scalar"
+    assert gd.COUNTS[f"{route}_launches"] == 1, gd.COUNTS
+    tv, tid = gd.grid_decode_torch(table2, start, **kw)
     assert torch.equal(kv, tv) and torch.equal(kid, tid)
 
 
@@ -363,21 +409,50 @@ def test_stencil_conv_half_matches_twin(cuda, shape, k, dtype):
             x, taps, acc_dtype=torch.float32))
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((200, 320), np.float32), ((33, 47), np.float32),
-    ((33, 47), np.float16), ((200, 320), torch.bfloat16),
-    ((33, 47), torch.bfloat16)])
-def test_frame_event_matches_twin(cuda, shape, dtype):
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((200, 320), np.float32, "vec4"), ((33, 47), np.float32, "scalar"),
+    ((33, 47), np.float16, "scalar"), ((200, 320), np.float16, "vec8"),
+    ((200, 320), torch.bfloat16, "vec8"), ((33, 47), torch.bfloat16, "scalar"),
+    ((1, 3), np.float32, "scalar"), ((1, 3), torch.bfloat16, "scalar"),
+    ((1, 4), np.float32, "vec4"), ((1, 8), torch.bfloat16, "vec8"),
+    ((720, 1280), np.float32, "vec4")])
+def test_frame_event_matches_twin(cuda, shape, dtype, route):
     fe = _mod("frame_event")
     cur, prev = _rand(cuda, shape, 1, dtype), _rand(cuda, shape, 2, dtype)
     fe.reset_counts()
     for t in (0.1, 0.5, 1.5):
         assert torch.equal(fe.frame_event(cur, prev, t),
                            fe.frame_event_torch(cur, prev, t))
-    assert fe.COUNTS == {"kernel_launches": 3, "twin_calls": 3}
+    assert fe.COUNTS["kernel_launches"] == fe.COUNTS[f"{route}_launches"] \
+        == 3 and fe.COUNTS["twin_calls"] == 3, fe.COUNTS
     one = torch.tensor([[0.7, float("nan")]], device=cuda)
     zero = torch.zeros(1, 2, device=cuda)
     assert fe.frame_event(one, zero, 0.7).tolist() == [[1.0, 0.0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_frame_event_threshold_nan_and_unaligned_views(cuda, dtype):
+    """The 0.7 rounding case and NaN on each 16-byte route; frames one
+    element past a 16-byte boundary take the scalar route."""
+    fe = _mod("frame_event")
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    cur = torch.zeros(2, vec, device=cuda, dtype=dtype)
+    cur[0, :3] = torch.tensor([0.7, float("nan"), 0.69999])
+    prev = torch.zeros_like(cur)
+    fe.reset_counts()
+    got = fe.frame_event(cur, prev, 0.7)
+    assert fe.COUNTS[f"vec{vec}_launches"] == 1, fe.COUNTS
+    assert torch.equal(got, fe.frame_event_torch(cur, prev, 0.7))
+    if dtype == torch.float32:
+        assert got[0, :3].tolist() == [1.0, 0.0, 0.0]
+    for shape in ((200, 320), (33, 48)):
+        va, vb = (_offset(cuda, _rand(cuda, shape, s, dtype))
+                  for s in (3, 4))
+        fe.reset_counts()
+        assert torch.equal(fe.frame_event(va, vb, 0.5),
+                           fe.frame_event_torch(va, vb, 0.5))
+        assert fe.COUNTS["scalar_launches"] == 1, fe.COUNTS
 
 
 def _matmul_case(cuda, a, b, want_route):

@@ -8,7 +8,8 @@ test's shapes and thresholds, in f16 and bf16, on the f32 rounding case
 f64) and on NaN (no event).
 
 For a CPU tensor the wrapper runs the twin and counts a twin call; the
-CUDA kernel is held against the twin bit for bit on the card.
+CUDA kernel is held against the twin bit for bit on the card.  ``plan``'s
+routes (vec4, vec8, scalar) are checked here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -98,7 +99,9 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     cur, prev = _pair((6, 5), seed=1)
     reset_counts()
     out = fn(torch.from_numpy(cur), torch.from_numpy(prev), 0.3)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    assert COUNTS == {"kernel_launches": 0, "vec4_launches": 0,
+                      "vec8_launches": 0, "scalar_launches": 0,
+                      "twin_calls": 1}
     assert tuple(out.shape) == (6, 5)
     with pytest.raises(ValueError, match="one shape"):
         fn(torch.zeros(6, 5), torch.zeros(5, 6))
@@ -107,3 +110,26 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     with pytest.raises(ValueError, match="one dtype"):
         fn(torch.zeros(6, 5), torch.zeros(6, 5, dtype=torch.float16))
     assert COUNTS["twin_calls"] == 1
+
+
+@pytest.mark.parametrize("n,dtype,aligned,want", [
+    # Ed-Gaze's 200 x 320 frame: 16,000 f32 vectors, 8,000 half ones
+    (64000, torch.float32, True, "vec4"),
+    (64000, torch.float16, True, "vec8"),
+    (64000, torch.bfloat16, True, "vec8"),
+    # a ragged frame, a frame of 3, unaligned views: one element a thread
+    (33 * 47, torch.float32, True, "scalar"),
+    (3, torch.bfloat16, True, "scalar"),
+    (64000, torch.float32, False, "scalar"),
+    (64000, torch.bfloat16, False, "scalar"),
+    # f16/bf16 frames of whole 4-element but not 8-element vectors
+    (68, torch.float16, True, "scalar"),
+    # the launch floor's frames: one vector
+    (4, torch.float32, True, "vec4"),
+    (8, torch.bfloat16, True, "vec8"),
+])
+def test_plan_routes(n, dtype, aligned, want):
+    """16-byte routes where the frame is whole 16-byte vectors and
+    aligned, the scalar route otherwise."""
+    from repro_torch.kernels.frame_event import plan
+    assert plan(n, dtype, aligned) == want

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.testing import fdiv
+
 REL = 1e-6
 
 GRIDS = {"variant": ["2d_in", "3d_in"],
@@ -322,36 +324,6 @@ def test_staging_takes_wide_tables(sizes, n_variants, shrunk):
         assert st.span % n_var == 0 and st.nv == st.span // n_var + 1
 
 
-def _mulhi(n: torch.Tensor, m: int, bits: int) -> torch.Tensor:
-    """``(n * m) >> bits`` for int64 ``n >= 0``: directly at 32 bits (n <
-    2^31, m < 2^32), in 16-bit limbs at 64 (the product has 128 bits)."""
-    if bits == 32:
-        return (n * m) >> 32
-    nl = [(n >> (16 * i)) & 0xFFFF for i in range(4)]
-    ml = [(m >> (16 * i)) & 0xFFFF for i in range(4)]
-    cols = [0] * 8
-    for i in range(4):
-        for j in range(4):
-            cols[i + j] = cols[i + j] + nl[i] * ml[j]
-    carry, limbs = 0, []
-    for k in range(8):
-        c = cols[k] + carry
-        limbs.append(c & 0xFFFF)
-        carry = c >> 16
-    return limbs[4] | (limbs[5] << 16) | (limbs[6] << 32) | (limbs[7] << 48)
-
-
-def _fdiv(n: torch.Tensor, d: int, bits: int) -> torch.Tensor:
-    """The kernel's ``(mulhi(n, m) + n) >> s``, without overflowing int64."""
-    from repro_torch.kernels.fused_sweep import magic
-    m, s = magic(d, bits)
-    assert m > 0
-    t = _mulhi(n, m, bits)
-    if s == 0:
-        return t + n
-    return ((t >> 1) + (n >> 1) + (t & n & 1)) >> (s - 1)
-
-
 def _divfree_decode(table2, start, *, shape, n_var, total, chunk, lmax,
                     idx_dtype):
     """The kernel's decode in torch: the flat index clamped to total - 1,
@@ -360,11 +332,11 @@ def _divfree_decode(table2, start, *, shape, n_var, total, chunk, lmax,
     bits = 32 if idx_dtype == torch.int32 else 64
     off = torch.arange(chunk, dtype=torch.int64) + start
     off = torch.clamp_max(off, total - 1)
-    vid = _fdiv(off, n_var, bits)
+    vid = fdiv(off, n_var, bits)
     local = off - vid * n_var
     cols = [None] * len(shape)
     for a in range(len(shape) - 1, 0, -1):
-        q = _fdiv(local, shape[a], bits)
+        q = fdiv(local, shape[a], bits)
         cols[a] = local - q * shape[a]
         local = q
     cols[0] = local
@@ -385,7 +357,7 @@ def test_magic_division_is_exact_at_the_edges(d):
         ns |= {k * d + e for k in (3, 1000, 123_457) for e in (-1, 0, 1)}
         ns = sorted(n for n in ns if 0 <= n <= top)
         n = torch.tensor(ns, dtype=torch.int64)
-        assert _fdiv(n, d, bits).tolist() == [x // d for x in ns], (bits, d)
+        assert fdiv(n, d, bits).tolist() == [x // d for x in ns], (bits, d)
 
 
 @pytest.mark.parametrize("shape,n_variants,start,idx_dtype", [

@@ -102,5 +102,6 @@ def test_strides_and_wrapper_on_cpu():
     reset_counts()
     vals, vid = grid_decode(torch.zeros(2, 6), 0, shape=(2, 3), n_var=6,
                             total=12, chunk=5, lmax=3)
-    assert COUNTS == {"kernel_launches": 0, "twin_calls": 1}
+    assert COUNTS == {"kernel_launches": 0, "vec4_launches": 0,
+                      "scalar_launches": 0, "twin_calls": 1}
     assert tuple(vals.shape) == (2, 5) and tuple(vid.shape) == (5,)
