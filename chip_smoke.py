@@ -14,7 +14,10 @@ in f16 and bf16; K1 on every cluster size of its plans, at the main-path
 chunk and on a bank past four slots, every candidate position equal to
 the twin's; K2 on its vec4 and scalar routes, int32 and int64 (past
 2^31 and 2^32), across variants and past the end, on 1 and 16 axes;
-K3a on every cluster size, on its vec4 and scalar routes;
+K3a on every cluster size, on its vec4 and scalar routes, also with NaN
+and +-inf; K3b on every cluster size, route and variant tile, on K2's
+variant row, interleaved and single ids, past one tile, on an offset
+view and with NaN and +-inf, a repeated launch bit-equal;
 K5 and K6 on each of their routes, with offset views and
 outputs either side of their tiles; K7 on vec4, vec8 and scalar, with
 offset views; K8 on each of its three routes, the
@@ -56,7 +59,10 @@ read just after:
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
-cluster sizes, the ``fused_probe`` line; K8 also at 4096^3 bf16, with a
+cluster sizes, the ``fused_probe`` line, K3b's beside them; K3b on three
+id layouts, at 2^24 points, at its launch floor and beside a plain read
+of its bytes, the ``block_stats_banked_timing`` line; K8 also at 4096^3
+bf16, with a
 probe of its tile widths, tensor-map encodes and enqueue times; K6 with a
 probe of its tile heights; each library call's device time beside its
 CUDA-event time; K2 on int64 too, beside torch's fill of the same
@@ -75,7 +81,8 @@ repository's ``src/`` beside it.  ``--launch-probe`` is a tool apart,
 never part of the smoke run: it prints only the launch-path probe's line
 for what every checkout of the port offers (torch's steps, the operand
 check, the K1-K9 wrappers' host us and event ms, and the device ms of
-K1, K3a, K2 (int32, int64 and at a chunk of 4) and K7 (f32, bf16 and a
+K1, K3a, K3b (2^18 points on three id layouts, 2^24 points and one block
+of 512), K2 (int32, int64 and at a chunk of 4) and K7 (f32, bf16 and a
 frame of one 16-byte vector)), on this checkout or on
 the one whose ``src/`` is given with ``--src``, to hold two trees side by
 side.  It imports nothing of ``jax`` or of the
@@ -128,6 +135,8 @@ MEGA_GRIDS = {
 }
 MEGA_POINTS = 8 * 13 * 3 * 8 * 8 * 6 * 3 * 5 * 7
 CHUNK = 1 << 18
+# K3b's large row: 2^24 points x 8 interleaved ids, 151 MB read
+BIG_STATS = 1 << 24
 # the int64 lane: 2.25e9 points in one variant (flat indices past 2**31)
 WIDE_GRIDS = {"variant": ["3d_in"],
               "cis_node": list(np.linspace(28.0, 130.0, 1500)),
@@ -190,6 +199,11 @@ PROBE_DEVICE = {"K1_fused_sweep_2^18": "fused_sweep_kernel",
                 "K2_grid_decode_2^18_int64": "grid_decode_",
                 "K2_grid_decode_chunk4": "grid_decode_",
                 "K3a_block_stats_2^18": "block_stats_kernel",
+                "K3b_block_stats_banked_2^18": "block_stats_banked",
+                "K3b_block_stats_banked_2^18_runs": "block_stats_banked",
+                "K3b_block_stats_banked_2^18_single": "block_stats_banked",
+                "K3b_block_stats_banked_2^24": "block_stats_banked",
+                "K3b_block_stats_banked_floor_512": "block_stats_banked",
                 "K7_frame_event_200x320": "frame_event",
                 "K7_frame_event_200x320_bf16": "frame_event",
                 "K7_frame_event_1x4": "frame_event",
@@ -535,34 +549,48 @@ def stats_case(sr, *, name, values, mask, bp, variant=None, n_variants=0):
 
 
 def stats_compare(name, ker, twin, values, **extra):
-    """Block stats against their twin's: min, argmin and counts exact,
-    sums at rel 1e-5; emits and returns the record."""
+    """Block stats against their twin's: min (NaN where the twin's is
+    NaN), argmin and counts exact, sums at rel 1e-5 (non-finite ones
+    equal); emits and returns the record."""
     km, ka, ks, kc = (t.cpu().numpy() for t in ker)
     tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
-    check(np.array_equal(km, tm) and np.array_equal(ka, ta),
+    check(np.array_equal(km, tm, equal_nan=True) and np.array_equal(ka, ta),
           f"{name}: min/argmin differ from the twin")
     check(np.array_equal(kc, tc), f"{name}: counts differ")
-    ks, ts = ks.astype(np.float64), ts.astype(np.float64)
+    # a sum with NaN or +-inf terms is the same in any order: equal
+    fin = np.isfinite(ts)
+    check(np.array_equal(ks[~fin], ts[~fin], equal_nan=True)
+          and np.isfinite(ks[fin]).all(), f"{name}: non-finite sums differ")
+    ks, ts = ks[fin].astype(np.float64), ts[fin].astype(np.float64)
     sum_rel = float(np.max(np.abs(ks - ts)
-                           / np.maximum(np.abs(ts), 1e-30)))
+                           / np.maximum(np.abs(ts), 1e-30), initial=0.0))
     check(sum_rel <= REL_SUM, f"{name}: sums rel err {sum_rel}")
     rec = dict(case=name, points=int(values.numel()), blocks=int(km.size),
                empty_blocks=int((tc == 0).sum()),
-               max_abs_err=float(np.max(np.abs(ks - ts))),
+               nan_mins=int(np.isnan(tm).sum()),
+               max_abs_err=float(np.max(np.abs(ks - ts), initial=0.0)),
                sums_max_rel_err=sum_rel, **extra)
     emit({"kernel_vs_twin": rec})
     return rec
 
 
-def stats_plan_cases(sr, vals, mask):
+def offset_copies(*ts):
+    """Each tensor copied one element into a buffer of its own: the
+    ``scalar`` routes' bases."""
+    outs = []
+    for t in ts:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        buf.copy_(t)
+        outs.append(buf)
+    return outs
+
+
+def stats_plan_cases(sr, vals, mask, tag=""):
     """K3a on every plan: each cluster size on the vec4 route (the
     aligned main-path vector) and the scalar route (the same values one
     element into their buffers), forced through ``sr.run``, each launch
     counted on its route."""
-    off_v = torch.empty(CHUNK + 1, device="cuda")[1:]
-    off_m = torch.empty(CHUNK + 1, dtype=torch.bool, device="cuda")[1:]
-    off_v.copy_(vals)
-    off_m.copy_(mask)
+    off_v, off_m = offset_copies(vals, mask)
     recs = []
     for cluster in sr.CLUSTER_CHOICES:
         for route, (v, m) in (("vec4", (vals, mask)),
@@ -577,9 +605,90 @@ def stats_plan_cases(sr, vals, mask):
                   == sr.COUNTS["kernel_launches"] == 1,
                   f"block stats {p}: launches {sr.COUNTS}")
             recs.append(stats_compare(
-                f"stats_{route}_cluster{cluster}", ker,
+                f"stats{tag}_{route}_cluster{cluster}", ker,
                 sr.block_stats_torch(v, m, 4096), v, plan=p._asdict()))
     return recs
+
+
+def banked_plan_cases(sr, vals, mask, vid, tag=""):
+    """K3b on every plan: cluster size x route (vec4 on the aligned
+    vectors, scalar one element into their buffers) x variant tile (the
+    plan's 8, or 3: three tiles), forced through ``sr.run_banked``, each
+    launch counted on its route and launched twice: the two bit-equal,
+    sums too."""
+    off = offset_copies(vals, mask, vid)
+    recs = []
+    for cluster in sr.CLUSTER_CHOICES:
+        for route, args in (("vec4", (vals, mask, vid)), ("scalar", off)):
+            for tile in (None, 3):
+                p = sr.make_banked_plan(CHUNK, 4096, 8, cluster,
+                                        sr.aligned(*args), tile)
+                check(p.route == route, f"banked plan {p}: not {route}")
+                sr.reset_counts()
+                ker = sr.run_banked(*args, 8, p, 4096)
+                again = sr.run_banked(*args, 8, p, 4096)
+                torch.cuda.synchronize()
+                check(sr.COUNTS[f"banked_{route}_launches"]
+                      == sr.COUNTS["banked_kernel_launches"] == 2,
+                      f"banked {p}: launches {sr.COUNTS}")
+                check(all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(ker, again)),
+                      f"banked {p}: a repeated launch differs")
+                recs.append(stats_compare(
+                    f"stats_banked{tag}_{route}_cluster{cluster}_tile"
+                    f"{p.tile}", ker,
+                    sr.block_stats_banked_torch(*args, 8, 4096), args[0],
+                    plan=p._asdict()))
+    return recs
+
+
+def k2_variant_row(gd, prep, start):
+    """K2's variant-id row of the chunk of ``CHUNK`` points at ``start``
+    of the mega_sweep space: runs of ``n_var`` points of one id."""
+    return gd.grid_decode(prep.table2, start, shape=prep.vgrids[0].shape,
+                          n_var=prep.n_var, total=prep.total, chunk=CHUNK,
+                          lmax=prep.lmax)[1]
+
+
+def banked_cases(sr, gd, prep, vals, mask, vid):
+    """K3b (and K3a where it applies) against the twins beyond the
+    interleaved ids: K2's variant row across two variants, one variant, V
+    past one tile (17, 40, 100), an offset view (the scalar route), NaN
+    and +-inf with ties of NaN and an all-masked block (F4, K3a on every
+    plan too), and K3b's every plan on the interleaved and NaN inputs."""
+    from repro_torch.testing import stats_case as edge_case
+    runs = k2_variant_row(gd, prep, 2 * prep.n_var - CHUNK // 2)
+    check(torch.unique(runs).tolist() == [1, 2], "K2's row: not two runs")
+    recs = [stats_case(sr, name="stats_banked_runs", values=vals, mask=mask,
+                       bp=4096, variant=runs, n_variants=8),
+            stats_case(sr, name="stats_banked_single", values=vals,
+                       mask=mask, bp=4096, variant=torch.full_like(vid, 3),
+                       n_variants=8)]
+    pos = torch.arange(CHUNK, device="cuda")
+    for nv in (17, 40, 100):
+        ids = (pos * 7 % (nv + 2) - 1).to(torch.int32)    # -1 .. nv
+        recs.append(stats_case(sr, name=f"stats_banked_{nv}_variants",
+                               values=vals, mask=mask, bp=4096,
+                               variant=ids, n_variants=nv))
+    off = offset_copies(vals, mask, vid)
+    check(not sr.aligned(*off), "the offset views are aligned")
+    recs.append(stats_case(sr, name="stats_banked_offset_scalar",
+                           values=off[0], mask=off[1], bp=4096,
+                           variant=off[2], n_variants=8))
+    nan_in = [torch.from_numpy(a).cuda()
+              for a in edge_case(CHUNK, 4096, 8, "interleaved", 11)]
+    nan_k3a = [stats_case(sr, name="stats_nan_inf", values=nan_in[0],
+                          mask=nan_in[1], bp=4096)]
+    nan_k3a += stats_plan_cases(sr, *nan_in[:2], tag="_nan")
+    recs.append(stats_case(sr, name="stats_banked_nan_inf",
+                           values=nan_in[0], mask=nan_in[1], bp=4096,
+                           variant=nan_in[2], n_variants=8))
+    check(recs[-1]["nan_mins"] > 0 and nan_k3a[0]["nan_mins"] > 0,
+          "the NaN case has no NaN min")
+    recs += banked_plan_cases(sr, vals, mask, vid)
+    recs += banked_plan_cases(sr, *nan_in, tag="_nan")
+    return recs, nan_k3a
 
 
 def reduce_case(cr, *, name, e, w):
@@ -1456,11 +1565,12 @@ def stencil_probe(sc, taps, frames):
     return rec
 
 
-def fused_probe(fs, sr, prep, compute, vals, mask):
-    """What K1's and K3a's cluster sizes cost, measured here: device ms of
-    each cluster size at the main-path chunk (K1 at ``kk`` 3 and 16, K3a
-    on its vec4 route), the plans the wrappers pick, and K3a's scalar
-    route on the same values one element into their buffers."""
+def fused_probe(fs, sr, prep, compute, vals, mask, vid):
+    """What K1's, K3a's and K3b's cluster sizes cost, measured here:
+    device ms of each cluster size at the main-path chunk (K1 at ``kk`` 3
+    and 16, K3a on its vec4 route, K3b on its vec4 route over 8
+    interleaved ids), the plans the wrappers pick, and K3a's and K3b's
+    scalar routes on the same values one element into their buffers."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     n_var = prep.n_var
     kw = dict(compute=compute, metric="total_j",
@@ -1484,10 +1594,7 @@ def fused_probe(fs, sr, prep, compute, vals, mask):
         p = sr.make_plan(CHUNK, 4096, c, True)
         by_cluster[c] = {"ctas": p.ctas, "device_ms": device_ms(
             lambda: sr.run(vals, mask, p, 4096), "block_stats_kernel")}
-    off_v = torch.empty(CHUNK + 1, device="cuda")[1:]
-    off_m = torch.empty(CHUNK + 1, dtype=torch.bool, device="cuda")[1:]
-    off_v.copy_(vals)
-    off_m.copy_(mask)
+    off_v, off_m, off_i = offset_copies(vals, mask, vid)
     scalar = sr.plan(CHUNK, 4096, False, n_sm)
     rec["block_stats"] = {
         "chosen": sr.plan(CHUNK, 4096, True, n_sm)._asdict(),
@@ -1495,7 +1602,63 @@ def fused_probe(fs, sr, prep, compute, vals, mask):
         "scalar_route": {"plan": scalar._asdict(), "device_ms": device_ms(
             lambda: sr.run(off_v, off_m, scalar, 4096),
             "block_stats_kernel")}}
+    by_cluster = {}
+    for c in sr.CLUSTER_CHOICES:
+        p = sr.make_banked_plan(CHUNK, 4096, 8, c, True)
+        by_cluster[c] = {"ctas": p.ctas, "device_ms": device_ms(
+            lambda: sr.run_banked(vals, mask, vid, 8, p, 4096),
+            "block_stats_banked")}
+    scalar = sr.plan_banked(CHUNK, 4096, 8, False, n_sm)
+    rec["block_stats_banked"] = {
+        "chosen": sr.plan_banked(CHUNK, 4096, 8, True, n_sm)._asdict(),
+        "by_cluster": by_cluster,
+        "scalar_route": {"plan": scalar._asdict(), "device_ms": device_ms(
+            lambda: sr.run_banked(off_v, off_m, off_i, 8, scalar, 4096),
+            "block_stats_banked")}}
     emit({"fused_probe": rec})
+    return rec
+
+
+def banked_timing(sr, gd, prep, vals, mask, vid, n_sm):
+    """K3b's device ms at 2^18 x 8 on three id layouts (interleaved, K2's
+    variant row, one id), its row at 2^24 x 8 (interleaved; also runs of
+    2^21) beside its bound, its launch floor (one block of 512 points,
+    V = 8) and a byte yardstick: the device ms of torch's ``amax`` over a
+    buffer of the same 9 bytes a point (a plain read of K3b's bytes,
+    another function)."""
+    layouts = {"interleaved": vid,
+               "runs": k2_variant_row(gd, prep, 2 * prep.n_var - CHUNK // 2),
+               "single": torch.full_like(vid, 3)}
+    by_layout = {k: device_ms(
+        lambda: sr.block_stats_banked(vals, mask, ids, 8, 4096),
+        "block_stats_banked") for k, ids in layouts.items()}
+    big_v, big_m = stats_inputs(BIG_STATS, 21)
+    pos = torch.arange(BIG_STATS, device="cuda")
+    big_i = (pos % 8).to(torch.int32)
+    big_runs = (pos // (BIG_STATS // 8)).to(torch.int32)
+    row = timing_row(
+        f"{BIG_STATS} points x 8 variants",
+        lambda: sr.block_stats_banked(big_v, big_m, big_i, 8, 4096),
+        lambda: sr.block_stats_banked_torch(big_v, big_m, big_i, 8, 4096),
+        None, BIG_STATS * 9 + BIG_STATS // 4096 * 8 * 16, BIG_STATS * 3,
+        "block_stats_banked")
+    row.update(runs_device_ms=device_ms(
+        lambda: sr.block_stats_banked(big_v, big_m, big_runs, 8, 4096),
+        "block_stats_banked"),
+        plan=sr.plan_banked(BIG_STATS, 4096, 8, True, n_sm)._asdict())
+    fl_v, fl_m = stats_inputs(512, 22)
+    floor = device_ms(
+        lambda: sr.block_stats_banked(fl_v, fl_m, vid[:512], 8, 512),
+        "block_stats_banked")
+
+    def yardstick(n):
+        raw = torch.zeros(n * 9 // 4, dtype=torch.int32, device="cuda")
+        return library_device_ms(lambda: torch.amax(raw))
+    rec = {"by_layout_device_ms": by_layout, "big": row,
+           "floor_device_ms": floor,
+           "read_yardstick_device_ms": {"2^18": yardstick(CHUNK),
+                                        "2^24": yardstick(BIG_STATS)}}
+    emit({"block_stats_banked_timing": rec})
     return rec
 
 
@@ -1514,7 +1677,9 @@ def host_us(fn, reps=50):
 
 def headline_calls(kmods, prep, compute):
     """The wrapper of each of K1-K9 at its headline shape (``PERF.md``'s
-    kernel table), on inputs made here from seeds: label -> call."""
+    kernel table), on inputs made here from seeds: label -> call.  K3b
+    also on K2's variant row (two runs), one id, 2^24 points and one
+    block of 512 (its launch floor)."""
     fs, gd, sr, cr, bn, sc, fe, mm, fa = (kmods[n] for n in KERNEL_SOURCES)
     n_var = prep.n_var
     start = 2 * n_var + CHUNK
@@ -1526,6 +1691,11 @@ def headline_calls(kmods, prep, compute):
     row = prep.bank.fused[2]
     vals, mask = stats_inputs(CHUNK, 1)
     vid = (torch.arange(CHUNK, device="cuda") % 8).to(torch.int32)
+    runs = gd.grid_decode(prep.table2, 2 * n_var - CHUNK // 2, **dkw)[1]
+    single = torch.full_like(vid, 3)
+    big_v, big_m = stats_inputs(BIG_STATS, 21)
+    big_i = (torch.arange(BIG_STATS, device="cuda") % 8).to(torch.int32)
+    fl_v, fl_m = stats_inputs(512, 22)
     e, w = reduce_inputs(CHUNK, 11, 10, 3)
     rh, binned = gaussian((720, 1280), 1), gaussian((360, 640), 2)
     sobel = torch.tensor([[1., 0., -1.], [2., 0., -2.], [1., 0., -1.]],
@@ -1553,6 +1723,14 @@ def headline_calls(kmods, prep, compute):
         "K3a_block_stats_2^18": lambda: sr.block_stats(vals, mask, 4096),
         "K3b_block_stats_banked_2^18": lambda: sr.block_stats_banked(
             vals, mask, vid, 8, 4096),
+        "K3b_block_stats_banked_2^18_runs": lambda: sr.block_stats_banked(
+            vals, mask, runs, 8, 4096),
+        "K3b_block_stats_banked_2^18_single": lambda: sr.block_stats_banked(
+            vals, mask, single, 8, 4096),
+        "K3b_block_stats_banked_2^24": lambda: sr.block_stats_banked(
+            big_v, big_m, big_i, 8, 4096),
+        "K3b_block_stats_banked_floor_512": lambda: sr.block_stats_banked(
+            fl_v, fl_m, vid[:512], 8, 512),
         "K4_category_reduce_2^18": lambda: cr.category_reduce(e, w),
         "K5_binning_720x1280": lambda: bn.binning(rh, 2),
         "K6_stencil_conv_720x1280": lambda: sc.stencil_conv(rh, sobel),
@@ -2087,6 +2265,9 @@ def main() -> int:
     vid[-5000:] = -1                          # padding rows
     k3b = [stats_case(sr, name="stats_banked_8_variants", values=vals,
                       mask=mask, bp=4096, variant=vid, n_variants=8)]
+    k3b_more, k3a_nan = banked_cases(sr, gd, prep, vals, mask, vid)
+    k3b += k3b_more
+    k3a += k3a_nan
     e_main, w_main = reduce_inputs(CHUNK, 11, 10, 3)
     k4 = [reduce_case(cr, name="reduce_main_chunk", e=e_main, w=w_main)]
     # ragged B around a block's 256 rows, odd and even U, U past the 32
@@ -2330,7 +2511,7 @@ def main() -> int:
             prep.table2, row, start, 0, 3 * n_var, **kw16), reps=5),
         bound_ms=b16_ms, hoisted_bound_ms=h16_ms,
         plan=fs.plan(4096, 16, CHUNK, n_sm)._asdict())
-    probe = fused_probe(fs, sr, prep, compute, vals, mask)
+    probe = fused_probe(fs, sr, prep, compute, vals, mask, vid)
 
     dkw = dict(shape=prep.vgrids[0].shape, n_var=n_var, total=prep.total,
                chunk=CHUNK, lmax=prep.lmax)
@@ -2394,6 +2575,7 @@ def main() -> int:
     store_floor = library_device_ms(filled.zero_)
     emit({"launch_floor_device_ms": floors,
           "grid_decode_store_floor_device_ms": store_floor})
+    k3b_timing = banked_timing(sr, gd, prep, vals, mask, vid, n_sm)
 
     profile_path("main_path", lambda: explore(space, engine="fused",
                                               chunk_size=CHUNK, k=3))
@@ -2452,9 +2634,18 @@ def main() -> int:
                 floor_device_ms_by_shape=floors[name],
                 by_idx={"int32": {k: times[name][k] for k in keys},
                         "int64": {k: k2_int64[k] for k in keys}})
-        if name == "block_stats":
-            extra = dict(plan=probe["block_stats"]["chosen"],
-                         probe=probe["block_stats"]["by_cluster"])
+        if name in ("block_stats", "block_stats_banked"):
+            extra = dict(plan=probe[name]["chosen"],
+                         probe=probe[name]["by_cluster"],
+                         scalar_route=probe[name]["scalar_route"])
+        if name == "block_stats_banked":
+            extra.update(
+                by_layout_device_ms=k3b_timing["by_layout_device_ms"],
+                big=k3b_timing["big"],
+                floor_device_ms=k3b_timing["floor_device_ms"],
+                read_yardstick_device_ms=k3b_timing[
+                    "read_yardstick_device_ms"],
+                empty_kernel_device_ms=floors["empty_kernel"])
         entries.append(dict(
             name=name, route="cuda", source=src + source,
             replaces=replaces, launches=n_launch, path=path,

@@ -23,6 +23,10 @@ reference, the torch twin and the CUDA kernel alike.
 :func:`fdiv` is the decode's division of K1 and K2 (``fdiv`` of
 ``csrc/grid_decode.cuh``) in torch, so that the CPU tests hold the
 kernels' index arithmetic to floor division and to ``grid_decode_torch``.
+
+:func:`stats_case` draws the block-stats kernels' (K3a, K3b) edge cases:
+ties, NaN, +-inf, masked blocks and ids outside ``[0, V)`` on three id
+layouts, for the CPU tests, the card tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import torch
 from .core.energy import CATEGORIES
 from .core.plan_bank import BankDims, bank_layout
 
+#: the id layouts of :func:`stats_case`
+STATS_LAYOUTS = ("run", "interleaved", "single")
 #: dims of the synthetic bank: V=1, A=3, L=2, F=1, D=3, M=2
 SYNTHETIC_DIMS = BankDims(1, 3, 2, 1, 3, 2)
 #: dims of the wide synthetic bank: V=1, A=5, L=6, F=5, D=6, M=5
@@ -205,3 +211,39 @@ def fdiv(n: torch.Tensor, d: int, bits: int) -> torch.Tensor:
     if s == 0:
         return t + n
     return ((t >> 1) + (n >> 1) + (t & n & 1)) >> (s - 1)
+
+
+def stats_case(b: int, bp: int, n_variants: int, layout: str, seed: int,
+               ties: bool = False):
+    """``(values, mask, ids)`` of K3a's and K3b's edge cases, numpy, from
+    ``seed``: values from a grid of multiples of 1/8 below 4 (sums exact
+    in any order; ``ties``: only 0.5, 1.25 and 2.0, so that a thread's min
+    is often tied), a few NaN (five of variant 0 in the first block, pairs of
+    them in one thread on either route) and +-inf, masked points, an
+    all-masked second block, and ids in ``layout`` with -1 and ids past
+    ``V`` strewn in: ``run`` (runs of 700, as K2 writes runs of a
+    variant's points), ``interleaved`` (every point the next id) or
+    ``single`` (one id), all of ``STATS_LAYOUTS``."""
+    rng = np.random.default_rng(seed)
+    vals = np.float32(np.round(np.clip(rng.normal(size=b), -3.9, 3.9) * 8)
+                      / 8)
+    vals[rng.uniform(size=b) < 0.3] = 0.5
+    if ties:
+        vals = rng.choice(np.float32([0.5, 1.25, 2.0]), size=b)
+    odd = rng.choice(b, size=min(b, 3 * max(b // 300, 2)), replace=False)
+    third = len(odd) // 3
+    vals[odd[:third]] = np.nan
+    vals[odd[third:2 * third]] = np.inf
+    vals[odd[2 * third:]] = -np.inf
+    mask = rng.uniform(size=b) > 0.25
+    mask[bp:2 * bp] = False
+    pos = np.arange(b)
+    vid = {"run": (pos + 300) // 700 % (n_variants + 1),
+           "interleaved": pos % (n_variants + 1),
+           "single": np.full(b, n_variants - 1)}[layout].astype(np.int32)
+    stray = rng.uniform(size=b)
+    vid[stray < 0.02] = -1
+    vid[stray > 0.98] = n_variants + 7
+    nan_ties = [q for q in (3, 9, 131, 515, 643) if q < min(b, bp)]
+    vals[nan_ties], mask[nan_ties], vid[nan_ties] = np.nan, True, 0
+    return vals, mask, vid

@@ -11,8 +11,10 @@ Tolerances: ``grid_decode`` and ``category_reduce`` bit-equal (same
 index arithmetic, ``grid_decode`` on both routes and index widths, past
 2^32, on 1 and 16 axes; same summation order, built with
 ``--fmad=false``);
-block stats min / argmin / counts exact and sums rel 1e-5 (another
-summation order); engines rel 1e-6 on the top-k metric.  ``binning``,
+block stats min / argmin / counts exact, NaN where the twin's is, and
+sums rel 1e-5 (another summation order), K3b on every plan (cluster x
+route x variant tile) and bit-equal from launch to launch; engines rel
+1e-6 on the top-k metric.  ``binning``,
 ``stencil_conv`` and ``frame_event`` bit-equal (same order) at f32, f16
 and bf16, ``binning``, ``stencil_conv`` and ``frame_event`` on every
 route (each launch counted on the route that ran); ``matmul`` within ``1e-5 * (|a| @ |b|)``
@@ -113,6 +115,32 @@ def test_grid_decode_wide_grids_match_twin(cuda, shape, n_variants, start,
     assert torch.equal(kv, tv) and torch.equal(kid, tid)
 
 
+def _stats_equal(ker, twin):
+    """Block stats against the twin's: min (NaN where the twin's is NaN),
+    argmin and counts exact, sums rel 1e-5."""
+    km, ka, ks, kc = (t.cpu().numpy() for t in ker)
+    tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
+    np.testing.assert_array_equal(km, tm)
+    np.testing.assert_array_equal(ka, ta)
+    np.testing.assert_array_equal(kc, tc)
+    np.testing.assert_allclose(ks, ts, rtol=1e-5, atol=0)
+
+
+def _stats_inputs(cuda, n, bp, n_variants, layout, seed, offset=0,
+                  ties=False):
+    """:func:`repro_torch.testing.stats_case` on the card, ``offset``
+    elements into each buffer."""
+    from repro_torch.testing import stats_case
+    vals, mask, vid = stats_case(n, bp, n_variants, layout, seed, ties)
+    outs = []
+    for a in (vals, mask, vid):
+        buf = torch.empty(n + offset, dtype=torch.from_numpy(a).dtype,
+                          device=cuda)[offset:]
+        buf.copy_(torch.from_numpy(a))
+        outs.append(buf)
+    return outs
+
+
 @pytest.mark.parametrize("n,bp", [(5000, 1024), (4096, 4096), (77, 128)])
 def test_block_stats_match_twins(cuda, n, bp):
     sr = _mod("stream_reduce")
@@ -127,12 +155,13 @@ def test_block_stats_match_twins(cuda, n, bp):
              sr.block_stats_torch(vals, mask, bp)),
             (sr.block_stats_banked(vals, mask, vid, 3, bp),
              sr.block_stats_banked_torch(vals, mask, vid, 3, bp))):
-        km, ka, ks, kc = (t.cpu().numpy() for t in ker)
-        tm, ta, ts, tc = (t.cpu().numpy() for t in twin)
-        np.testing.assert_array_equal(km, tm)
-        np.testing.assert_array_equal(ka, ta)
-        np.testing.assert_array_equal(kc, tc)
-        np.testing.assert_allclose(ks, ts, rtol=1e-5, atol=0)
+        _stats_equal(ker, twin)
+    # F4: NaN, +-inf, an all-masked block, on every layout of ids
+    for layout in ("run", "interleaved", "single"):
+        v, m, ids = _stats_inputs(cuda, n, min(bp, n), 3, layout, n + 1)
+        _stats_equal(sr.block_stats(v, m, bp), sr.block_stats_torch(v, m, bp))
+        _stats_equal(sr.block_stats_banked(v, m, ids, 3, bp),
+                     sr.block_stats_banked_torch(v, m, ids, 3, bp))
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
@@ -181,6 +210,87 @@ def test_block_stats_plan_fills_the_card(cuda):
     torch.cuda.synchronize()
     assert sr.COUNTS["vec4_launches"] == 1
     assert sr.plan(2 ** 18, 4096, True, n_sm).ctas >= n_sm
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_block_stats_nan_every_plan_matches_twin(cuda, cluster, offset):
+    """F4 on K3a's every plan: NaN (ties of it in one thread), +-inf, an
+    all-masked block and a ragged tail equal the twin, NaN where its min
+    is NaN."""
+    sr = _mod("stream_reduce")
+    n, bp = 4 * 4096 + 77, 4096
+    for ties in (False, True):
+        vals, mask, _ = _stats_inputs(cuda, n, bp, 1, "single", cluster,
+                                      offset, ties)
+        p = sr.make_plan(n, bp, cluster, sr.aligned(vals, mask))
+        assert p.route == ("vec4" if offset == 0 else "scalar")
+        sr.reset_counts()
+        ker = sr.run(vals, mask, p, bp)
+        torch.cuda.synchronize()
+        assert sr.COUNTS[f"{p.route}_launches"] == 1
+        twin = sr.block_stats_torch(vals, mask, bp)
+        _stats_equal(ker, twin)
+        assert np.isnan(ker[0][0].item())
+        assert ker[3][1].item() == 0 and ker[0][1].item() == np.inf
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tile", [None, 3])
+@pytest.mark.parametrize("layout", ["run", "interleaved", "single"])
+@pytest.mark.parametrize("n,bp,n_variants", [
+    (4 * 4096 + 77, 4096, 8), (5003, 1024, 40), (777, 128, 1),
+    (4099, 4099, 17)])
+def test_block_stats_banked_every_plan_matches_twin(cuda, cluster, offset,
+                                                    tile, layout, n, bp,
+                                                    n_variants):
+    """K3b on every plan: cluster size x route (aligned, or one element
+    into its buffers: ``scalar``; a block of 4099 points is not whole
+    vectors) x variant tile (the plan's, or 3), on the run, interleaved
+    and single-variant layouts, with NaN, +-inf, ids -1 and past V, an
+    all-masked block and a ragged tail; each launch counted on its route,
+    and a repeated launch bit-equal, sums too."""
+    sr = _mod("stream_reduce")
+    vals, mask, vid = _stats_inputs(cuda, n, bp, n_variants, layout,
+                                    n + cluster, offset,
+                                    ties=cluster % 2 == 0)
+    al = sr.aligned(vals, mask, vid)
+    assert al == (offset == 0)
+    p = sr.make_banked_plan(n, bp, n_variants, cluster, al,
+                            tile and min(tile, n_variants))
+    assert p.route == ("vec4" if al and bp % 4 == 0 else "scalar")
+    sr.reset_counts()
+    ker = sr.run_banked(vals, mask, vid, n_variants, p, bp)
+    again = sr.run_banked(vals, mask, vid, n_variants, p, bp)
+    torch.cuda.synchronize()
+    assert sr.COUNTS[f"banked_{p.route}_launches"] == 2
+    assert sr.COUNTS["banked_kernel_launches"] == 2
+    twin = sr.block_stats_banked_torch(vals, mask, vid, n_variants, bp)
+    _stats_equal(ker, twin)
+    for a, b in zip(ker, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if n > bp:                                # the all-masked block
+        assert (ker[3][1] == 0).all() and (ker[1][1] == 0).all()
+
+
+def test_block_stats_banked_plan_and_casts(cuda):
+    """The wrapper's own plan on the card (vec4 at the main path's shape)
+    and the reference's casts: f64 values, an int8 mask, int64 ids,
+    each cast on the device, equal to the twin on the cast operands."""
+    sr = _mod("stream_reduce")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    vals, mask, vid = _stats_inputs(cuda, 2 ** 18, 4096, 8, "interleaved", 5)
+    sr.reset_counts()
+    ker = sr.block_stats_banked(vals.double(), mask.to(torch.int8),
+                                vid.long(), 8, 4096)
+    k3a = sr.block_stats(vals.double(), mask.to(torch.int8), 4096)
+    torch.cuda.synchronize()
+    assert sr.COUNTS["banked_vec4_launches"] == 1
+    assert sr.COUNTS["vec4_launches"] == 1
+    assert sr.plan_banked(2 ** 18, 4096, 8, True, n_sm).ctas >= n_sm
+    _stats_equal(ker, sr.block_stats_banked_torch(vals, mask, vid, 8, 4096))
+    _stats_equal(k3a, sr.block_stats_torch(vals, mask, 4096))
 
 
 @pytest.mark.parametrize("b,u,c", [
