@@ -12,7 +12,8 @@ K9 ``flash_attention.cu``.  Holds each kernel against its plain-torch
 twin on the card at the main paths' shapes (and ragged ones; K5-K9 also
 in f16 and bf16; K1 on every cluster size of its plans, at the main-path
 chunk and on a bank past four slots, every candidate position equal to
-the twin's; K2 on its vec4 and scalar routes, int32 and int64 (past
+the twin's, and with the metric NaN at most or all points of a chunk,
+NaN candidates bit-equal; K2 on its vec4 and scalar routes, int32 and int64 (past
 2^31 and 2^32), across variants and past the end, on 1 and 16 axes;
 K3a on every cluster size, on its vec4 and scalar routes, also with NaN
 and +-inf; K3b on every cluster size, route and variant tile, on K2's
@@ -36,6 +37,13 @@ read just after:
   the host syncs of ``pipeline_depth=1`` counted exactly;
 * staged — the same space through K2 -> banked evaluator -> K3a, equal
   to the fused result;
+* campaign — the same space as a checkpointed campaign of 12 shards
+  (``repro_torch.campaign``): serial through K1 (equal to fused, one
+  stream preparation), ``workers=2`` with a worker killed and the
+  campaign killed after 4 shards, then resumed (only the missing ranges
+  dispatched; equal to the serial campaign bit for bit; one preparation
+  a worker), and staged shards (equal to fused); the ``campaign_path``
+  line;
 * chunked (through ``auto``) — Ed-Gaze over the mega grids without
   ``active_fraction_scale`` (1.57e6 points) through K4, equal to fused;
 * monolithic (through ``auto``) — the ``design_sweep`` grids of
@@ -85,7 +93,8 @@ K1, K3a, K3b (2^18 points on three id layouts, 2^24 points and one block
 of 512), K2 (int32, int64 and at a chunk of 4) and K7 (f32, bf16 and a
 frame of one 16-byte vector)), on this checkout or on
 the one whose ``src/`` is given with ``--src``, to hold two trees side by
-side.  It imports nothing of ``jax`` or of the
+side, and the ``sweep_probe`` line: that tree's fused and staged eval_s
+on mega_sweep.  It imports nothing of ``jax`` or of the
 JAX package ``repro``.  A ``torch.profiler`` pass over one sweep of each
 engine (and one pass of the functional pipelines) reports device time
 by kernel and the device's busy share, and writes chrome traces to
@@ -439,6 +448,56 @@ def synthetic_case(fs):
     torch.cuda.synchronize()
     twin = fs.fused_sweep_block_torch(table2, row, 0, 0, len(grid), **kw)
     return compare_blocks("synthetic_L2_D3", ker, twin)
+
+
+def nan_case(fs, prep, compute, *, name, variant, nan_values, start, low,
+             limit, chunk, bp, kk):
+    """K1 vs its twin where the metric is NaN at some points (F5): the
+    variant's ``active_fraction_scale`` values at ``nan_values`` (an axis
+    that scales memory energy and no time, so the points stay feasible)
+    set, in the axis table both read, to the NaN the card's arithmetic
+    makes (0x7fffffff).  A NaN ranks above +inf (a masked point) and the
+    pad pair above it, in the twin's total order and the kernel's keys:
+    positions equal everywhere, NaN candidates bit-equal, finite ones at
+    rel 1e-6, counts exact."""
+    table2 = prep.table2.clone()
+    axis = list(prep.vgrids[0].names).index("active_fraction_scale")
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)
+    for j in nan_values:
+        table2[axis, variant * prep.lmax + j] = nan[0]
+    kw = dict(compute=compute, metric="total_j",
+              axis_names=tuple(prep.vgrids[0].names),
+              shape=prep.vgrids[0].shape, n_var=prep.n_var,
+              total=prep.total, chunk=chunk, lmax=prep.lmax,
+              block_points=bp, kk=kk)
+    row = prep.bank.fused[variant]
+    ker = fs.fused_sweep_block(table2, row, start, low, limit, **kw)
+    torch.cuda.synchronize()
+    twin = fs.fused_sweep_block_torch(table2, row, start, low, limit, **kw)
+    kv, kl, ks, kc = (t.cpu().numpy() for t in ker)
+    tv, tl, ts, tc = (t.cpu().numpy() for t in twin)
+    tnan = np.isnan(tv)
+    check(np.array_equal(np.isnan(kv), tnan), f"{name}: NaN pattern")
+    check(bool(tnan.any()), f"{name}: no NaN candidate")
+    check(np.array_equal(kv[tnan].view(np.uint32), tv[tnan].view(np.uint32)),
+          f"{name}: NaN candidates' bits differ")
+    check(np.array_equal(kl, tl), f"{name}: candidate positions differ")
+    check(np.array_equal(kc, tc), f"{name}: counts differ")
+    check(np.array_equal(np.isnan(ks), np.isnan(ts)), f"{name}: NaN sums")
+    fin = np.isfinite(tv)
+    check(np.array_equal(np.isfinite(kv), fin), f"{name}: +inf pattern")
+    abs_err = np.abs(kv[fin].astype(np.float64) - tv[fin])
+    rel_err = abs_err / np.maximum(np.abs(tv[fin]), 1e-300)
+    max_rel = float(rel_err.max()) if rel_err.size else 0.0
+    check(max_rel <= REL, f"{name}: cand_v rel err {max_rel}")
+    rec = dict(case=name, blocks=int(kv.shape[0]), kk=int(kv.shape[1]),
+               nan_candidates=int(tnan.sum()), finite=int(fin.sum()),
+               nan_bits=sorted({hex(b) for b in tv[tnan].view(np.uint32)}),
+               feasible=float(tc.sum()),
+               max_abs_err=float(abs_err.max()) if abs_err.size else 0.0,
+               max_rel_err=max_rel)
+    emit({"kernel_vs_twin_nan": rec})
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -929,6 +988,148 @@ def compare_results(name, a, b):
             err = abs(sa[key] - sb[key]) / max(abs(sb[key]), 1e-300)
             check(err <= tol, f"{name}: {label}.{key} rel err {err}")
     return worst
+
+
+def campaign_path(space, res, fs, kernel_mods, smi) -> dict:
+    """P9 at full width: mega_sweep as a checkpointed campaign of 12
+    shards (the default 4 chunks each, straddling variant boundaries),
+    K1 in every shard.
+
+    1. serial, held to the straight fused ``res`` by the engine rule;
+    2. ``workers=2``, one worker SIGKILLed with a shard in flight
+       (``KillWorker``, retried) and the campaign killed after 4
+       completed shards (``kill_after``), then resumed with
+       ``workers=2``: the resume dispatches only the missing ranges and
+       equals step 1 bit for bit (top-k rows and summaries);
+    3. staged (K2 -> banked evaluator -> K3a), held to the fused one.
+
+    Each step runs with the counters zeroed just before it and read just
+    after; workers report their own (one prep each)."""
+    import shutil
+    import tempfile
+    from repro_torch.campaign import (CampaignOptions, FaultSchedule,
+                                      KillCampaign, KillWorker,
+                                      missing_ranges, plan_shards, resume)
+    from repro_torch.core.shard_sweep import (stream_cache_clear,
+                                              stream_cache_info)
+    from repro_torch.explore import explore
+    root = Path(__file__).resolve().parent / "build" / "campaigns"
+    root.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root))
+    try:
+        kw = dict(engine="fused", chunk_size=CHUNK, k=3)
+        reset_all(kernel_mods)
+        stream_cache_clear()
+        t0 = time.perf_counter()
+        serial = explore(space, checkpoint_dir=str(work / "serial"), **kw)
+        serial_wall = time.perf_counter() - t0
+        rep = serial.campaign
+        serial_counts = stream_cache_info()
+        plan = plan_shards(MEGA_POINTS, 4 * CHUNK)
+        check(rep["n_planned"] == len(plan) == 12 and not rep["partial"]
+              and rep["n_executed"] == 12, f"serial campaign: {rep}")
+        check(serial_counts["preps"] == 1,
+              f"serial campaign: {serial_counts['preps']} preparations")
+        check(serial_counts["kernel_launches"] > 0
+              and serial_counts["twin_calls"] == 0,
+              f"serial campaign counters {serial_counts}")
+        serial_worst = compare_results("campaign_vs_fused", serial, res)
+
+        # 2. workers=2: a worker dies with shard 1 in flight, then the
+        # campaign is killed after 4 completed shards, then resumed
+        faults = FaultSchedule({(plan[1][0], 1): KillWorker("drill")},
+                               kill_after=4)
+        reset_all(kernel_mods)
+        stream_cache_clear()
+        t0 = time.perf_counter()
+        try:
+            explore(space, checkpoint_dir=str(work / "parallel"), workers=2,
+                    campaign=CampaignOptions(faults=faults), **kw)
+            raise AssertionError("the kill_after drill did not kill")
+        except KillCampaign:
+            pass
+        killed_wall = time.perf_counter() - t0
+        done = sorted((int(f.stem.split("_")[1]), int(f.stem.split("_")[2]))
+                      for f in (work / "parallel" / "shards").glob("*.json"))
+        check(len(done) == 4, f"killed campaign checkpointed {done}")
+        t0 = time.perf_counter()
+        par = resume(str(work / "parallel"), workers=2)
+        resume_wall = time.perf_counter() - t0
+        prep = par.campaign
+        parent_counts = stream_cache_info()
+        ran = sorted((e["lo"], e["hi"]) for e in prep["executed"]
+                     if e["status"] == "ok")
+        check(ran == missing_ranges(plan, done),
+              f"resume dispatched {ran}, missing {missing_ranges(plan, done)}")
+        check(prep["resumed"] and prep["n_loaded"] == 4
+              and not prep["partial"], f"resumed campaign: {prep}")
+        check(set(prep["worker_preps"]) == {1},
+              f"worker preparations {prep['worker_preps']}")
+        check(not any(prep["worker_modules"].values()),
+              f"workers loaded {prep['worker_modules']}")
+        check(parent_counts["preps"] == 0
+              and parent_counts["kernel_launches"] == 0,
+              f"the parallel parent ran shards itself: {parent_counts}")
+        worker_launches = sum(c["kernel_launches"]
+                              for c in prep["worker_counters"].values())
+        check(worker_launches > 0, "resumed workers launched no K1")
+        check(par.topk == serial.topk
+              and json.dumps(par.summaries) == json.dumps(serial.summaries)
+              and (par.n_points, par.n_feasible)
+              == (serial.n_points, serial.n_feasible),
+              "killed-and-resumed workers=2 campaign != serial campaign")
+
+        # 3. staged shards
+        reset_all(kernel_mods)
+        stream_cache_clear()
+        t0 = time.perf_counter()
+        staged = explore(space, engine="staged", chunk_size=CHUNK, k=3,
+                         checkpoint_dir=str(work / "staged"))
+        staged_wall = time.perf_counter() - t0
+        staged_counts = stream_cache_info()
+        staged_launches = {m.__name__.rsplit(".", 1)[1]:
+                           m.COUNTS["kernel_launches"] for m in kernel_mods
+                           if m.__name__.rsplit(".", 1)[1]
+                           in ("grid_decode", "stream_reduce")}
+        check(staged_counts["preps"] == 1 and not staged.campaign["partial"]
+              and all(staged_launches.values()),
+              f"staged campaign: {staged_counts} {staged_launches}")
+        staged_worst = compare_results("staged_campaign_vs_fused", staged,
+                                       res)
+        line = {
+            "nvidia_smi": smi[0] if smi else None,
+            "points": serial.n_points, "shards": rep["n_planned"],
+            "serial": {
+                "wall_s": serial_wall, "report_wall_s": rep["wall_s"],
+                "dispatches": serial.dispatches,
+                "k1_launches": serial_counts["kernel_launches"],
+                "preps": serial_counts["preps"], "io_s": rep["io_s"],
+                "io_overlap_frac": rep["io_overlap_frac"],
+                "eval_s": serial.eval_s,
+                "vs_fused_max_rel_err": serial_worst},
+            "workers2_killed": {"wall_s": killed_wall,
+                                "shards_checkpointed": len(done)},
+            "workers2_resumed": {
+                "wall_s": resume_wall, "report_wall_s": prep["wall_s"],
+                "shards_run": len(ran),
+                "dispatches": sum(c["dispatches"] for c in
+                                  prep["worker_counters"].values()),
+                "k1_launches": worker_launches,
+                "worker_preps": prep["worker_preps"],
+                "parent_preps": parent_counts["preps"],
+                "worker_startup_s": prep["worker_startup_s"],
+                "dispatch_wait_s": prep["dispatch_wait_s"],
+                "bit_equal_to_serial": True},
+            "staged": {"wall_s": staged_wall,
+                       "dispatches": staged.dispatches,
+                       "launches": staged_launches,
+                       "preps": staged_counts["preps"],
+                       "vs_fused_max_rel_err": staged_worst},
+        }
+        emit({"campaign_path": line})
+        return line
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def profile_path(name, run) -> dict:
@@ -1867,7 +2068,23 @@ def probe_main() -> int:
     prep = _prepare_stream(["edgaze", "rhythmic"], MEGA_GRIDS, device="cuda")
     launch_probe(kmods, headline_calls(
         kmods, prep, build_coeff_compute(prep.bank.dims)))
+    emit({"sweep_probe": sweep_probe()})
     return 0
+
+
+def sweep_probe(reps: int = 5) -> dict:
+    """The fused and staged engines' eval_s on mega_sweep (after one
+    warm-up each; ``reps`` fused runs, 3 staged), sorted: the host path
+    of the checkout in use, for ``--launch-probe``'s side-by-side runs."""
+    from repro_torch.explore import DesignSpace, explore
+    space = DesignSpace(["edgaze", "rhythmic"], MEGA_GRIDS)
+    out = {"src": str(source_dir())}
+    for engine, n in (("fused", reps), ("staged", 3)):
+        explore(space, engine=engine, chunk_size=CHUNK, k=3)
+        out[f"{engine}_eval_s"] = sorted(
+            explore(space, engine=engine, chunk_size=CHUNK, k=3).eval_s
+            for _ in range(n))
+    return out
 
 
 def matmul_probe(mm, events, w1, hidden, w2, big_a, big_b):
@@ -2251,6 +2468,18 @@ def main() -> int:
                          limit=WIDE_POINTS, chunk=CHUNK, bp=4096, kk=4,
                          idx_dtype=torch.int64))
     recs += fused_plan_cases(fs, prep, compute)
+    # F5: NaN metrics. Four of five active_fraction_scale values NaN with
+    # blocks of 16 (a few finite points a block, masked ones at either
+    # end); then every value NaN at the main-path chunk
+    recs.append(nan_case(fs, prep, compute, name="nan_most_points",
+                         variant=3, nan_values=(1, 2, 3, 4),
+                         start=3 * n_var + 999, low=3 * n_var + 1005,
+                         limit=3 * n_var + 999 + 4000, chunk=4096, bp=16,
+                         kk=8))
+    recs.append(nan_case(fs, prep, compute, name="nan_all_points",
+                         variant=5, nan_values=range(5),
+                         start=5 * n_var + CHUNK, low=0, limit=6 * n_var,
+                         chunk=CHUNK, bp=4096, kk=3))
 
     k2 = decode_cases(gd, prep, wide)
     vals, mask = stats_inputs(CHUNK, 1, empty_block=(5 * 4096, 6 * 4096))
@@ -2421,6 +2650,9 @@ def main() -> int:
         "twin_calls": st_counts["twins"], "host_syncs": st_syncs,
         "event_waits_counted": st_waits,
         "vs_fused_max_rel_err": st_worst}})
+
+    # ----- 4b. campaigns at full width: fused shards on K1 ------------------
+    camp = campaign_path(space, res, fs, kernel_mods, smi)
 
     # ----- 5. chunked through auto: K4 --------------------------------------
     ch_space = DesignSpace(["edgaze"], CHUNKED_GRIDS)
@@ -2605,6 +2837,9 @@ def main() -> int:
                               n_var, prep.table2.shape[1] // prep.lmax,
                               k1_plan)._asdict(),
         "kk16": k1_kk16,
+        "campaign_launches": camp["serial"]["k1_launches"]
+        + camp["workers2_resumed"]["k1_launches"],
+        "nan_cases": [r for r in recs if "nan_candidates" in r],
         "probe": probe["fused_sweep_kk3"]["by_cluster"],
         "power_limit": power,
     }]

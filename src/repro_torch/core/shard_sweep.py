@@ -28,9 +28,13 @@ Torch counterpart of the reference's streaming engines
    rows through the coefficient-form compute.
 
 On a CUDA device the kernels run; on the CPU their plain-torch twins.
+Every top-k ranks in IEEE total order, as the reference's
+``lax.top_k(-x)`` does (:func:`~repro_torch.kernels.fused_sweep.
+sort_total`: a sign-bit NaN first, a positive NaN after ``+inf``).
 Ties break to the lowest flat index everywhere (stable sorts), and flat
-indices widen to int64 when ``total + chunk >= 2**31``.  There is no
-device mesh and no campaign layer yet (ROADMAP Queue 1).
+indices widen to int64 when ``total + chunk >= 2**31``.  Campaign shards
+(``repro_torch.campaign``) enter through ``_stream_impl(index_range=,
+_prepared=)``.  There is no device mesh yet (ROADMAP P8).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch
 
 from ..kernels.fused_sweep import (COUNTS, fused_sweep_block,
                                    fused_sweep_block_torch,
-                                   load_kernel_library, reset_counts)
+                                   load_kernel_library, reset_counts,
+                                   sort_total)
 from ..kernels.grid_decode import grid_decode
 from ..kernels.runtime import resolve_backend, resolve_device
 from ..kernels.stream_reduce import block_stats
@@ -58,22 +63,25 @@ from .plan_bank import PlanBank, build_plan_bank
 #: default number of chunk ordinals per dispatch
 _DEFAULT_SUPERCHUNK = 16
 
-#: superchunk dispatches since the last :func:`stream_cache_clear`
-_STATS = {"dispatches": 0}
+#: superchunk dispatches and stream preparations (:func:`_prepare_stream`)
+#: since the last :func:`stream_cache_clear`
+_STATS = {"dispatches": 0, "preps": 0}
 
 
 def stream_cache_info() -> Dict[str, int]:
-    """Counters of the streaming engine: CUDA kernel launches, torch-twin
-    calls and superchunk dispatches since :func:`stream_cache_clear`."""
+    """Counters of the streaming engine since :func:`stream_cache_clear`:
+    K1 launches, twin calls, superchunk dispatches and stream
+    preparations (lowering, bank and tables; a campaign makes one in its
+    process, or one per worker, and hands it to every shard)."""
     return dict(kernel_launches=COUNTS["kernel_launches"],
                 twin_calls=COUNTS["twin_calls"],
-                dispatches=_STATS["dispatches"])
+                dispatches=_STATS["dispatches"], preps=_STATS["preps"])
 
 
 def stream_cache_clear() -> None:
     """Zero every counter of :func:`stream_cache_info`."""
     reset_counts()
-    _STATS["dispatches"] = 0
+    _STATS["dispatches"] = _STATS["preps"] = 0
 
 
 def _validate_index_range(index_range, total: int) -> Tuple[int, int]:
@@ -143,7 +151,7 @@ def _fold_chunk(cv, cl, sums, counts, s0: int, bp: int, kk: int,
                 idx_dtype) -> Dict[str, torch.Tensor]:
     """Fold one chunk's ``(G, kk)`` block candidates to its top-kk and
     its first-minimum block (the reference's shard-level fold)."""
-    vals, pos = torch.sort(cv.reshape(-1), stable=True)
+    vals, pos = sort_total(cv.reshape(-1))
     pos = pos[:kk]
     blk = torch.div(pos, kk, rounding_mode="floor").to(idx_dtype)
     cand_i = blk * bp + cl.reshape(-1).index_select(0, pos).to(idx_dtype) \
@@ -167,7 +175,7 @@ def _merge_candidates(c: Dict[str, torch.Tensor], v: int,
     of the chunk's, so equal values keep the lowest flat index.
     """
     merged_v = torch.cat([state["topk_v"], c["cand_v"]])
-    vals, sel = torch.sort(merged_v, stable=True)
+    vals, sel = sort_total(merged_v)
     sel = sel[:k]
     state["topk_i"] = torch.cat([state["topk_i"], c["cand_i"]])[sel]
     state["topk_v"] = vals[:k]
@@ -204,10 +212,9 @@ def _staged_chunk(prep: "_StreamPrep", eval_uniform, start: int,
     g = torch.argmin(mins).view(1)
     amin_i = (g.to(torch.int32) * bp
               + amins.index_select(0, g)).to(idx_dtype)[0] + start
-    # ascending, invalid +inf; the stable sort keeps the lower index on
-    # ties, as the reference's lax.top_k
-    cand_v, pos = torch.sort(torch.where(ok, metric_v, torch.inf),
-                             stable=True)
+    # ascending in total order, invalid +inf; ties keep the lower index,
+    # as the reference's lax.top_k(-x)
+    cand_v, pos = sort_total(torch.where(ok, metric_v, torch.inf))
     pos = pos[:kk]
     return dict(
         cand_v=cand_v[:kk], cand_i=flat[pos],
@@ -261,6 +268,7 @@ def _prepare_stream(algorithm: Union[str, Sequence[str]] = "edgaze",
     n_var = len(vgrids[0])
     n_variants = len(plans)
     tables = axis_tables(vgrids)
+    _STATS["preps"] += 1
     return _StreamPrep(
         algos=algos, labels=labels, valgos=valgos, vnames=vnames,
         vgrids=vgrids, n_var=n_var, n_variants=n_variants,
@@ -452,7 +460,8 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  superchunk: Optional[int] = None, backend: str = "auto",
                  engine: str = "fused", device="cuda",
                  progress: Optional[Callable[[int, int], None]] = None,
-                 pipeline_depth: int = 4) -> StreamResult:
+                 pipeline_depth: int = 4,
+                 _prepared: Optional[_StreamPrep] = None) -> StreamResult:
     """Stream a cartesian sweep of any size through the fused megakernel
     (``engine="fused"``) or the staged pipeline (``engine="staged"``).
 
@@ -475,6 +484,11 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     CUDA device each dispatch records an event, and the host waits on
     the oldest once more than ``pipeline_depth`` are in flight, so it
     never runs unboundedly ahead of the card (a wait copies no data).
+
+    ``_prepared`` is the campaign runner's hoist hook: a
+    :class:`_StreamPrep` built once on ``device`` for the SAME
+    ``(algorithm, grids, soc_node)`` skips the per-call lowering, bank
+    build and table transpose (callers are responsible for that match).
     """
     t_start = time.perf_counter()
     if engine not in ("fused", "staged"):
@@ -495,8 +509,9 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                        f"{list(OUT_KEYS)}")
 
     t0 = time.perf_counter()
-    prep = _prepare_stream(algorithm, grids, soc_node=soc_node,
-                           device=device)
+    prep = (_prepared if _prepared is not None
+            else _prepare_stream(algorithm, grids, soc_node=soc_node,
+                                 device=device))
     if engine == "fused" and backend == "cuda":
         load_kernel_library()          # first use builds it: set-up time
     n_var, n_variants, total = prep.n_var, prep.n_variants, prep.total

@@ -1,4 +1,5 @@
-# Verbatim copy of src/repro/core/usecases/study.py (jax-free model layer).
+# Copy of src/repro/core/usecases/study.py (jax-free model layer), with one
+# change: run_study takes device= (default "cuda") and passes it to explore().
 """Run the Sec. 6 studies: energy tables (Fig. 9/11) + power density (Tbl. 3).
 
 ``run_study`` rides the batched energy engine through the declarative
@@ -37,7 +38,7 @@ def _variants(algorithm: str):
 
 def run_study(algorithm: str, cis_nodes=(130, 65), soc_node: int = 22,
               strict: bool = False, engine: str = "batched",
-              chunk_size=None, mesh=None) -> List[Dict]:
+              chunk_size=None, mesh=None, device="cuda") -> List[Dict]:
     """Evaluate every variant x CIS node for one algorithm.
 
     Returns rows with total energy, category breakdown and power density.
@@ -45,7 +46,9 @@ def run_study(algorithm: str, cis_nodes=(130, 65), soc_node: int = 22,
     variant; ``engine="scalar"`` walks the Python stage objects per cell.
     ``chunk_size``/``mesh`` pass through to ``sweep()`` for chunked /
     device-sharded evaluation (irrelevant at study sizes, but the study
-    rides the same code path the mega-sweeps exercise).
+    rides the same code path the mega-sweeps exercise).  ``device``
+    (batched engine) is where the sweep runs: ``"cuda"`` unless the
+    caller asks for ``"cpu"``.
     """
     if engine == "scalar":
         return _run_study_scalar(algorithm, cis_nodes, soc_node, strict)
@@ -58,7 +61,7 @@ def run_study(algorithm: str, cis_nodes=(130, 65), soc_node: int = 22,
                         soc_node=soc_node)
     res = explore(space, engine=("chunked" if chunk_size else "monolithic"),
                   chunk_size=chunk_size, mesh=mesh,
-                  strict=strict).sweep_results[algorithm]
+                  strict=strict, device=device).sweep_results[algorithm]
     rows = []
     for node in cis_nodes:
         for variant in _variants(algorithm):

@@ -549,22 +549,26 @@ __device__ __forceinline__ float evaluate(const SweepParams& p,
   return power / nmax(area, 1e-9f);     // O_DENSITY
 }
 
-// A float's bits as an unsigned key in the float order (-0 taken as +0,
-// as the (value, position) compare takes them equal; NaN above +inf), so
-// (key, position) pairs order as (value, position) pairs and one
-// redux.sync finds a warp's least key.
+// A float's bits as an unsigned key in IEEE total order (a sign-bit NaN
+// below -inf, -0 below +0, a positive NaN above +inf: the order of the
+// reference's lax.top_k(-x)), so (key, position) pairs order as the
+// reference ranks and one redux.sync finds a warp's least key.  The bits
+// go in unchanged: an arithmetic op would canonicalize a NaN's sign.
 __device__ __forceinline__ unsigned key_of(float v) {
-  const unsigned b = __float_as_uint(v + 0.f);
+  const unsigned b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 __device__ __forceinline__ float value_of(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
-// the sentinel (+inf, INT32_MAX) that pads an exhausted list
-constexpr unsigned kSentKey = 0xff800000u;   // key_of(+inf)
-constexpr unsigned kSentPos = 0x7fffffffu;
-constexpr unsigned long long kSentPair =
-    ((unsigned long long)kSentKey << 32) | kSentPos;
+// a masked point's key: +inf, at its own position
+constexpr unsigned kInfKey = 0xff800000u;   // key_of(+inf)
+// the pair that pads an exhausted list, above every real pair (a positive
+// NaN's key reaches 0xffffffff, but a position stays below 2^31); it is
+// written out as (+inf, 0)
+constexpr unsigned kNoneKey = 0xffffffffu;
+constexpr unsigned kNonePos = 0xffffffffu;
+constexpr unsigned long long kNonePair = ~0ull;
 
 // Every lane ends with the warp's least (key, position) pair.
 __device__ __forceinline__ void warp_least(unsigned& k, unsigned& q) {
@@ -584,8 +588,8 @@ __device__ __forceinline__ void warp_merge(const unsigned* lk,
   int head = 0;
   for (int j = 0; j < n; ++j) {
     const bool has = head < len;
-    unsigned k = has ? lk[head] : kSentKey;
-    unsigned q = has ? lq[head] : kSentPos;
+    unsigned k = has ? lk[head] : kNoneKey;
+    unsigned q = has ? lq[head] : kNonePos;
     const unsigned mk = k, mq = q;
     warp_least(k, q);
     if (has && mk == k && mq == q) ++head;
@@ -772,8 +776,8 @@ fused_sweep_kernel(const float* __restrict__ table2,
 
   // the CTA's running candidates start empty
   for (int j = tid; j < p.kc; j += kThreads) {
-    s_ck[j] = kSentKey;
-    s_cq[j] = kSentPos;
+    s_ck[j] = kNoneKey;
+    s_cq[j] = kNonePos;
   }
   float tsum = 0.f, tcnt = 0.f;
   int v_lo = -1, n_v = 0;          // the variants staged in shared memory
@@ -804,7 +808,7 @@ fused_sweep_kernel(const float* __restrict__ table2,
       const int qr = i * kThreads + tid;
       if (qr >= n_pass) break;
       const IdxT pos = first + (IdxT)qr;
-      unsigned key = kSentKey;
+      unsigned key = kInfKey;
       if (pos < chunk) {
         const IdxT o = start + pos;
         const bool valid = o >= low && o < limit;
@@ -822,7 +826,7 @@ fused_sweep_kernel(const float* __restrict__ table2,
     {
       unsigned long long last = 0;    // below every (key, position) pair
       for (int j = 0; j < p.kw; ++j) {
-        unsigned long long best = kSentPair;   // none left: the sentinel
+        unsigned long long best = kNonePair;   // none left: the pad pair
         for (int i = 0; i < p.ppt; ++i) {
           const int qr = i * kThreads + tid;
           if (qr >= n_pass) break;
@@ -836,7 +840,8 @@ fused_sweep_kernel(const float* __restrict__ table2,
           s_wk[warp * p.kw + j] = k;
           s_wq[warp * p.kw + j] = q;
         }
-        last = (((unsigned long long)k << 32) | q) + 1;
+        const unsigned long long got = ((unsigned long long)k << 32) | q;
+        last = got == kNonePair ? got : got + 1;   // no wrap past the pad
       }
     }
     __syncthreads();
@@ -901,8 +906,9 @@ fused_sweep_kernel(const float* __restrict__ table2,
       warp_merge(s_gk + (own ? lane * p.kc : 0),
                  s_gq + (own ? lane * p.kc : 0), own ? p.kc : 0, p.kout,
                  [&](int j, unsigned k, unsigned q) {
-                   cand_v[at + j] = value_of(k);
-                   cand_l[at + j] = q == kSentPos ? 0 : (int)q;
+                   const bool none = q == kNonePos;
+                   cand_v[at + j] = value_of(none ? kInfKey : k);
+                   cand_l[at + j] = none ? 0 : (int)q;
                  });
       if (lane == 0) {
         float s = 0.f, c = 0.f;

@@ -87,6 +87,9 @@ class ExploreResult:
     #: the grid engines
     backend: Optional[str] = None
     device: str = ""
+    #: campaign report dict (shards executed / retried / quarantined,
+    #: coverage) when the result came from a checkpointed campaign run
+    campaign: Optional[Dict] = None
 
     def __len__(self) -> int:
         return self.n_points
@@ -266,9 +269,19 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
     device, ``torch`` on the CPU; ``REPRO_TORCH_SWEEP_BACKEND`` overrides
     the auto policy).
 
-    ``mesh``, ``checkpoint_dir``, ``campaign``, ``workers`` and
-    ``service`` are the reference's multi-device, campaign and serving
-    layers; they raise ``NotImplementedError`` until ported.
+    ``checkpoint_dir`` makes the call a durable CAMPAIGN on ``device``:
+    the sweep is sharded, each shard checkpointed with retry/split/
+    quarantine fault handling, and a killed run resumes from the same
+    directory dispatching only what's missing (see
+    :mod:`repro_torch.campaign`).  ``campaign`` optionally passes a
+    :class:`~repro_torch.campaign.CampaignOptions`; the campaign report
+    lands on ``result.campaign``.  ``workers`` (campaigns only) runs
+    shards on that many persistent worker processes with overlapped
+    checkpoint I/O — default 1 (serial; ``REPRO_TORCH_CAMPAIGN_WORKERS``
+    overrides the default).
+
+    ``mesh`` and ``service`` are the reference's multi-device and
+    serving layers; they raise ``NotImplementedError`` until ported.
     """
     if not isinstance(space, DesignSpace):
         raise TypeError(f"explore() takes a DesignSpace, got "
@@ -280,14 +293,31 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
     _validate_request(k, chunk_size)
     for name, val, item in (
             ("mesh", mesh, "P8 (multi-device sweeps)"),
-            ("checkpoint_dir", checkpoint_dir, "P9 (campaigns)"),
-            ("campaign", campaign, "P9 (campaigns)"),
-            ("workers", workers, "P9 (campaigns)"),
             ("service", service, "P10 (serving)")):
         if val is not None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP "
                 f"{item})")
+    if checkpoint_dir is not None or campaign is not None \
+            or workers is not None:
+        if checkpoint_dir is None:
+            name = "campaign=" if campaign is not None else "workers="
+            raise ValueError(f"{name} options require checkpoint_dir= "
+                             f"(the campaign's durable state directory)")
+        for name, val in (("strict", strict or None),
+                          ("index_range", index_range),
+                          ("progress", progress)):
+            if val is not None:
+                raise ValueError(f"{name}= is incompatible with "
+                                 f"checkpoint_dir= (the campaign plans "
+                                 f"its own shard index ranges)")
+        from ..campaign import run_campaign
+        return run_campaign(space, checkpoint_dir, k=k, metric=metric,
+                            engine=engine, chunk_size=chunk_size,
+                            superchunk=superchunk,
+                            block_points=block_points, backend=backend,
+                            workers=workers, options=campaign,
+                            device=device)
     engine = _resolve_engine(engine, space, chunk_size, index_range)
 
     if engine in ("monolithic", "chunked"):
@@ -315,13 +345,23 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         block_points=block_points, index_range=index_range,
         superchunk=superchunk, backend=backend, engine=engine,
         device=device, progress=progress, pipeline_depth=pipeline_depth)
+    return _stream_to_explore(space, st, wall_s=time.perf_counter() - t0,
+                              device=device)
+
+
+def _stream_to_explore(space: DesignSpace, st: StreamResult, *,
+                       wall_s: Optional[float] = None,
+                       campaign: Optional[Dict] = None,
+                       device="cuda") -> ExploreResult:
+    """Wrap a (possibly merged) :class:`StreamResult` as the unified
+    :class:`ExploreResult` surface."""
     return ExploreResult(
         space=space, engine=st.engine, metric=st.metric, k=st.k,
         n_points=st.n_points, n_feasible=st.n_feasible,
         n_variants=st.n_variants, n_devices=st.n_devices,
         chunk_size=st.chunk_size, topk=st.topk, summaries=st.summaries,
-        wall_s=time.perf_counter() - t0, compile_s=st.compile_s,
-        eval_s=st.eval_s, dispatches=st.dispatches,
-        superchunk=st.superchunk, occupancy=st.occupancy,
-        cache=_cache_snapshot(), stream_result=st, backend=st.backend,
-        device=str(device))
+        wall_s=st.wall_s if wall_s is None else wall_s,
+        compile_s=st.compile_s, eval_s=st.eval_s,
+        dispatches=st.dispatches, superchunk=st.superchunk,
+        occupancy=st.occupancy, cache=_cache_snapshot(), stream_result=st,
+        backend=st.backend, device=str(device), campaign=campaign)

@@ -10,8 +10,9 @@ block of ``block_points`` flat stream indices ``[start, start + chunk)``:
 2. **evaluate** — the chunk's fused ``(W,)`` coefficient row through the
    coefficient-form Eq. 1-17 physics (``repro_torch.core.batch``);
 3. **reduce** — the block's ``kk`` smallest masked metric values with
-   their block-local positions (ascending, ties to the lowest position,
-   +inf padded), the masked metric sum and the feasible count.
+   their block-local positions (ascending in IEEE total order, as
+   :func:`sort_total` ranks; ties to the lowest position, +inf padded),
+   the masked metric sum and the feasible count.
 
 A point counts iff ``low <= flat < limit`` and it lies inside this call's
 ``chunk`` span; tail indices clamp to ``total - 1`` before decoding.
@@ -96,6 +97,23 @@ _CTAS_PER_SM = 1
 _KNOT_WORDS, _DECL_WORDS, _NODE_KINDS = 4 * 4 * _MAX_KNOTS, 5 * _MAX_SLOTS, 4
 #: registry axes whose values the kernel tables (AXES order)
 _CIS, _SOC, _ROWS, _COLS, _ADC = 0, 1, 3, 4, 9
+
+
+def sort_total(x: torch.Tensor, dim: int = -1
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable ascending sort of f32 ``x`` along ``dim`` in IEEE total order:
+    a sign-bit NaN below ``-inf``, ``-0`` below ``+0``, a positive NaN
+    above ``+inf``; equal values keep their order.
+
+    This is the order of the reference's ``lax.top_k(-x)`` (which ranks
+    the total order of ``-x``) and of K1's ``key_of``; ``torch.sort``
+    alone puts every NaN last and ``-0`` level with ``+0``.  Returns the
+    values (the input's bits, NaN payloads included) and their indices.
+    """
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    _, pos = torch.sort(key, dim=dim, stable=True)
+    return torch.gather(x, dim, pos), pos
 
 
 def reset_counts() -> None:
@@ -266,9 +284,9 @@ def fused_sweep_block_torch(table2: torch.Tensor, row: torch.Tensor, start,
     mv = out[metric].to(torch.float32)
 
     masked = torch.where(ok, mv, torch.inf).reshape(nb, bp)
-    # stable sort: equal values keep the lower position, like the
-    # reference's lax.top_k and the kernel's (value, position) argmin
-    cand_v, cand_l = torch.sort(masked, dim=1, stable=True)
+    # total order, stable: equal values keep the lower position, like the
+    # reference's lax.top_k(-x) and the kernel's (key, position) argmin
+    cand_v, cand_l = sort_total(masked, dim=1)
     cand_v, cand_l = cand_v[:, :kk], cand_l[:, :kk].to(torch.int32)
     if kk > bp:                 # pad contract: (G, kk) even for tiny blocks
         pad = kk - bp

@@ -13,6 +13,10 @@ with the port's two execution backends:
 on the CPU.  The ``REPRO_TORCH_SWEEP_BACKEND`` environment variable
 overrides the auto policy; an explicit ``backend=`` argument always wins
 over the environment.
+
+:func:`init_worker_process` sets up a campaign worker process: its CUDA
+device and the kernel libraries its shards launch
+(:func:`load_sweep_kernels`).
 """
 from __future__ import annotations
 
@@ -90,4 +94,33 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}; valid: "
                          f"'cuda[:N]' or 'cpu'")
+    return device
+
+
+def load_sweep_kernels(engine: str, backend: str) -> None:
+    """Build (one nvcc a source, all at once) and load the kernel
+    libraries a streaming sweep launches on the ``cuda`` backend: K1 for
+    the fused engine, K2 and K3a for the staged one; none on the twins.
+    The wrappers' loaders check each library's ABI."""
+    if backend != "cuda":
+        return
+    import importlib
+
+    from .cuda_build import build_libraries
+    names = (("fused_sweep",) if engine == "fused"
+             else ("grid_decode", "stream_reduce"))
+    build_libraries(names)
+    for name in names:
+        importlib.import_module(f"{__package__}.{name}").load_kernel_library()
+
+
+def init_worker_process(device, engine: str, backend: str) -> torch.device:
+    """Runtime set-up of a campaign worker process (spawned, so it starts
+    with no CUDA state): resolves ``device`` (a CUDA request without a
+    GPU raises; there is no CPU fallback), makes it the process's current
+    CUDA device and loads the kernels the shards will launch."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+        load_sweep_kernels(engine, backend)
     return device

@@ -2,7 +2,9 @@
 
 * a fresh interpreter that imports ``repro_torch`` and runs a tiny CPU
   ``explore`` on the grid, staged and fused engines has loaded no
-  ``jax*`` module and no ``repro`` / ``repro.*`` module, and neither has
+  ``jax*`` module and no ``repro`` / ``repro.*`` module, nor has one that
+  runs CPU campaigns (serial and ``workers=2``; each worker reports its
+  own modules, none of them either), and neither has
   one that imports ``repro_torch.functional`` and runs ``fig5_pipeline``
   and ``edgaze_frontend`` on CPU tensors, then
   ``repro_torch.kernels.ops.flash_attention`` on CPU tensors;
@@ -69,6 +71,40 @@ bad = sorted(m for m in sys.modules
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """
+
+
+_CHILD_CAMPAIGN = r"""
+import sys, tempfile
+from repro_torch.campaign import CampaignOptions
+from repro_torch.explore import DesignSpace, explore
+space = DesignSpace(["edgaze"], {"variant": ["2d_in", "3d_in"],
+                                 "cis_node": [130.0, 65.0]})
+for workers in (None, 2):
+    with tempfile.TemporaryDirectory() as d:
+        res = explore(space, k=2, engine="fused", chunk_size=2,
+                      device="cpu", checkpoint_dir=d, workers=workers,
+                      campaign=CampaignOptions(shard_points=1))
+        assert res.n_points == 4 and not res.campaign["partial"], res
+        if workers:
+            mods = res.campaign["worker_modules"]
+            assert len(mods) == 2, mods
+            print("WORKERS", sorted(m for ms in mods.values() for m in ms))
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_cpu_campaigns_load_no_jax_and_no_repro():
+    """A serial and a ``workers=2`` campaign, in the parent and in each
+    spawned worker."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_CAMPAIGN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "WORKERS []" in proc.stdout
+    assert "LOADED []" in proc.stdout
 
 
 def test_functional_on_cpu_loads_no_jax_and_no_repro():
@@ -144,16 +180,21 @@ def test_bank_and_prep_default_device_without_cuda_raises(monkeypatch,
         calls[entry]()
 
 
-def test_unported_engines_and_layers_raise():
-    """Every engine of ``explore()`` runs; the multi-device, campaign and
-    serving layers still raise naming their ROADMAP item."""
+def test_unported_engines_and_layers_raise(tmp_path):
+    """Every engine of ``explore()`` runs, and so does a campaign
+    (``checkpoint_dir=`` with ``campaign=`` and ``workers=``); the
+    multi-device and serving layers still raise naming their ROADMAP
+    item."""
+    from repro_torch.campaign import CampaignOptions
     from repro_torch.explore import DesignSpace, explore
     space = DesignSpace(["edgaze"], {"variant": ["2d_in"]})
     for engine in ("monolithic", "chunked", "staged", "fused"):
         res = explore(space, k=1, engine=engine, device="cpu")
         assert res.engine == engine and res.n_points == 1
-    for kwarg in ("mesh", "checkpoint_dir", "campaign", "workers",
-                  "service"):
+    res = explore(space, k=1, device="cpu", checkpoint_dir=str(tmp_path),
+                  campaign=CampaignOptions(), workers=1)
+    assert res.n_points == 1 and res.campaign["n_executed"] == 1
+    for kwarg in ("mesh", "service"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             explore(space, k=1, device="cpu", **{kwarg: object()})
     with pytest.raises(ValueError, match="unknown engine"):
