@@ -44,6 +44,18 @@ read just after:
   dispatched; equal to the serial campaign bit for bit; one preparation
   a worker), and staged shards (equal to fused); the ``campaign_path``
   line;
+* serve — ``repro_torch.serve.ExploreService`` at the reference's
+  serving width (``serve_bench``, ``benchmarks/run.py:797-915``): 8
+  tenants of 230,400 Ed-Gaze points (distinct ``vdd_scale`` values) run
+  solo, then as two waves of 8 client threads through
+  ``explore(service=)``: one coalesce group on ONE step build, each
+  tenant's top-k values and indices bit-equal to its solo call, the
+  second wave replayed from the cache with no dispatch and no launch;
+  then one streaming tenant at mega_sweep's width (partials through the
+  ``on_partial`` hook, the final bit-equal to the straight fused run)
+  and a staged request (K2, K3a; equal to fused); the ``serve_path``
+  line (``serve_speedup`` printed beside the reference's 1.2 floor, not
+  gated);
 * chunked (through ``auto``) — Ed-Gaze over the mega grids without
   ``active_fraction_scale`` (1.57e6 points) through K4, equal to fused;
 * monolithic (through ``auto``) — the ``design_sweep`` grids of
@@ -168,6 +180,21 @@ DESIGN_GRIDS = {"cis_node": [130., 110., 90., 65., 45., 32., 28.],
                 "active_fraction_scale": [0.25, 1.0],
                 "pixel_pitch_um": [3.0, 5.0]}
 DESIGN_POINTS = 8 * 7 * 4 * 4 * 3 * 2 * 2 * 2
+# the serve_bench grids (benchmarks/run.py:801-806): each of 8 tenants
+# sweeps all 5 Ed-Gaze variants of these with its own vdd_scale pair,
+# 46,080 points a variant, 230,400 a tenant
+SERVE_GRIDS = {
+    "cis_node": [180., 130., 90., 65., 45., 28.],
+    "frame_rate": [float(v) for v in range(10, 250, 10)],
+    "sys_rows": [float(v) for v in range(8, 136, 8)],
+    "pixel_pitch_um": [1.0 + 0.5 * i for i in range(10)],
+}
+SERVE_CLIENTS = 8
+SERVE_CHUNK = 1 << 12
+SERVE_POINTS = 5 * 6 * 24 * 16 * 10 * 2
+# the reference's SERVE_BENCH_MIN_SPEEDUP, a timing floor set on another
+# platform: printed beside the measured rate, never gated on
+SERVE_MIN_SPEEDUP = 1.2
 KERNEL_SOURCES = ("fused_sweep", "grid_decode", "stream_reduce",
                   "category_reduce", "binning", "stencil_conv",
                   "frame_event", "matmul", "flash_attention")
@@ -1130,6 +1157,240 @@ def campaign_path(space, res, fs, kernel_mods, smi) -> dict:
         return line
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_path(space, res, fs, gd, sr, kernel_mods, smi) -> dict:
+    """P10 at full width: the reference's serve_bench gauntlet
+    (``benchmarks/run.py:797-915``) on the card, then one streaming
+    tenant at mega_sweep's width and one staged request.
+
+    1. 8 tenants (``SERVE_GRIDS``, client ``i`` with ``vdd_scale`` =
+       ``[0.80 + 0.002 i, 1.0]``; ``k=8``, fused, chunks of 4096): a warm
+       solo call, the 8 solo calls, then ``ExploreService(
+       coalesce_window_s=0.05)`` and two waves of 8 client threads
+       through ``explore(service=)``: one step build in all, wave 1 one
+       group of 8 (a share of 1/8 each), each tenant's top-k values and
+       indices bit-equal to its solo call and its rows within rel 1e-6,
+       wave 2 all cache hits with no dispatch and no K1 launch;
+    2. mega_sweep (``space``) as one streaming tenant of a service with
+       ``partial_interval_s=0``: ``seq`` counts up, ``done`` never falls,
+       one final update last, a snapshot at every dispatch but the last,
+       the final top-k and summaries bit-equal to the straight fused
+       ``res``;
+    3. a staged request of tenant 0 through the same service (the direct
+       fallback: K2 and K3a), held to tenant 0's fused result by the
+       engine rule.
+
+    Each step runs with the counters zeroed just before it and read just
+    after; a profiled pass of the 8 solo calls and a profiled wave (the
+    cache emptied first) give the device's busy share and kernels."""
+    import threading
+    from repro_torch.core.shard_sweep import (stream_cache_clear,
+                                              stream_cache_info)
+    from repro_torch.explore import DesignSpace, explore
+    from repro_torch.serve import ExploreService
+    spaces = [DesignSpace(["edgaze"], dict(SERVE_GRIDS, vdd_scale=[
+        0.80 + 0.002 * i, 1.0])) for i in range(SERVE_CLIENTS)]
+    check(all(sp.n_points == SERVE_POINTS for sp in spaces),
+          f"serve tenants have {[sp.n_points for sp in spaces]} points")
+    kw = dict(k=8, engine="fused", chunk_size=SERVE_CHUNK)
+    n_var = SERVE_POINTS // 5
+    cpv = -(-n_var // SERVE_CHUNK)
+    per_tenant = 5 * cpv                       # K1 launches a tenant
+    segments = -(-per_tenant // 16)            # superchunks of 16 ordinals
+
+    def k1():
+        return fs.COUNTS["kernel_launches"]
+
+    def rows_key(r):
+        return [(row["total_j"], row["algorithm"], row["variant"],
+                 row["index"]) for row in r.topk]
+
+    def worst_rel(a, b):
+        worst = 0.0
+        for ra, rb in zip(a.topk, b.topk):
+            for key, vb in rb.items():
+                if isinstance(vb, float):
+                    worst = max(worst, abs(ra[key] - vb)
+                                / max(abs(vb), 1e-300))
+        return worst
+
+    # ----- 1. the 8-tenant gauntlet -----------------------------------------
+    stream_cache_clear()
+    reset_all(kernel_mods)
+    explore(spaces[0], **kw)                       # warm
+    warm_launches = k1()
+    reset_all(kernel_mods)
+    t0 = time.perf_counter()
+    solos = [explore(sp, **kw) for sp in spaces]
+    solo_s = time.perf_counter() - t0
+    solo_launches = k1()
+    check(warm_launches == per_tenant
+          and solo_launches == SERVE_CLIENTS * per_tenant,
+          f"serve solo: K1 launches {warm_launches} warm, {solo_launches} "
+          f"for {SERVE_CLIENTS} tenants of {per_tenant}")
+    solo_prof = profile_path("serve_solo",
+                             lambda: [explore(sp, **kw) for sp in spaces])
+    svc = ExploreService(coalesce_window_s=0.05, device="cuda")
+    try:
+        def wave():
+            out = {}
+
+            def client(i):
+                out[i] = explore(spaces[i], service=svc, **kw)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t_wave = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not any(t.is_alive() for t in threads)
+                  and len(out) == SERVE_CLIENTS, "serve wave did not end")
+            return out, time.perf_counter() - t_wave
+
+        d0 = svc.metrics()["dispatches"]
+        reset_all(kernel_mods)
+        wave1, wave1_s = wave()
+        w1_launches, d1 = k1(), svc.metrics()["dispatches"]
+        w1_clusters = {c: fs.COUNTS[f"cluster{c}_launches"]
+                       for c in fs.CLUSTER_CHOICES}
+        reset_all(kernel_mods)
+        wave2, wave2_s = wave()
+        w2_launches, d2 = k1(), svc.metrics()["dispatches"]
+        metrics = svc.metrics()
+        builds = stream_cache_info()["step_builds"]
+        check(builds == 1, f"serve: {builds} step builds across solo and "
+              f"both waves")
+        w1_worst = 0.0
+        for i in range(SERVE_CLIENTS):
+            a, b, solo = wave1[i], wave2[i], solos[i]
+            check(a.serve["coalesce_group"] == SERVE_CLIENTS
+                  and a.serve["dispatch_share"] == 1 / SERVE_CLIENTS
+                  and not a.serve["cache_hit"] and a.backend == "cuda",
+                  f"serve wave 1 tenant {i}: {a.serve}, {a.backend}")
+            check(rows_key(a) == rows_key(solo) and a.n_points
+                  == solo.n_points and a.n_feasible == solo.n_feasible,
+                  f"serve wave 1 tenant {i}: top-k differs from solo")
+            err = worst_rel(a, solo)
+            check(err <= REL, f"serve wave 1 tenant {i}: rows rel err {err}")
+            w1_worst = max(w1_worst, err)
+            check(b.serve["cache_hit"] and b.serve["dispatches"] == 0
+                  and b.topk == a.topk, f"serve wave 2 tenant {i}: "
+                  f"{b.serve}")
+        check(w1_launches == SERVE_CLIENTS * per_tenant
+              and d1 - d0 == SERVE_CLIENTS * segments,
+              f"serve wave 1: {w1_launches} K1 launches, {d1 - d0} "
+              f"dispatches")
+        check(w2_launches == 0 and d2 == d1,
+              f"serve wave 2: {w2_launches} K1 launches, {d2 - d1} "
+              f"dispatches")
+        svc.cache.clear()
+        prof = profile_path("serve_wave", lambda: wave()[0])
+    finally:
+        svc.close()
+
+    # ----- 2. one streaming tenant at mega_sweep's width, 3. staged ---------
+    svc = ExploreService(partial_interval_s=0, device="cuda")
+    try:
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        h = svc.submit(space, k=3, engine="fused", chunk_size=CHUNK,
+                       stream=True)
+        updates = list(h.partials())
+        mega = h.result(timeout=600)
+        mega_s = time.perf_counter() - t0
+        mega_launches = k1()
+        check([u.seq for u in updates] == list(range(len(updates)))
+              and all(u0.done <= u1.done
+                      for u0, u1 in zip(updates, updates[1:]))
+              and [u.final for u in updates]
+              == [False] * (len(updates) - 1) + [True]
+              and updates[-1].done == updates[-1].span == MEGA_POINTS,
+              f"serve stream: updates "
+              f"{[(u.seq, u.done, u.final) for u in updates]}")
+        check(len(updates) == mega.dispatches == res.dispatches
+              and mega.serve["partial_updates"] == len(updates),
+              f"serve stream: {len(updates)} updates, {mega.dispatches} "
+              f"dispatches")
+        check(all(math.isfinite(r["total_j"]) for u in updates
+                  for r in u.topk), "serve stream: a partial is not finite")
+        check(mega.topk == res.topk
+              and json.dumps(mega.summaries) == json.dumps(res.summaries)
+              and (mega.n_points, mega.n_feasible)
+              == (res.n_points, res.n_feasible),
+              "serve stream: final != the straight fused run")
+        check(mega_launches == 8 * -(-(MEGA_POINTS // 8) // CHUNK),
+              f"serve stream: {mega_launches} K1 launches")
+
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        st = svc.explore(spaces[0], k=8, engine="staged",
+                         chunk_size=SERVE_CHUNK)
+        staged_s = time.perf_counter() - t0
+        st_launches = {"fused_sweep": k1(),
+                       "grid_decode": gd.COUNTS["kernel_launches"],
+                       "block_stats": sr.COUNTS["kernel_launches"],
+                       "twins": sum(m.COUNTS[key] for m in kernel_mods
+                                    for key in m.COUNTS if "twin" in key)}
+        check(st.engine == "staged" and not st.serve["cache_hit"]
+              and st_launches == {"fused_sweep": 0,
+                                  "grid_decode": per_tenant,
+                                  "block_stats": per_tenant, "twins": 0},
+              f"serve staged: {st.engine}, {st.serve}, {st_launches}")
+        staged_worst = compare_results("serve_staged_vs_fused", st,
+                                       solos[0])
+    finally:
+        svc.close()
+
+    serve_rps = 2 * SERVE_CLIENTS / (wave1_s + wave2_s)
+    solo_rps = SERVE_CLIENTS / solo_s
+    waits = [r.serve["queue_wait_s"] for r in wave1.values()]
+    line = {
+        "nvidia_smi": smi[0] if smi else None,
+        "clients": SERVE_CLIENTS, "points_per_tenant": SERVE_POINTS,
+        "chunk": SERVE_CHUNK, "k": 8, "step_builds": builds,
+        "solo": {"wall_s": solo_s, "k1_launches": solo_launches,
+                 "warm_k1_launches": warm_launches,
+                 "dispatches": sum(r.dispatches for r in solos),
+                 "eval_s": sum(r.eval_s for r in solos)},
+        "wave1": {"wall_s": wave1_s, "k1_launches": w1_launches,
+                  "k1_launches_by_cluster": w1_clusters,
+                  "dispatches": d1 - d0,
+                  "coalesce_group": wave1[0].serve["coalesce_group"],
+                  "segments_per_tenant": wave1[0].serve["segments"],
+                  "queue_wait_s_max": max(waits),
+                  "service_s_max": max(r.serve["service_s"]
+                                       for r in wave1.values()),
+                  "eval_s": sum(r.eval_s for r in wave1.values()),
+                  "topk_bit_equal_to_solo": True,
+                  "rows_vs_solo_max_rel_err": w1_worst},
+        "wave2": {"wall_s": wave2_s, "k1_launches": w2_launches,
+                  "dispatches": d2 - d1,
+                  "cache_hits": sum(r.serve["cache_hit"]
+                                    for r in wave2.values())},
+        "requests_per_s": {"solo": solo_rps, "wave1": SERVE_CLIENTS
+                           / wave1_s, "serve": serve_rps},
+        "serve_speedup": serve_rps / solo_rps,
+        "serve_speedup_reference_floor": SERVE_MIN_SPEEDUP,
+        "serve_speedup_gated": False,
+        "wave1_vs_solo_speedup": solo_s / wave1_s,
+        "metrics": {key: val for key, val in metrics.items()
+                    if key != "cache"},
+        "profile_wave": prof, "profile_solo": solo_prof,
+        "mega_stream": {"points": mega.n_points, "wall_s": mega_s,
+                        "eval_s": mega.eval_s,
+                        "k1_launches": mega_launches,
+                        "dispatches": mega.dispatches,
+                        "partial_updates": len(updates),
+                        "done": [u.done for u in updates],
+                        "bit_equal_to_fused": True},
+        "staged": {"wall_s": staged_s, "eval_s": st.eval_s,
+                   "dispatches": st.dispatches, "launches": st_launches,
+                   "vs_fused_max_rel_err": staged_worst},
+    }
+    emit({"serve_path": line})
+    return line
 
 
 def profile_path(name, run) -> dict:
@@ -2654,6 +2915,13 @@ def main() -> int:
     # ----- 4b. campaigns at full width: fused shards on K1 ------------------
     camp = campaign_path(space, res, fs, kernel_mods, smi)
 
+    # ----- 4c. serving at full width: coalesced tenants on K1 ---------------
+    serve = serve_path(space, res, fs, gd, sr, kernel_mods, smi)
+    serve_k1 = {"wave1": serve["wave1"]["k1_launches"],
+                "wave2": serve["wave2"]["k1_launches"],
+                "mega_stream": serve["mega_stream"]["k1_launches"]}
+    serve_staged = serve["staged"]["launches"]
+
     # ----- 5. chunked through auto: K4 --------------------------------------
     ch_space = DesignSpace(["edgaze"], CHUNKED_GRIDS)
     check(ch_space.n_points == CHUNKED_POINTS, "chunked space size")
@@ -2823,7 +3091,11 @@ def main() -> int:
         "name": "fused_sweep", "route": "cuda",
         "source": src + "fused_sweep.cu",
         "replaces": "src/repro/kernels/fused_sweep.py:47",
-        "launches": launches,
+        "launches": launches + sum(serve_k1.values()),
+        "path": f"fused (main path {launches}) + serve (wave 1 "
+                f"{serve_k1['wave1']}, wave 2 {serve_k1['wave2']}, mega "
+                f"stream {serve_k1['mega_stream']})",
+        "serve_launches": serve_k1,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "max_rel_err": max(r["max_rel_err"] for r in recs),
         "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": b_ms,
@@ -2845,11 +3117,15 @@ def main() -> int:
     }]
     for name, source, replaces, n_launch, cases, path in (
             ("grid_decode", "grid_decode.cu",
-             "src/repro/kernels/grid_decode.py:73", st_counts["decode"], k2,
-             "staged"),
+             "src/repro/kernels/grid_decode.py:73",
+             st_counts["decode"] + serve_staged["grid_decode"], k2,
+             f"staged ({st_counts['decode']}) + serve (staged request "
+             f"{serve_staged['grid_decode']})"),
             ("block_stats", "stream_reduce.cu",
-             "src/repro/kernels/stream_reduce.py:30", st_counts["stats"],
-             k3a, "staged"),
+             "src/repro/kernels/stream_reduce.py:30",
+             st_counts["stats"] + serve_staged["block_stats"], k3a,
+             f"staged ({st_counts['stats']}) + serve (staged request "
+             f"{serve_staged['block_stats']})"),
             ("block_stats_banked", "stream_reduce.cu",
              "src/repro/kernels/stream_reduce.py:79", 0, k3b,
              "none (direct check only)"),

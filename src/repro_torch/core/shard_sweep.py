@@ -33,22 +33,33 @@ Every top-k ranks in IEEE total order, as the reference's
 sort_total`: a sign-bit NaN first, a positive NaN after ``+inf``).
 Ties break to the lowest flat index everywhere (stable sorts), and flat
 indices widen to int64 when ``total + chunk >= 2**31``.  Campaign shards
-(``repro_torch.campaign``) enter through ``_stream_impl(index_range=,
-_prepared=)``.  There is no device mesh yet (ROADMAP P8).
+(``repro_torch.campaign``) and coalesced serve segments
+(``repro_torch.serve``) enter through ``_stream_impl(index_range=,
+_prepared=)``; the serve layer streams partial top-k through its
+``on_partial`` hook.  The shape-only per-sweep state (the coefficient
+compute, K1's plan and fixed launch parameters, the staged evaluator) is
+built once per shape key (:func:`_step`), the counterpart of the
+reference's step-executable cache.  There is no device mesh yet
+(ROADMAP P8).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..kernels.fused_sweep import (COUNTS, fused_sweep_block,
-                                   fused_sweep_block_torch,
-                                   load_kernel_library, reset_counts,
-                                   sort_total)
+from ..kernels.cuda_build import sm_count
+from ..kernels.fused_sweep import (COUNTS, fused_sweep_block_torch,
+                                   kernel_params, load_kernel_library,
+                                   reset_counts, sort_total)
+from ..kernels.fused_sweep import plan as k1_plan
+from ..kernels.fused_sweep import run as k1_run
 from ..kernels.grid_decode import grid_decode
 from ..kernels.runtime import resolve_backend, resolve_device
 from ..kernels.stream_reduce import block_stats
@@ -63,25 +74,115 @@ from .plan_bank import PlanBank, build_plan_bank
 #: default number of chunk ordinals per dispatch
 _DEFAULT_SUPERCHUNK = 16
 
-#: superchunk dispatches and stream preparations (:func:`_prepare_stream`)
-#: since the last :func:`stream_cache_clear`
-_STATS = {"dispatches": 0, "preps": 0}
+#: superchunk dispatches, stream preparations (:func:`_prepare_stream`)
+#: and step builds (:func:`_step`) since the last :func:`stream_cache_clear`
+_STATS = {"dispatches": 0, "preps": 0, "step_builds": 0}
+#: shape-keyed step state (:func:`_step`), least recently used first
+_STEPS: "OrderedDict[tuple, _Step]" = OrderedDict()
+_STEP_LIMIT = 64
+#: guards the step cache and ``_STATS``: the serve worker and client
+#: threads sweep at once, and must never build one key twice or tear a
+#: counter (the reference's ``_STREAM_LOCK``).  Reentrant, as the
+#: reference's is.
+_STREAM_LOCK = threading.RLock()
 
 
 def stream_cache_info() -> Dict[str, int]:
     """Counters of the streaming engine since :func:`stream_cache_clear`:
-    K1 launches, twin calls, superchunk dispatches and stream
-    preparations (lowering, bank and tables; a campaign makes one in its
-    process, or one per worker, and hands it to every shard)."""
-    return dict(kernel_launches=COUNTS["kernel_launches"],
-                twin_calls=COUNTS["twin_calls"],
-                dispatches=_STATS["dispatches"], preps=_STATS["preps"])
+    K1 launches, twin calls, superchunk dispatches, stream preparations
+    (lowering, bank and tables; a campaign makes one in its process, or
+    one per worker, and hands it to every shard) and step builds (one a
+    shape key: the reference's ``step_compiles``)."""
+    with _STREAM_LOCK:
+        return dict(kernel_launches=COUNTS["kernel_launches"],
+                    twin_calls=COUNTS["twin_calls"], **_STATS)
 
 
 def stream_cache_clear() -> None:
-    """Zero every counter of :func:`stream_cache_info`."""
-    reset_counts()
-    _STATS["dispatches"] = _STATS["preps"] = 0
+    """Empty the step cache and zero every counter of
+    :func:`stream_cache_info`."""
+    with _STREAM_LOCK:
+        reset_counts()
+        _STEPS.clear()
+        for key in _STATS:
+            _STATS[key] = 0
+
+
+def _bump(field: str) -> None:
+    with _STREAM_LOCK:
+        _STATS[field] += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class _Step:
+    """What a sweep of one shape key needs beyond its prep.  Fused:
+    ``launch(table2, row, start, low, limit)`` (K1 under its plan, or the
+    twin) and the coefficient-form ``compute`` its finalize re-gathers
+    the winners with; staged: ``eval_uniform`` (its state keeps the
+    winners' rows, so it needs no compute)."""
+    compute: Optional[Callable] = None
+    launch: Optional[Callable] = None
+    eval_uniform: Optional[Callable] = None
+
+
+def _device_key(device: torch.device) -> str:
+    """A device as a step key names it: a bare ``cuda`` is the current
+    CUDA device."""
+    if device.type == "cuda" and device.index is None:
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(device)
+
+
+def _fused_key(backend: str, device: torch.device, chunk: int, metric: str,
+               k: int, block_points: int, dims, shape: Sequence[int],
+               n_var: int, lmax: int, s_len: int, cpv: int,
+               wide: bool) -> tuple:
+    """The fused engine's step key: the shape-only quantities of the
+    reference's ``_fused_exec`` key (``repro/core/shard_sweep.py:639``),
+    with the device in place of the mesh.  ``repro_torch.serve.coalesce.
+    compat_key`` is this key, so equal compat keys share one step."""
+    return ("fused", backend, _device_key(device), int(chunk), metric,
+            int(k), int(block_points), tuple(int(d) for d in dims),
+            tuple(int(s) for s in shape), int(n_var), int(lmax), int(s_len),
+            int(cpv), "int64" if wide else "int32")
+
+
+def _step(key: tuple, build: Callable[[], _Step]) -> _Step:
+    """The step of ``key``, built by ``build()`` on its first use (counted
+    in ``step_builds``) under the lock, so concurrent sweeps of one key
+    build it once.  The cache keeps the ``_STEP_LIMIT`` most recently
+    used keys."""
+    with _STREAM_LOCK:
+        step = _STEPS.get(key)
+        if step is None:
+            step = _STEPS[key] = build()
+            _STATS["step_builds"] += 1
+            while len(_STEPS) > _STEP_LIMIT:
+                _STEPS.popitem(last=False)
+        _STEPS.move_to_end(key)
+        return step
+
+
+def _fused_step(backend: str, device: torch.device, dims, *, metric: str,
+                shape: Sequence[int], n_var: int, total: int, chunk: int,
+                lmax: int, table_cols: int, bp: int, kk: int,
+                idx_dtype) -> _Step:
+    """Build a fused step: the compute and, on the ``cuda`` lane, K1's
+    plan for the card and its fixed launch parameters (built and checked
+    here, so a shape the kernel does not take fails before any launch)."""
+    compute = build_coeff_compute(dims)
+    kw = dict(compute=compute, metric=metric, axis_names=AXES, shape=shape,
+              n_var=n_var, total=total, chunk=chunk, lmax=lmax,
+              block_points=bp, kk=kk, idx_dtype=idx_dtype)
+    if backend != "cuda":
+        return _Step(compute, functools.partial(fused_sweep_block_torch,
+                                                **kw))
+    p = k1_plan(bp, kk, chunk, sm_count(device))
+    kernel_params(dims, metric=metric, shape=shape, n_var=n_var,
+                  total=total, chunk=chunk, lmax=lmax,
+                  table_cols=table_cols, bp=bp, kk=kk, start=0, low=0,
+                  limit=0, p=p)
+    return _Step(compute, functools.partial(k1_run, p=p, **kw))
 
 
 def _validate_index_range(index_range, total: int) -> Tuple[int, int]:
@@ -268,7 +369,7 @@ def _prepare_stream(algorithm: Union[str, Sequence[str]] = "edgaze",
     n_var = len(vgrids[0])
     n_variants = len(plans)
     tables = axis_tables(vgrids)
-    _STATS["preps"] += 1
+    _bump("preps")
     return _StreamPrep(
         algos=algos, labels=labels, valgos=valgos, vnames=vnames,
         vgrids=vgrids, n_var=n_var, n_variants=n_variants,
@@ -461,6 +562,9 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  engine: str = "fused", device="cuda",
                  progress: Optional[Callable[[int, int], None]] = None,
                  pipeline_depth: int = 4,
+                 on_partial: Optional[
+                     Callable[[int, int, Callable[[], StreamResult]],
+                              None]] = None,
                  _prepared: Optional[_StreamPrep] = None) -> StreamResult:
     """Stream a cartesian sweep of any size through the fused megakernel
     (``engine="fused"``) or the staged pipeline (``engine="staged"``).
@@ -484,6 +588,16 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     CUDA device each dispatch records an event, and the host waits on
     the oldest once more than ``pipeline_depth`` are in flight, so it
     never runs unboundedly ahead of the card (a wait copies no data).
+
+    ``on_partial(done, span, snapshot)`` is the serve layer's partial
+    top-k hook (the reference's, ``repro/core/shard_sweep.py:886-901``):
+    it fires alongside ``progress`` after every dispatch, and the zero-arg
+    ``snapshot()`` returns the state so far as a :class:`StreamResult`
+    (``n_points = done``; top-k rows, summaries, dispatches and occupancy
+    as of that dispatch).  A snapshot is a host sync plus the winners'
+    re-gather, so callers throttle it; the state is folded in place, so
+    ``snapshot()`` works only inside the hook call (later it raises).
+    Without a hook the sweep keeps its one host sync.
 
     ``_prepared`` is the campaign runner's hoist hook: a
     :class:`_StreamPrep` built once on ``device`` for the SAME
@@ -522,15 +636,47 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     wide = total + chunk >= 2 ** 31
     idx_dtype = torch.int64 if wide else torch.int32
 
-    compute = build_coeff_compute(bank.dims)
     bp = max(min(block_points, chunk), 1)
     kk = min(k, chunk)
+    shape = prep.vgrids[0].shape
     state = _init_banked_state(k, n_variants, idx_dtype, device,
                                with_out=engine == "staged")
     dispatches = 0
+    s_len = 1
+
+    def result(n_dispatches: int, covered: int) -> StreamResult:
+        """The state so far as a StreamResult: the host copy (the sweep's
+        one host sync), then O(k + V) host work.  ``covered`` points have
+        been reduced; per-variant ``n`` describes the whole ``[lo, hi)``
+        the state converges to, as the reference's ``_finalize``."""
+        host = {key: val.cpu().numpy() for key, val in state.items()}
+        eval_s = time.perf_counter() - t0
+        n_feasible, summaries, rows = _finalize(prep, host, step.compute, k,
+                                                lo, hi, device)
+        dispatched = n_dispatches * s_len * chunk
+        return StreamResult(
+            algorithm="+".join(prep.algos), metric=metric, k=k,
+            n_points=covered, n_feasible=n_feasible, n_devices=1,
+            chunk_size=chunk, topk=rows, summaries=summaries,
+            wall_s=time.perf_counter() - t_start, compile_s=compile_s,
+            eval_s=eval_s, n_variants=n_variants, index_lo=lo, index_hi=hi,
+            engine=engine, dispatches=n_dispatches, superchunk=s_len,
+            occupancy=(covered / dispatched if dispatched else 1.0),
+            n_var=n_var, backend=backend, kernel_mode=backend)
+
+    def snapshot(n_dispatches: int, covered: int
+                 ) -> Callable[[], StreamResult]:
+        """``on_partial``'s snapshot: the state is folded in place, so it
+        is read when called, and only before the next dispatch."""
+        def take() -> StreamResult:
+            if dispatches != n_dispatches:
+                raise RuntimeError(
+                    "an on_partial snapshot is valid only inside its hook "
+                    "call (the next dispatch has folded into the state)")
+            return result(n_dispatches, covered)
+        return take
+
     if engine == "fused":
-        kernel = fused_sweep_block if backend == "cuda" \
-            else fused_sweep_block_torch
         # chunk ordinals: cpv slots per variant; [c_lo, c_hi) intersect
         # [lo, hi)
         cpv = -(-n_var // chunk)
@@ -544,6 +690,14 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         n_chunks = max(c_hi - c_lo, 0)
         s_len = (max(1, int(superchunk)) if superchunk
                  else min(max(n_chunks, 1), _DEFAULT_SUPERCHUNK))
+        step = _step(
+            _fused_key(backend, device, chunk, metric, k, block_points,
+                       bank.dims, shape, n_var, lmax, s_len, cpv, wide),
+            lambda: _fused_step(backend, device, bank.dims, metric=metric,
+                                shape=shape, n_var=n_var, total=total,
+                                chunk=chunk, lmax=lmax,
+                                table_cols=table2.shape[1], bp=bp, kk=kk,
+                                idx_dtype=idx_dtype))
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -553,26 +707,29 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                 vi, r = divmod(c, cpv)
                 start = vi * n_var + r * chunk
                 limit = min(hi, (vi + 1) * n_var)
-                cv, cl, sums, counts = kernel(
-                    table2, bank.fused[vi], start, lo, limit,
-                    compute=compute, metric=metric, axis_names=AXES,
-                    shape=prep.vgrids[0].shape, n_var=n_var, total=total,
-                    chunk=chunk, lmax=lmax, block_points=bp, kk=kk,
-                    idx_dtype=idx_dtype)
+                cv, cl, sums, counts = step.launch(
+                    table2, bank.fused[vi], start, lo, limit)
                 _merge_candidates(_fold_chunk(cv, cl, sums, counts, start,
                                               bp, kk, idx_dtype),
                                   vi, state, k)
             dispatches += 1
-            _STATS["dispatches"] += 1
+            _bump("dispatches")
             pace.dispatched()
-            if progress is not None:
+            if progress is not None or on_partial is not None:
                 vi_l, r_l = divmod(min(d0 + s_len, c_hi) - 1, cpv)
                 end = min(vi_l * n_var + (r_l + 1) * chunk,
                           (vi_l + 1) * n_var, hi)
-                progress(max(end - lo, 0), hi - lo)
+                done = max(end - lo, 0)
+                if progress is not None:
+                    progress(done, hi - lo)
+                if on_partial is not None:
+                    on_partial(done, hi - lo, snapshot(dispatches, done))
     else:
-        s_len = 1
-        _, eval_uniform = build_banked_eval(bank.dims)
+        step = _step(
+            ("staged", backend, _device_key(device), chunk, metric, k,
+             block_points, tuple(int(d) for d in bank.dims), tuple(shape),
+             n_var, lmax, "int64" if wide else "int32"),
+            lambda: _Step(eval_uniform=build_banked_eval(bank.dims)[1]))
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -586,32 +743,19 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
             vhi = min(hi, (vi + 1) * n_var)
             for start in range(vlo, vhi, chunk):
                 _merge_candidates(_staged_chunk(
-                    prep, eval_uniform, start, vhi, chunk=chunk, bp=bp,
+                    prep, step.eval_uniform, start, vhi, chunk=chunk, bp=bp,
                     kk=kk, metric=metric, idx_dtype=idx_dtype),
                     vi, state, k)
                 dispatches += 1
-                _STATS["dispatches"] += 1
+                _bump("dispatches")
                 pace.dispatched()
                 done += min(start + chunk, vhi) - start
                 if progress is not None:
                     progress(done, hi - lo)
+                if on_partial is not None:
+                    on_partial(done, hi - lo, snapshot(dispatches, done))
 
-    # ----- the sweep's one host sync, then O(k + V) host work -------------
-    host = {key: val.cpu().numpy() for key, val in state.items()}
-    eval_s = time.perf_counter() - t0
-    n_feasible, summaries, rows = _finalize(prep, host, compute, k, lo, hi,
-                                            device)
-
-    dispatched = dispatches * s_len * chunk
-    return StreamResult(
-        algorithm="+".join(prep.algos), metric=metric, k=k,
-        n_points=hi - lo, n_feasible=n_feasible, n_devices=1,
-        chunk_size=chunk, topk=rows, summaries=summaries,
-        wall_s=time.perf_counter() - t_start, compile_s=compile_s,
-        eval_s=eval_s, n_variants=n_variants, index_lo=lo, index_hi=hi,
-        engine=engine, dispatches=dispatches, superchunk=s_len,
-        occupancy=((hi - lo) / dispatched if dispatched else 1.0),
-        n_var=n_var, backend=backend, kernel_mode=backend)
+    return result(dispatches, hi - lo)
 
 
 def sweep_stream(*_args, **_kwargs):

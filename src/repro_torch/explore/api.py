@@ -21,6 +21,8 @@ occupancy accounting and the engine's counters — like the reference's
 The sweep runs on ``device`` (default ``"cuda"``: the hand-written CUDA
 kernels) unless the caller passes ``device="cpu"`` (their plain-torch
 twins); without a GPU the default device raises instead of falling back.
+``explore(space, service=svc)`` routes the request through a running
+:class:`repro_torch.serve.ExploreService` on the service's device.
 """
 from __future__ import annotations
 
@@ -29,11 +31,12 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.axes import AXES
 from ..core.batch import OUT_KEYS
 from ..core.plan import lower_cache_info
-from ..core.shard_sweep import (StreamResult, _stream_impl,
+from ..core.shard_sweep import (StreamResult, _device_key, _stream_impl,
                                 best_by_algorithm_summaries,
                                 stream_cache_info)
 from ..core.sweep import SweepResult, _sweep_impl
@@ -90,6 +93,10 @@ class ExploreResult:
     #: campaign report dict (shards executed / retried / quarantined,
     #: coverage) when the result came from a checkpointed campaign run
     campaign: Optional[Dict] = None
+    #: per-tenant serving metrics (queue wait, dispatch share, coalesce
+    #: group size, cache hit, ...) when the result came through a
+    #: :class:`repro_torch.serve.ExploreService`; None for direct calls
+    serve: Optional[Dict] = None
 
     def __len__(self) -> int:
         return self.n_points
@@ -245,7 +252,7 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
             progress: Optional[Callable[[int, int], None]] = None,
             index_range: Optional[Tuple[int, int]] = None,
             pipeline_depth: int = 4, superchunk: Optional[int] = None,
-            backend: str = "auto", device="cuda", mesh=None,
+            backend: str = "auto", device=None, mesh=None,
             checkpoint_dir: Optional[str] = None, campaign=None,
             workers: Optional[int] = None, service=None) -> ExploreResult:
     """Score a :class:`DesignSpace`; one entry point for every engine.
@@ -280,8 +287,16 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
     checkpoint I/O — default 1 (serial; ``REPRO_TORCH_CAMPAIGN_WORKERS``
     overrides the default).
 
-    ``mesh`` and ``service`` are the reference's multi-device and
-    serving layers; they raise ``NotImplementedError`` until ported.
+    ``service`` routes the request through a running
+    :class:`repro_torch.serve.ExploreService` instead of dispatching
+    inline: the call blocks like a direct ``explore()`` but the service
+    may coalesce it with concurrent compatible tenants onto one shared
+    step and serve repeats from its result cache (``result.serve``
+    carries the per-tenant serving metrics).  It runs on the service's
+    device: ``device`` may be left out or name that device.
+
+    ``mesh`` is the reference's multi-device layer; it raises
+    ``NotImplementedError`` until ported.
     """
     if not isinstance(space, DesignSpace):
         raise TypeError(f"explore() takes a DesignSpace, got "
@@ -291,13 +306,37 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         raise KeyError(f"unknown metric {metric!r}; valid: "
                        f"{sorted(OUT_KEYS)}")
     _validate_request(k, chunk_size)
-    for name, val, item in (
-            ("mesh", mesh, "P8 (multi-device sweeps)"),
-            ("service", service, "P10 (serving)")):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to repro_torch yet (ROADMAP "
-                f"{item})")
+    if service is not None:
+        from ..serve import ExploreService
+        if not isinstance(service, ExploreService):
+            raise TypeError(f"service= takes a repro_torch.serve."
+                            f"ExploreService, got "
+                            f"{type(service).__name__}")
+        for name, val, default in (("checkpoint_dir", checkpoint_dir,
+                                    None),
+                                   ("campaign", campaign, None),
+                                   ("workers", workers, None),
+                                   ("index_range", index_range, None),
+                                   ("progress", progress, None),
+                                   ("mesh", mesh, None),
+                                   ("strict", strict, False)):
+            if val != default:
+                raise ValueError(f"{name}= is incompatible with "
+                                 f"service= (the service owns dispatch "
+                                 f"planning; submit plain requests)")
+        if device is not None and not _same_device(device, service.device):
+            raise ValueError(f"device={str(device)!r} is incompatible "
+                             f"with service= (the service runs on "
+                             f"{service.device})")
+        return service.explore(space, k=k, metric=metric, engine=engine,
+                               chunk_size=chunk_size,
+                               block_points=block_points,
+                               superchunk=superchunk, backend=backend)
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported to repro_torch yet "
+                                  "(ROADMAP P8 (multi-device sweeps))")
+    if device is None:
+        device = "cuda"
     if checkpoint_dir is not None or campaign is not None \
             or workers is not None:
         if checkpoint_dir is None:
@@ -347,6 +386,14 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         device=device, progress=progress, pipeline_depth=pipeline_depth)
     return _stream_to_explore(space, st, wall_s=time.perf_counter() - t0,
                               device=device)
+
+
+def _same_device(device, other: torch.device) -> bool:
+    """Does ``device`` name ``other`` (a bare ``cuda`` names the current
+    CUDA device)?"""
+    device = torch.device(device)
+    return device.type == other.type \
+        and _device_key(device) == _device_key(other)
 
 
 def _stream_to_explore(space: DesignSpace, st: StreamResult, *,

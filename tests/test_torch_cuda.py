@@ -1,4 +1,4 @@
-"""The CUDA megakernel against its torch twin, on the card.
+"""The CUDA megakernel against its torch twin, and serving, on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 a fixture, never at import).  On the card:
@@ -12,7 +12,11 @@ in another order).  Every cluster size of the kernel's plans is forced
 through ``fused_sweep.run`` and counted on its route; there the
 candidates' positions are also held equal at the +inf padding, which the
 kernel's lexicographic merge gives exactly as the twin's stable sort.
+A served tenant is held to its solo call: top-k values and indices
+bit-equal, full rows rel 1e-6.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -278,3 +282,117 @@ def test_explore_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose([r["total_j"] for r in gpu.topk],
                                [r["total_j"] for r in cpu.topk], rtol=1e-6)
     assert gpu.cache["stream"]["kernel_launches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# serving on the card (repro_torch.serve)
+# ---------------------------------------------------------------------------
+SERVE_GRIDS = {"variant": ["2d_in", "3d_in"],
+               "cis_node": [130.0, 65.0, 28.0],
+               "frame_rate": [15.0, 30.0, 60.0, 120.0],
+               "sys_rows": [8.0, 32.0]}
+
+
+def _serve_space(i):
+    from repro_torch.explore import DesignSpace
+    return DesignSpace(["edgaze"], dict(SERVE_GRIDS,
+                                        vdd_scale=[0.80 + 0.01 * i, 1.0]))
+
+
+def _run_threads(fn, n):
+    import threading
+    threads = [threading.Thread(target=fn, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_service_on_cuda_coalesces_onto_one_step(cuda, monkeypatch):
+    """8 client threads at a small grid: one coalesce group, one step
+    build, every K1 launch on the service's worker thread, each tenant
+    equal to its solo call (top-k values and indices bit-equal, rows rel
+    1e-6); then a repeat wave replays from the cache with no launch."""
+    import threading
+    from repro_torch.core import shard_sweep
+    from repro_torch.explore import explore
+    from repro_torch.kernels import fused_sweep as fs
+    from repro_torch.serve import ExploreService
+    threads = []
+    real_run = shard_sweep.k1_run
+
+    def recording_run(*args, **kw):
+        threads.append(threading.current_thread().name)
+        return real_run(*args, **kw)
+
+    monkeypatch.setattr(shard_sweep, "k1_run", recording_run)
+    shard_sweep.stream_cache_clear()        # the step binds k1_run at build
+    kw = dict(k=5, engine="fused", chunk_size=16, superchunk=2)
+    out = {}
+    with ExploreService(coalesce_window_s=0.2) as svc:
+        def client(i):
+            out[i] = explore(_serve_space(i), service=svc, **kw)
+        _run_threads(client, 8)
+        info = shard_sweep.stream_cache_info()
+        assert info["step_builds"] == 1 and info["twin_calls"] == 0
+        assert info["kernel_launches"] == len(threads) > 0
+        assert set(threads) == {"repro-torch-serve-worker"}
+        for i, res in out.items():
+            assert res.serve["coalesce_group"] == 8
+            assert res.backend == "cuda" and res.device == "cuda:0"
+            solo = explore(_serve_space(i), **kw)
+            assert [(r["total_j"], r["variant"], r["index"])
+                    for r in res.topk] \
+                == [(r["total_j"], r["variant"], r["index"])
+                    for r in solo.topk]
+            for a, b in zip(res.topk, solo.topk):
+                for key, val in b.items():
+                    if isinstance(val, float):
+                        np.testing.assert_allclose(a[key], val, rtol=1e-6)
+        assert shard_sweep.stream_cache_info()["step_builds"] == 1
+
+        fs.reset_counts()
+        wave2 = {}
+
+        def replay(i):
+            wave2[i] = svc.explore(_serve_space(i), **kw)
+        _run_threads(replay, 8)
+        assert fs.COUNTS["kernel_launches"] == 0
+        assert all(r.serve["cache_hit"] and r.serve["dispatches"] == 0
+                   and r.topk == out[i].topk for i, r in wave2.items())
+    monkeypatch.undo()
+    shard_sweep.stream_cache_clear()        # drop the recording step
+
+
+def test_service_on_cuda0_from_a_fresh_thread(cuda):
+    """A service on ``cuda:0`` driven from a thread whose current device
+    was never set: its worker makes the device current, a streamed
+    request equals the straight fused run bit for bit."""
+    import threading
+    from repro_torch.explore import explore
+    from repro_torch.serve import ExploreService
+    kw = dict(k=4, engine="fused", chunk_size=8, superchunk=1)
+    straight = explore(_serve_space(3), **kw)
+    got = {}
+
+    def tenant():
+        with ExploreService(device="cuda:0", partial_interval_s=0) as svc:
+            h = svc.submit(_serve_space(3), stream=True, **kw)
+            got["updates"] = list(h.partials())
+            got["res"] = h.result(timeout=300)
+            got["staged"] = svc.explore(_serve_space(3), k=3,
+                                        engine="staged", chunk_size=8)
+
+    t = threading.Thread(target=tenant)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    res, updates = got["res"], got["updates"]
+    assert res.backend == "cuda" and res.device == "cuda:0"
+    assert res.topk == straight.topk
+    assert json.dumps(res.summaries) == json.dumps(straight.summaries)
+    assert len(updates) == res.dispatches and updates[-1].final
+    assert [u.seq for u in updates] == list(range(len(updates)))
+    assert [u.done for u in updates] == sorted(u.done for u in updates)
+    assert got["staged"].engine == "staged"

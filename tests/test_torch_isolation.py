@@ -4,7 +4,9 @@
   ``explore`` on the grid, staged and fused engines has loaded no
   ``jax*`` module and no ``repro`` / ``repro.*`` module, nor has one that
   runs CPU campaigns (serial and ``workers=2``; each worker reports its
-  own modules, none of them either), and neither has
+  own modules, none of them either), nor one that imports
+  ``repro_torch.serve`` and serves a coalesced pair, a streamed request
+  and a staged one on the CPU, and neither has
   one that imports ``repro_torch.functional`` and runs ``fig5_pipeline``
   and ``edgaze_frontend`` on CPU tensors, then
   ``repro_torch.kernels.ops.flash_attention`` on CPU tensors;
@@ -107,6 +109,44 @@ def test_cpu_campaigns_load_no_jax_and_no_repro():
     assert "LOADED []" in proc.stdout
 
 
+_CHILD_SERVE = r"""
+import sys, threading
+import repro_torch.serve
+from repro_torch.explore import DesignSpace, explore
+from repro_torch.serve import ExploreService
+grids = {"variant": ["2d_in", "3d_in"], "cis_node": [130.0, 65.0]}
+spaces = [DesignSpace(["edgaze"], dict(grids, vdd_scale=[0.8 + 0.1 * i]))
+          for i in range(2)]
+with ExploreService(coalesce_window_s=0.2, device="cpu") as svc:
+    out = {}
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, explore(spaces[i], k=2, chunk_size=1, service=svc)))
+        for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(r.serve["coalesce_group"] == 2 for r in out.values()), out
+    h = svc.submit(spaces[0], k=2, chunk_size=1, superchunk=1, stream=True)
+    assert list(h.partials())[-1].final
+    assert svc.explore(spaces[1], k=3, engine="staged").engine == "staged"
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_serve_on_cpu_loads_no_jax_and_no_repro():
+    """``repro_torch.serve``: a coalesced pair through
+    ``explore(service=)``, a streamed request and a staged one."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_SERVE], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
 def test_functional_on_cpu_loads_no_jax_and_no_repro():
     """The functional pipelines and ``ops.flash_attention`` on CPU
     tensors."""
@@ -181,12 +221,14 @@ def test_bank_and_prep_default_device_without_cuda_raises(monkeypatch,
 
 
 def test_unported_engines_and_layers_raise(tmp_path):
-    """Every engine of ``explore()`` runs, and so does a campaign
-    (``checkpoint_dir=`` with ``campaign=`` and ``workers=``); the
-    multi-device and serving layers still raise naming their ROADMAP
-    item."""
+    """Every engine of ``explore()`` runs, and so do a campaign
+    (``checkpoint_dir=`` with ``campaign=`` and ``workers=``) and a
+    served request (``service=``; anything but a service raises
+    ``TypeError``); the multi-device layer still raises naming its
+    ROADMAP item."""
     from repro_torch.campaign import CampaignOptions
     from repro_torch.explore import DesignSpace, explore
+    from repro_torch.serve import ExploreService
     space = DesignSpace(["edgaze"], {"variant": ["2d_in"]})
     for engine in ("monolithic", "chunked", "staged", "fused"):
         res = explore(space, k=1, engine=engine, device="cpu")
@@ -194,9 +236,13 @@ def test_unported_engines_and_layers_raise(tmp_path):
     res = explore(space, k=1, device="cpu", checkpoint_dir=str(tmp_path),
                   campaign=CampaignOptions(), workers=1)
     assert res.n_points == 1 and res.campaign["n_executed"] == 1
-    for kwarg in ("mesh", "service"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            explore(space, k=1, device="cpu", **{kwarg: object()})
+    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
+        explore(space, k=1, device="cpu", mesh=object())
+    with ExploreService(device="cpu") as svc:
+        res = explore(space, k=1, service=svc, device="cpu")
+    assert res.serve is not None and res.n_points == 1
+    with pytest.raises(TypeError, match="ExploreService"):
+        explore(space, k=1, device="cpu", service=object())
     with pytest.raises(ValueError, match="unknown engine"):
         explore(space, k=1, engine="warp", device="cpu")
 

@@ -237,13 +237,15 @@ def _patch_eval_bank(fn, cases):
 @pytest.fixture()
 def patch_both(monkeypatch):
     """Patch the evaluators of both packages to write ``cases`` into the
-    metric; the reference's executable cache is cleared around the
-    patch so no patched executable outlives the test."""
+    metric; the reference's executable cache and the port's step cache
+    are cleared around the patch so no patched executable or step
+    outlives the test."""
     from repro.core import shard_sweep as ref
     from repro_torch.core import shard_sweep as ours
 
     def apply(cases):
         ref.stream_cache_clear()
+        ours.stream_cache_clear()
         monkeypatch.setattr(ref, "build_coeff_compute",
                             _patch_compute(ref.build_coeff_compute, cases))
         monkeypatch.setattr(ref, "build_banked_eval",
@@ -256,6 +258,7 @@ def patch_both(monkeypatch):
                             _patch_banked(ours.build_banked_eval, cases))
     yield apply
     ref.stream_cache_clear()
+    ours.stream_cache_clear()
 
 
 def _summaries_equal(a, b):
