@@ -61,6 +61,16 @@ read just after:
 * monolithic (through ``auto``) — the ``design_sweep`` grids of
   ``benchmarks/run.py`` (21,504 points) through K4, equal to fused, the
   winner against the scalar oracle;
+* mesh — the batch split (``repro_torch.launch``) at full width:
+  mega_sweep on ``make_batch_mesh()`` (every visible GPU) and on
+  ``BatchMesh([cuda:0] * 4)`` (four shards on one card), fused (K1 once
+  a shard: 192 launches on the 4-shard mesh) and staged (K2, K3a once a
+  shard), the chunked lane through ``evaluate_batch_sharded`` (K4 once
+  a shard), a 12-shard serial campaign and one serve wave of the 8
+  tenants on the 4-shard mesh, each held to the one-device result of
+  the same run (top-k bit-equal, counts exact, means rel 1e-5), with
+  eval_s, wall s and the fused sweep's host syncs; the ``mesh_path``
+  line;
 * functional — 30 frames each, at the use cases' sensor sizes: Ed-Gaze
   (400 x 640: kT/C noise at 10 fF, ``edgaze_frontend`` through K5 and
   K7, then ``simple_dnn`` through K8 at the paper's S3 width,
@@ -1390,6 +1400,242 @@ def serve_path(space, res, fs, gd, sr, kernel_mods, smi) -> dict:
                    "vs_fused_max_rel_err": staged_worst},
     }
     emit({"serve_path": line})
+    return line
+
+
+def mesh_path(space, res, st, ch_space, ch, kmods, kernel_mods, smi
+              ) -> dict:
+    """P8 at full width: the batch axis split across a mesh
+    (``repro_torch.launch``), each run held to the one-device result of
+    the same run (top-k bit-equal, counts exact, means rel 1e-5).
+
+    1. mega_sweep on ``make_batch_mesh()`` (every visible GPU) and on
+       ``BatchMesh([cuda:0] * 4)`` (four shards on one card): fused (K1
+       once a shard of every live chunk: 4 x 48 = 192 on the 4-shard
+       mesh; on a one-GPU host ``make_batch_mesh()`` is a one-entry mesh,
+       which takes the main path's own step and launches) and staged
+       (K2 and K3a once a shard).
+    Then, on the split mesh (every visible GPU where there are several,
+    else the four shards of one card):
+    2. the host syncs of a fused sweep, equal to the one-device sweep's
+       (finalize's copies only), and a profiled pass;
+    3. the chunked lane (``auto``) through ``evaluate_batch_sharded``:
+       K4 once a shard of every batch;
+    4. mega_sweep as a 12-shard serial campaign;
+    5. one serve wave of the 8 serve_bench tenants through an
+       ``ExploreService``: one coalesce group, one step, each tenant
+       bit-equal to its one-device solo call.
+
+    Each step runs with the counters zeroed just before it and read just
+    after."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.core.shard_sweep import (stream_cache_clear,
+                                              stream_cache_info)
+    from repro_torch.explore import DesignSpace, explore
+    from repro_torch.launch import BatchMesh, make_batch_mesh
+    from repro_torch.serve import ExploreService
+    fs, gd, sr, cr = (kmods[n] for n in ("fused_sweep", "grid_decode",
+                                         "stream_reduce", "category_reduce"))
+    n_var = MEGA_POINTS // 8
+    ordinals = 8 * -(-n_var // CHUNK)            # 48 live chunk ordinals
+    kw = dict(chunk_size=CHUNK, k=3)
+
+    def same(name, a, b, n_dev):
+        """``a`` on the mesh against the one-device ``b``."""
+        check(a.n_devices == n_dev, f"{name}: n_devices {a.n_devices}")
+        check(a.topk == b.topk, f"{name}: top-k differs from one device")
+        check((a.n_points, a.n_feasible) == (b.n_points, b.n_feasible),
+              f"{name}: counts {a.n_points}/{a.n_feasible} vs "
+              f"{b.n_points}/{b.n_feasible}")
+        worst = 0.0
+        for label, sa in a.summaries.items():
+            sb = b.summaries[label]
+            check((sa["n"], sa["n_feasible"], sa["argmin_index"],
+                   sa["metric_min"]) == (sb["n"], sb["n_feasible"],
+                                         sb["argmin_index"],
+                                         sb["metric_min"]),
+                  f"{name}: {label} summary differs")
+            if sb["n_feasible"]:
+                err = abs(sa["metric_mean"] - sb["metric_mean"]) / abs(
+                    sb["metric_mean"])
+                check(err <= REL_MEAN, f"{name}: {label} mean rel {err}")
+                worst = max(worst, err)
+        return worst
+
+    def fused(mesh, name, n_dev):
+        explore(space, engine="fused", **kw)    # the one-device step
+        before = stream_cache_info()["step_builds"]
+        explore(space, engine="fused", mesh=mesh, **kw)       # warm-up
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        out = explore(space, engine="fused", mesh=mesh, **kw)
+        wall = time.perf_counter() - t0
+        launches = fs.COUNTS["kernel_launches"]
+        twins = fs.COUNTS["twin_calls"]
+        clusters = {c: fs.COUNTS[f"cluster{c}_launches"]
+                    for c in fs.CLUSTER_CHOICES}
+        check(launches == n_dev * ordinals and twins == 0,
+              f"{name} fused: {launches} K1 launches, {twins} twin calls, "
+              f"want {n_dev} x {ordinals}")
+        check(out.dispatches == res.dispatches,
+              f"{name} fused: {out.dispatches} dispatches")
+        worst = same(f"{name} fused", out, res, n_dev)
+        return dict(eval_s=out.eval_s, wall_s=wall,
+                    points_per_s=out.points_per_sec, k1_launches=launches,
+                    k1_launches_by_cluster=clusters,
+                    step_builds=stream_cache_info()["step_builds"] - before,
+                    dispatches=out.dispatches,
+                    mean_vs_one_device_max_rel_err=worst)
+
+    def staged(mesh, name, n_dev):
+        explore(space, engine="staged", mesh=mesh, **kw)      # warm-up
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        out = explore(space, engine="staged", mesh=mesh, **kw)
+        wall = time.perf_counter() - t0
+        counts = dict(grid_decode=gd.COUNTS["kernel_launches"],
+                      block_stats=sr.COUNTS["kernel_launches"],
+                      twins=sum(m.COUNTS[key] for m in kernel_mods
+                                for key in m.COUNTS if "twin" in key))
+        check(counts == dict(grid_decode=n_dev * st.dispatches,
+                             block_stats=n_dev * st.dispatches, twins=0)
+              and out.dispatches == st.dispatches,
+              f"{name} staged: launches {counts}, {out.dispatches} "
+              f"dispatches")
+        worst = same(f"{name} staged", out, st, n_dev)
+        return dict(eval_s=out.eval_s, wall_s=wall,
+                    points_per_s=out.points_per_sec,
+                    dispatches=out.dispatches,
+                    mean_vs_one_device_max_rel_err=worst, **{
+                        f"{k}_launches": v for k, v in counts.items()})
+
+    visible = make_batch_mesh()
+    four = BatchMesh([torch.device("cuda", 0)] * 4)
+    split = visible if visible.size > 1 else four
+    n = split.size
+    name = ("cuda:0-" + str(n - 1) if split is visible
+            else "4 x cuda:0")
+    print(f"mesh_path: make_batch_mesh() spans {visible.size} visible "
+          f"GPU(s); BatchMesh([cuda:0] * 4) four shards on one card; "
+          f"campaign, serve and chunked on {name}", flush=True)
+    line = {"nvidia_smi": smi, "visible_gpus": visible.size,
+            "points": MEGA_POINTS, "chunk": CHUNK, "k": 3,
+            "split_mesh": name}
+    line["visible_fused"] = fused(visible, "make_batch_mesh()",
+                                  visible.size)
+    if visible.size == 1:
+        check(line["visible_fused"]["step_builds"] == 0,
+              "a one-entry mesh built a step of its own")
+    line["visible_staged"] = staged(visible, "make_batch_mesh()",
+                                    visible.size)
+    line["mesh4_fused"] = fused(four, "4 x cuda:0", 4)
+    line["mesh4_staged"] = staged(four, "4 x cuda:0", 4)
+
+    # 2. host syncs: the one-device sweep's and the split's, in finalize
+    # only; a profiled pass
+    one_syncs = count_syncs(lambda: explore(space, engine="fused", **kw))
+    split_syncs = count_syncs(lambda: explore(space, engine="fused",
+                                              mesh=split, **kw))
+    check(split_syncs == one_syncs and split_syncs < ordinals,
+          f"{name} fused: {split_syncs} host syncs, one device "
+          f"{one_syncs}")
+    line["split_host_syncs"] = split_syncs
+    line["one_device_host_syncs"] = one_syncs
+    line["split_fused_profile"] = profile_path(
+        "split_fused", lambda: explore(space, engine="fused", mesh=split,
+                                       **kw))
+
+    # 3. the chunked lane through evaluate_batch_sharded
+    explore(ch_space, k=3, mesh=split)                         # warm-up
+    reset_all(kernel_mods)
+    t0 = time.perf_counter()
+    ch_n = explore(ch_space, k=3, mesh=split)
+    ch_wall = time.perf_counter() - t0
+    k4 = (cr.COUNTS["kernel_launches"], cr.COUNTS["twin_calls"])
+    n_batches = 5 * -(-(CHUNKED_POINTS // 5) // CHUNK)
+    check(ch_n.engine == "chunked" and k4 == (n * n_batches, 0),
+          f"{name} chunked: {ch_n.engine}, K4 launches/twin {k4}")
+    line["split_chunked"] = dict(
+        points=ch_n.n_points, eval_s=ch_n.eval_s, wall_s=ch_wall,
+        k4_launches=k4[0], batches=n_batches,
+        mean_vs_one_device_max_rel_err=same(f"{name} chunked", ch_n, ch,
+                                            n))
+
+    # 4. a 12-shard serial campaign
+    root = Path(__file__).resolve().parent / "build" / "campaigns"
+    root.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root))
+    try:
+        reset_all(kernel_mods)
+        stream_cache_clear()
+        t0 = time.perf_counter()
+        camp = explore(space, engine="fused", mesh=split,
+                       checkpoint_dir=str(work / "mesh"), **kw)
+        camp_wall = time.perf_counter() - t0
+        rep, counts = camp.campaign, stream_cache_info()
+        manifest = json.loads((work / "mesh" / "manifest.json").read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(rep["n_planned"] == rep["n_executed"] == 12 and not rep["partial"]
+          and counts["preps"] == 1 and counts["twin_calls"] == 0
+          and manifest["torch"]["n_devices"] == n,
+          f"{name} campaign: {rep['n_executed']} shards, {counts}")
+    line["split_campaign"] = dict(
+        shards=rep["n_planned"], wall_s=camp_wall, eval_s=camp.eval_s,
+        dispatches=camp.dispatches, k1_launches=counts["kernel_launches"],
+        preps=counts["preps"],
+        mean_vs_one_device_max_rel_err=same(f"{name} campaign", camp, res,
+                                            n))
+
+    # 5. one serve wave of the 8 serve_bench tenants
+    spaces = [DesignSpace(["edgaze"], dict(SERVE_GRIDS, vdd_scale=[
+        0.80 + 0.002 * i, 1.0])) for i in range(SERVE_CLIENTS)]
+    skw = dict(k=8, engine="fused", chunk_size=SERVE_CHUNK)
+    solos = [explore(sp, **skw) for sp in spaces]
+    per_tenant = 5 * -(-(SERVE_POINTS // 5) // SERVE_CHUNK)
+    stream_cache_clear()
+    with ExploreService(coalesce_window_s=0.05, mesh=split) as svc:
+        explore(spaces[0], service=svc, **skw)                # warm
+        svc.cache.clear()
+        out = {}
+
+        def client(i):
+            out[i] = explore(spaces[i], service=svc, **skw)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wave_s = time.perf_counter() - t0
+        launches = fs.COUNTS["kernel_launches"]
+    check(len(out) == SERVE_CLIENTS and stream_cache_info()[
+        "step_builds"] == 1, f"{name} serve: {len(out)} tenants, "
+          f"{stream_cache_info()['step_builds']} step builds")
+    check(launches == n * SERVE_CLIENTS * per_tenant,
+          f"{name} serve: {launches} K1 launches")
+    for i, r in out.items():
+        check(r.serve["coalesce_group"] == SERVE_CLIENTS,
+              f"{name} serve tenant {i}: {r.serve}")
+        same(f"{name} serve tenant {i}", r, solos[i], n)
+    line["split_serve_wave"] = dict(
+        clients=SERVE_CLIENTS, wall_s=wave_s, k1_launches=launches,
+        eval_s=sum(r.eval_s for r in out.values()),
+        requests_per_s=SERVE_CLIENTS / wave_s, bit_equal_to_solo=True)
+    line["launches"] = dict(
+        fused_sweep=line["visible_fused"]["k1_launches"]
+        + line["mesh4_fused"]["k1_launches"]
+        + line["split_campaign"]["k1_launches"] + launches,
+        grid_decode=line["visible_staged"]["grid_decode_launches"]
+        + line["mesh4_staged"]["grid_decode_launches"],
+        block_stats=line["visible_staged"]["block_stats_launches"]
+        + line["mesh4_staged"]["block_stats_launches"],
+        category_reduce=k4[0])
+    emit({"mesh_path": line})
     return line
 
 
@@ -2964,6 +3210,11 @@ def main() -> int:
         "twin_calls": mo_counts[1], "vs_fused_max_rel_err": mo_worst,
         "scalar_oracle_rel_err": mo_oracle}})
 
+    # ----- 6b. the mesh split (P8): K1, K2/K3a and K4 once a shard ----------
+    mesh = mesh_path(space, res, st, ch_space, ch, kmods, kernel_mods,
+                     smi[0] if smi else None)
+    mesh_launches = mesh["launches"]
+
     # ----- 7. the functional simulator: K5-K8 -------------------------------
     func, run_functional, func_inputs = functional_path(fmods, kernel_mods)
 
@@ -3091,11 +3342,14 @@ def main() -> int:
         "name": "fused_sweep", "route": "cuda",
         "source": src + "fused_sweep.cu",
         "replaces": "src/repro/kernels/fused_sweep.py:47",
-        "launches": launches + sum(serve_k1.values()),
+        "launches": launches + sum(serve_k1.values())
+        + mesh_launches["fused_sweep"],
         "path": f"fused (main path {launches}) + serve (wave 1 "
                 f"{serve_k1['wave1']}, wave 2 {serve_k1['wave2']}, mega "
-                f"stream {serve_k1['mega_stream']})",
+                f"stream {serve_k1['mega_stream']}) + mesh "
+                f"({mesh_launches['fused_sweep']})",
         "serve_launches": serve_k1,
+        "mesh_launches": mesh_launches["fused_sweep"],
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "max_rel_err": max(r["max_rel_err"] for r in recs),
         "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": b_ms,
@@ -3118,20 +3372,26 @@ def main() -> int:
     for name, source, replaces, n_launch, cases, path in (
             ("grid_decode", "grid_decode.cu",
              "src/repro/kernels/grid_decode.py:73",
-             st_counts["decode"] + serve_staged["grid_decode"], k2,
+             st_counts["decode"] + serve_staged["grid_decode"]
+             + mesh_launches["grid_decode"], k2,
              f"staged ({st_counts['decode']}) + serve (staged request "
-             f"{serve_staged['grid_decode']})"),
+             f"{serve_staged['grid_decode']}) + mesh "
+             f"({mesh_launches['grid_decode']})"),
             ("block_stats", "stream_reduce.cu",
              "src/repro/kernels/stream_reduce.py:30",
-             st_counts["stats"] + serve_staged["block_stats"], k3a,
+             st_counts["stats"] + serve_staged["block_stats"]
+             + mesh_launches["block_stats"], k3a,
              f"staged ({st_counts['stats']}) + serve (staged request "
-             f"{serve_staged['block_stats']})"),
+             f"{serve_staged['block_stats']}) + mesh "
+             f"({mesh_launches['block_stats']})"),
             ("block_stats_banked", "stream_reduce.cu",
              "src/repro/kernels/stream_reduce.py:79", 0, k3b,
              "none (direct check only)"),
             ("category_reduce", "category_reduce.cu",
              "src/repro/kernels/category_reduce.py:22",
-             ch_counts[0] + mo_counts[0], k4, "chunked + monolithic")):
+             ch_counts[0] + mo_counts[0] + mesh_launches["category_reduce"],
+             k4, f"chunked ({ch_counts[0]}) + monolithic ({mo_counts[0]}) "
+             f"+ mesh ({mesh_launches['category_reduce']})")):
         extra = {}
         if name == "grid_decode":
             keys = ("ms", "device_ms", "plain_ms", "bound_ms")

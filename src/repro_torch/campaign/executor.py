@@ -1,5 +1,5 @@
-# Port of src/repro/campaign/executor.py: shards run on a torch device
-# (no mesh); workers set up CUDA and load the built kernels themselves.
+# Port of src/repro/campaign/executor.py: shards run on a BatchMesh;
+# workers set up CUDA and load the built kernels themselves.
 """Shard executors: serial, multi-process, and overlapped checkpoint I/O.
 
 The campaign runner (:mod:`repro_torch.campaign.runner`) is a scheduler
@@ -50,6 +50,7 @@ from typing import Deque, Dict, List, Optional
 import torch
 
 from ..core.shard_sweep import StreamResult, _stream_impl
+from ..launch.mesh import BatchMesh
 from .faults import ShardTimeout, classify_failure
 from .manifest import shard_path, write_shard
 
@@ -115,10 +116,10 @@ class _TimeoutRunner:
             pool.shutdown(wait=wait)
 
 
-def _dispatch(space, lo: int, hi: int, sweep: Dict, device,
+def _dispatch(space, lo: int, hi: int, sweep: Dict, mesh: BatchMesh,
               timeout_s: Optional[float], prep=None,
               timeouts: Optional[_TimeoutRunner] = None) -> StreamResult:
-    """Run one shard's sweep on ``device``, optionally under a wall-clock
+    """Run one shard's sweep on ``mesh``, optionally under a wall-clock
     budget.
 
     Goes straight to ``_stream_impl`` (the space was validated when the
@@ -128,13 +129,11 @@ def _dispatch(space, lo: int, hi: int, sweep: Dict, device,
     engine runs the recorded backend (``"cuda"`` or ``"torch"``); the
     staged one the kernels of its device.  A budgeted shard runs on
     another host thread, whose current CUDA device is its own, so the
-    shard sets it first.
+    shard sets it first (the mesh's first device, where the state
+    lives).
     """
-    device = torch.device(device)
-    index = None
-    if device.type == "cuda":
-        index = (device.index if device.index is not None
-                 else torch.cuda.current_device())
+    device = mesh.devices[0]
+    index = device.index if device.type == "cuda" else None
 
     def run() -> StreamResult:
         if index is not None:
@@ -147,7 +146,7 @@ def _dispatch(space, lo: int, hi: int, sweep: Dict, device,
             superchunk=int(sweep["superchunk"]),
             backend=(sweep["backend"] if sweep["engine"] == "fused"
                      else "auto"),
-            device=device, _prepared=prep)
+            mesh=mesh, _prepared=prep)
 
     if timeout_s is None:
         return run()
@@ -289,9 +288,9 @@ class SerialShardExecutor:
 
     can_kill_worker = False
 
-    def __init__(self, space, sweep: Dict, device, prep,
+    def __init__(self, space, sweep: Dict, mesh: BatchMesh, prep,
                  timeout_s: Optional[float]):
-        self._space, self._sweep, self._device = space, sweep, device
+        self._space, self._sweep, self._mesh = space, sweep, mesh
         self._prep, self._timeout_s = prep, timeout_s
         self._timeouts = _TimeoutRunner()
         self._done: Deque[ShardOutcome] = deque()
@@ -306,7 +305,7 @@ class SerialShardExecutor:
     def submit(self, task: ShardTask, *, die: bool = False) -> None:
         try:
             st = _dispatch(self._space, task.lo, task.hi, self._sweep,
-                           self._device, self._timeout_s, prep=self._prep,
+                           self._mesh, self._timeout_s, prep=self._prep,
                            timeouts=self._timeouts)
         except BaseException as exc:  # noqa: BLE001 - classified for the runner
             self._done.append(ShardOutcome(
@@ -330,9 +329,10 @@ def _worker_main(conn, init: Dict) -> None:
     """Worker-process entry point (spawned: no CUDA state inherited).
 
     Sets up its device (:func:`~repro_torch.kernels.runtime.
-    init_worker_process`: the CUDA device, the kernel libraries; a CUDA
-    device without a GPU fails the start-up), loads the campaign
-    manifest from disk, refuses if its space signature differs from the
+    init_worker_process`: the mesh's first CUDA device, the kernel
+    libraries; a CUDA device without a GPU fails the start-up), rebuilds
+    the campaign's mesh from its devices, loads the
+    campaign manifest from disk, refuses if its space signature differs from the
     one the parent planned against, prepares the stream ONCE, then
     serves ``("run", lo, hi, die)`` requests until ``("stop",)``.
     ``die=True`` SIGKILLs the process on receipt — the deterministic
@@ -346,8 +346,9 @@ def _worker_main(conn, init: Dict) -> None:
         from ..kernels.runtime import init_worker_process
         from .manifest import CampaignManifest, CampaignMismatchError
         sweep = dict(init["sweep"])
-        device = init_worker_process(init["device"], sweep["engine"],
-                                     sweep["backend"])
+        init_worker_process(init["devices"][0], sweep["engine"],
+                            sweep["backend"])
+        mesh = BatchMesh(init["devices"])
         manifest = CampaignManifest.load(init["directory"])
         if manifest.space_sig != init["space_sig"]:
             raise CampaignMismatchError(
@@ -358,7 +359,7 @@ def _worker_main(conn, init: Dict) -> None:
         space = manifest.rebuild_space()
         manifest.verify_space(space)
         prep = _prepare_stream(list(space.algorithms), space.grids,
-                               soc_node=space.soc_node, device=device)
+                               soc_node=space.soc_node, mesh=mesh)
         timeouts = _TimeoutRunner()
     except BaseException as exc:  # noqa: BLE001 - reported to the parent
         try:
@@ -380,7 +381,7 @@ def _worker_main(conn, init: Dict) -> None:
         if die:
             os.kill(os.getpid(), signal.SIGKILL)
         try:
-            st = _dispatch(space, lo, hi, sweep, device,
+            st = _dispatch(space, lo, hi, sweep, mesh,
                            init["timeout_s"], prep=prep,
                            timeouts=timeouts)
         except BaseException as exc:  # noqa: BLE001 - classified here
@@ -452,7 +453,7 @@ class ProcessShardExecutor:
     can_kill_worker = True
 
     def __init__(self, *, directory: str, space_sig: str, sweep: Dict,
-                 workers: int, device="cuda",
+                 workers: int, mesh: BatchMesh,
                  timeout_s: Optional[float] = None):
         import multiprocessing
         self._ctx = multiprocessing.get_context("spawn")
@@ -460,7 +461,10 @@ class ProcessShardExecutor:
             "directory": os.path.abspath(directory),
             "space_sig": space_sig,
             "sweep": dict(sweep),
-            "device": str(device),
+            # the reference sends the mesh's size and rebuilds the mesh
+            # over the worker's first devices; the port sends the mesh's
+            # devices, so a mesh that repeats a device crosses too
+            "devices": [str(d) for d in mesh.devices],
             "timeout_s": timeout_s,
         }
         self._workers: List[_WorkerHandle] = []

@@ -19,7 +19,8 @@ Manifest schema (``"schema": 1``)::
       "schema": 1,
       "created_unix": <float>,          # provenance only
       "git_sha": <str|null>,            # repo HEAD at campaign start
-      "torch": {"version", "cuda", "device", "n_devices"},
+      "torch": {"version", "cuda", "device", "n_devices"},  # the mesh's
+                                        # first device, its size
       "space": {                        # enough to REBUILD the DesignSpace
         "algorithms": [...], "soc_node": <int>,
         "grids": {axis: [values...]}    # the user's grids, verbatim
@@ -91,16 +92,17 @@ def _git_sha() -> Optional[str]:
         return None
 
 
-def _torch_fingerprint(device) -> Dict:
-    """torch and CUDA versions, and the campaign device's name and count
-    (``"cpu"`` and 1 on the CPU)."""
+def _torch_fingerprint(mesh) -> Dict:
+    """torch and CUDA versions, the name of the campaign mesh's first
+    device (``"cpu"`` on the CPU) and the mesh's size, the count of the
+    devices the reference's mesh spans."""
     import torch
-    device = torch.device(device)
+    device = mesh.devices[0]
     on_cuda = device.type == "cuda"
     return {"version": torch.__version__, "cuda": torch.version.cuda,
-            "device": (torch.cuda.get_device_name(device.index or 0)
+            "device": (torch.cuda.get_device_name(device.index)
                        if on_cuda else "cpu"),
-            "n_devices": torch.cuda.device_count() if on_cuda else 1}
+            "n_devices": mesh.size}
 
 
 def _grids_payload(grids: Optional[Dict]) -> Dict:
@@ -145,7 +147,7 @@ class CampaignManifest:
     # ----- construction ---------------------------------------------------
     @classmethod
     def create(cls, space, *, sweep: Dict, shard_points: int,
-               device="cpu") -> "CampaignManifest":
+               mesh) -> "CampaignManifest":
         return cls(
             space_payload={"algorithms": list(space.algorithms),
                            "soc_node": int(space.soc_node),
@@ -154,7 +156,7 @@ class CampaignManifest:
             bank_sig=bank_signature(space),
             sweep=dict(sweep), n_points=int(space.n_points),
             shards=plan_shards(space.n_points, shard_points),
-            git_sha=_git_sha(), torch=_torch_fingerprint(device),
+            git_sha=_git_sha(), torch=_torch_fingerprint(mesh),
             created_unix=round(time.time(), 2))
 
     def rebuild_space(self):

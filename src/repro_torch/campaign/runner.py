@@ -1,5 +1,6 @@
-# Port of src/repro/campaign/runner.py: campaigns run on a torch device,
-# record the port's lanes ("cuda" / "torch") and refuse the reference's.
+# Port of src/repro/campaign/runner.py: campaigns run on a torch device
+# or a BatchMesh, record the port's lanes ("cuda" / "torch") and refuse
+# the reference's.
 """The campaign runner: durable, fault-tolerant mega-sweep execution.
 
 ``run_campaign(space, checkpoint_dir)`` turns one ``explore()`` call
@@ -51,7 +52,8 @@ from ..ckpt import atomic_write_json
 from ..core.shard_sweep import (_DEFAULT_SUPERCHUNK, StreamResult,
                                 _prepare_stream)
 from ..kernels.runtime import (explicit_backend, load_sweep_kernels,
-                               resolve_backend, resolve_device)
+                               resolve_backend)
+from ..launch.mesh import resolve_mesh
 from .executor import (CheckpointWriter, ProcessShardExecutor,
                        SerialShardExecutor, ShardTask, _dispatch,
                        resolve_workers)
@@ -111,9 +113,11 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
                  backend: str = "auto",
                  workers: Optional[int] = None,
                  options: Optional[CampaignOptions] = None,
-                 on_corrupt: str = "refuse", device="cuda"):
+                 on_corrupt: str = "refuse", device=None):
     """Run (or resume) a durable sharded sweep campaign on ``device``
-    (``"cuda"`` unless the caller asks for ``"cpu"``).
+    (``"cuda"`` unless the caller asks for ``"cpu"``), or on ``mesh``
+    (a :class:`repro_torch.launch.BatchMesh`: every chunk of every shard
+    split across its devices, as the reference's ``mesh=``).
 
     Returns the same :class:`~repro_torch.explore.api.ExploreResult` an
     unsharded ``explore()`` call would, with the campaign report on
@@ -130,9 +134,10 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
     on the other lane, and a manifest the reference wrote (``"pallas"``
     / ``"xla"`` or no backend) raise :class:`CampaignMismatchError`
     instead of merging shards computed by different code;
-    ``backend="auto"`` on resume reuses the recorded lane.  ``mesh=``
-    (multi-device campaigns) raises ``NotImplementedError`` until
-    ROADMAP P8 ports the multi-device split.
+    ``backend="auto"`` on resume reuses the recorded lane.  The mesh's
+    size is recorded in the manifest (``torch.n_devices``) and on the
+    merged result (``n_devices``); like the worker count it is an
+    execution property, so a resume may run on another mesh.
 
     ``workers`` widens shard execution across that many persistent
     worker processes (argument > ``options.workers`` >
@@ -146,11 +151,8 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
     ``'redispatch'`` discards it and re-runs that range.
     """
     from ..explore.api import _stream_to_explore
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to repro_torch yet (ROADMAP P8, "
-            "multi-device sweeps); campaigns run on one device")
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    device = mesh.devices[0]
     lane = "cuda" if device.type == "cuda" else "torch"
     if on_corrupt not in ("refuse", "redispatch"):
         raise ValueError(f"on_corrupt must be 'refuse' or 'redispatch', "
@@ -231,7 +233,7 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
         shard_points = int(opts.shard_points or 4 * chunk)
         manifest = CampaignManifest.create(space, sweep=sweep,
                                            shard_points=shard_points,
-                                           device=device)
+                                           mesh=mesh)
         manifest.save(checkpoint_dir)
 
     # ----- load completed shards (verified), derive the work queue --------
@@ -260,16 +262,16 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
         executor = ProcessShardExecutor(
             directory=checkpoint_dir, space_sig=manifest.space_sig,
             sweep=sweep, workers=min(n_workers, len(pending)),
-            device=device, timeout_s=opts.timeout_s)
+            mesh=mesh, timeout_s=opts.timeout_s)
     else:
         # serial lane: one lowering/bank/table build for the WHOLE
         # campaign — every shard (and every OOM half-shard) dispatches
         # against this shared prep, so per-shard fixed cost drops to
         # the O(k) finalization
         prep = (_prepare_stream(list(space.algorithms), space.grids,
-                                soc_node=space.soc_node, device=device)
+                                soc_node=space.soc_node, mesh=mesh)
                 if pending else None)
-        executor = SerialShardExecutor(space, sweep, device, prep,
+        executor = SerialShardExecutor(space, sweep, mesh, prep,
                                        opts.timeout_s)
     writer = CheckpointWriter(checkpoint_dir)
     executed: List[Dict] = []
@@ -418,13 +420,13 @@ def run_campaign(space, checkpoint_dir: str, *, k: int = 16,
 def resume(manifest_path: str, *, space=None, mesh=None,
            backend: str = "auto", workers: Optional[int] = None,
            options: Optional[CampaignOptions] = None,
-           on_corrupt: str = "refuse", device="cuda"):
+           on_corrupt: str = "refuse", device=None):
     """Resume a campaign from its manifest (path or directory).
 
     Rebuilds the :class:`DesignSpace` from the manifest payload when
     ``space`` is not given, verifies signatures, re-dispatches ONLY the
     index ranges without a verified shard checkpoint, and returns the
-    merged result.  Raises :class:`CampaignMismatchError` when the
+    merged result, on ``device`` or ``mesh`` as :func:`run_campaign`.  Raises :class:`CampaignMismatchError` when the
     current code resolves the space or plan-bank layout differently
     from the manifest.
     """

@@ -6,10 +6,12 @@ verbatim copy of the reference's jax-free modules; ``axes``, ``grid``,
 the reference's jax modules on the fused streaming sweep path.
 
 The package exports the reference's names (``repro/core/__init__.py``):
-the model layer eagerly, the batched engine lazily.  Names whose layer is
-not ported (``evaluate_batch_sharded``, ROADMAP P8; the reference's
-deprecated ``sweep`` and ``sweep_stream`` shims) resolve to functions
-that raise ``NotImplementedError`` naming what to use instead.
+the model layer eagerly, the batched engine lazily
+(``evaluate_batch_sharded`` splits a batch across a
+:class:`repro_torch.launch.BatchMesh`).  The reference's deprecated
+``sweep`` and ``sweep_stream`` shims, left out of the port on purpose,
+resolve to functions that raise ``NotImplementedError`` naming what to
+use instead.
 """
 from .acell import (ACell, DynamicCell, NonLinearCell, StaticCell,
                     component_energy, thermal_noise_capacitance)

@@ -196,6 +196,21 @@ def _log(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, out)
 
 
+def _pow10(x: torch.Tensor) -> torch.Tensor:
+    """``10 ** x`` in f32, a point's value independent of its batch.
+
+    On the CPU torch's f32 ``pow`` takes a vector routine for whole
+    vectors and a scalar one for a loop's remainder, which differ by one
+    ulp on about 1% of inputs: a point's value then depends on where it
+    falls in its batch, and a batch split into shards (or chunks) would
+    change it.  The f64 ``pow`` rounded to f32 is correctly rounded on
+    both routines.  On CUDA each thread computes its own point:
+    ``torch.pow``."""
+    if x.device.type != "cpu":
+        return torch.pow(10.0, x)
+    return torch.pow(10.0, x.double()).to(torch.float32)
+
+
 def _segment_widths(xs):
     """``device -> (n - 1,)`` f32 tensor of the knots' segment widths,
     built once per device (the interpolation divides by a tensor, never
@@ -245,7 +260,7 @@ def _make_fom_interp():
     xs, ys = _fom_points()
     widths = _segment_widths(xs)
     # log10 as the reference evaluates it: log(x) * f32(1 / ln 10)
-    return lambda rate: torch.pow(10.0, _piecewise_interp(
+    return lambda rate: _pow10(_piecewise_interp(
         _log(rate) * INV_LN10_F32, xs, ys, widths(rate.device)))
 
 
@@ -578,8 +593,7 @@ def _walden_fom(rate: torch.Tensor) -> torch.Tensor:
     """Median Walden FoM at ``rate``: log-log interpolation, with
     ``log10`` as the reference evaluates it (``log(x) * f32(1/ln 10)``)."""
     log_r, log_e = _knots(rate.device)["fom"]
-    return torch.pow(10.0, _interp(_log(rate) * INV_LN10_F32, log_r,
-                                   log_e))
+    return _pow10(_interp(_log(rate) * INV_LN10_F32, log_r, log_e))
 
 
 # ---------------------------------------------------------------------------
@@ -834,14 +848,33 @@ def evaluate_batch(plan: EnergyPlan, points: DesignPoints,
     evaluator, once per plan) and ``eval_s`` (the evaluation and the copy
     to the host).
     """
+    return evaluate_split(plan, points, (points.cis_node.device,),
+                          keep_unit_energies=keep_unit_energies,
+                          timings=timings, hooks=hooks)
+
+
+def evaluate_split(plan: EnergyPlan, points: DesignPoints, devices,
+                   keep_unit_energies: bool = False,
+                   timings: Optional[Dict[str, float]] = None,
+                   hooks: Optional[bool] = None) -> Dict[str, np.ndarray]:
+    """:func:`evaluate_batch` with the batch split into ``len(devices)``
+    equal shards (the batch must divide), shard *i* scored on
+    ``devices[i]``.  Every shard is enqueued before the first comes back;
+    the outputs are concatenated on the host in shard order."""
     t0 = time.perf_counter()
     fn = eval_fn(plan)
     compile_s = time.perf_counter() - t0
     hooks = _hooks_active(points) if hooks is None else bool(hooks)
     t0 = time.perf_counter()
-    out = fn(points, keep_unit_energies=bool(keep_unit_energies),
-             hooks=hooks)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    shard = points.batch // len(devices)
+    outs = [fn(DesignPoints(*(x[i * shard:(i + 1) * shard].to(
+        dev, non_blocking=True) for x in points)),
+        keep_unit_energies=bool(keep_unit_energies), hooks=hooks)
+        for i, dev in enumerate(devices)]
+    out = {}
+    for key in outs[0]:
+        parts = [o[key].cpu().numpy() for o in outs]
+        out[key] = parts[0] if len(parts) == 1 else np.concatenate(parts)
     eval_s = time.perf_counter() - t0
     if timings is not None:
         timings["compile_s"] = timings.get("compile_s", 0.0) + compile_s

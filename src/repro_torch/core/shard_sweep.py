@@ -39,8 +39,19 @@ _prepared=)``; the serve layer streams partial top-k through its
 ``on_partial`` hook.  The shape-only per-sweep state (the coefficient
 compute, K1's plan and fixed launch parameters, the staged evaluator) is
 built once per shape key (:func:`_step`), the counterpart of the
-reference's step-executable cache.  There is no device mesh yet
-(ROADMAP P8).
+reference's step-executable cache.
+
+**The batch mesh** (``mesh=``, a :class:`~repro_torch.launch.mesh.
+BatchMesh`; a bare ``device=`` is a one-entry mesh): as the reference's
+``shard_map`` over its ``("batch",)`` axis, every chunk splits into
+``mesh.size`` equal shards and shard *i* runs on ``mesh.devices[i]``
+against that device's replica of the tables and the bank.  The chunk is
+rounded up to a multiple of the mesh size (it may run past the variant,
+the mask decides), each shard keeps its own ``bp`` and ``kk``, and the
+shards' O(k) partials move to ``devices[0]`` and merge there in shard
+order (:func:`_combine_shards`).  One process drives every shard, and
+the sweep keeps its one host sync.  :func:`evaluate_batch_sharded` is
+the grid engines' split.
 """
 from __future__ import annotations
 
@@ -61,10 +72,13 @@ from ..kernels.fused_sweep import (COUNTS, fused_sweep_block_torch,
 from ..kernels.fused_sweep import plan as k1_plan
 from ..kernels.fused_sweep import run as k1_run
 from ..kernels.grid_decode import grid_decode
-from ..kernels.runtime import resolve_backend, resolve_device
+from ..kernels.runtime import resolve_backend
 from ..kernels.stream_reduce import block_stats
+from ..launch.mesh import BatchMesh, make_batch_mesh, resolve_mesh
+from ..launch.mesh import device_key as _device_key
 from .axes import AXES
-from .batch import (OUT_KEYS, build_banked_eval, build_coeff_compute,
+from .batch import (OUT_KEYS, DesignPoints, build_banked_eval,
+                    build_coeff_compute, evaluate_split,
                     points_from_axis_rows)
 from .grid import (_normalize_grids, axis_tables, fused_table2,
                    lower_variant, variant_grid)
@@ -116,32 +130,34 @@ def _bump(field: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class _Step:
     """What a sweep of one shape key needs beyond its prep.  Fused:
-    ``launch(table2, row, start, low, limit)`` (K1 under its plan, or the
-    twin) and the coefficient-form ``compute`` its finalize re-gathers
-    the winners with; staged: ``eval_uniform`` (its state keeps the
-    winners' rows, so it needs no compute)."""
+    ``launches[i](table2, row, start, low, limit)`` for shard ``i`` (K1
+    under the plan of the shard's device, or the twin) and the
+    coefficient-form ``compute`` its finalize re-gathers the winners
+    with; staged: ``eval_uniform`` (its state keeps the winners' rows,
+    so it needs no compute)."""
     compute: Optional[Callable] = None
-    launch: Optional[Callable] = None
+    launches: Tuple[Callable, ...] = ()
     eval_uniform: Optional[Callable] = None
 
 
-def _device_key(device: torch.device) -> str:
-    """A device as a step key names it: a bare ``cuda`` is the current
-    CUDA device."""
-    if device.type == "cuda" and device.index is None:
-        return f"cuda:{torch.cuda.current_device()}"
-    return str(device)
+def _mesh_key(mesh: BatchMesh):
+    """A mesh as a step key names it: the device keys of its shards, in
+    order.  A one-entry mesh is its device's key alone, the key a bare
+    ``device=`` has always given, so one-device sweeps, campaigns and
+    served requests share their steps as before."""
+    keys = tuple(_device_key(d) for d in mesh.devices)
+    return keys[0] if len(keys) == 1 else keys
 
 
-def _fused_key(backend: str, device: torch.device, chunk: int, metric: str,
+def _fused_key(backend: str, mesh: BatchMesh, chunk: int, metric: str,
                k: int, block_points: int, dims, shape: Sequence[int],
                n_var: int, lmax: int, s_len: int, cpv: int,
                wide: bool) -> tuple:
     """The fused engine's step key: the shape-only quantities of the
-    reference's ``_fused_exec`` key (``repro/core/shard_sweep.py:639``),
-    with the device in place of the mesh.  ``repro_torch.serve.coalesce.
-    compat_key`` is this key, so equal compat keys share one step."""
-    return ("fused", backend, _device_key(device), int(chunk), metric,
+    reference's ``_fused_exec`` key (``repro/core/shard_sweep.py:639``).
+    ``repro_torch.serve.coalesce.compat_key`` is this key, so equal
+    compat keys share one step."""
+    return ("fused", backend, _mesh_key(mesh), int(chunk), metric,
             int(k), int(block_points), tuple(int(d) for d in dims),
             tuple(int(s) for s in shape), int(n_var), int(lmax), int(s_len),
             int(cpv), "int64" if wide else "int32")
@@ -163,26 +179,31 @@ def _step(key: tuple, build: Callable[[], _Step]) -> _Step:
         return step
 
 
-def _fused_step(backend: str, device: torch.device, dims, *, metric: str,
-                shape: Sequence[int], n_var: int, total: int, chunk: int,
+def _fused_step(backend: str, mesh: BatchMesh, dims, *, metric: str,
+                shape: Sequence[int], n_var: int, total: int, shard: int,
                 lmax: int, table_cols: int, bp: int, kk: int,
                 idx_dtype) -> _Step:
-    """Build a fused step: the compute and, on the ``cuda`` lane, K1's
-    plan for the card and its fixed launch parameters (built and checked
-    here, so a shape the kernel does not take fails before any launch)."""
+    """Build a fused step: the compute and one launch a shard of
+    ``shard`` points.  On the ``cuda`` lane each distinct device gets
+    K1's plan for its SMs, with the fixed launch parameters built and
+    checked here, so a shape the kernel does not take fails before any
+    launch."""
     compute = build_coeff_compute(dims)
     kw = dict(compute=compute, metric=metric, axis_names=AXES, shape=shape,
-              n_var=n_var, total=total, chunk=chunk, lmax=lmax,
+              n_var=n_var, total=total, chunk=shard, lmax=lmax,
               block_points=bp, kk=kk, idx_dtype=idx_dtype)
     if backend != "cuda":
-        return _Step(compute, functools.partial(fused_sweep_block_torch,
-                                                **kw))
-    p = k1_plan(bp, kk, chunk, sm_count(device))
-    kernel_params(dims, metric=metric, shape=shape, n_var=n_var,
-                  total=total, chunk=chunk, lmax=lmax,
-                  table_cols=table_cols, bp=bp, kk=kk, start=0, low=0,
-                  limit=0, p=p)
-    return _Step(compute, functools.partial(k1_run, p=p, **kw))
+        twin = functools.partial(fused_sweep_block_torch, **kw)
+        return _Step(compute, (twin,) * mesh.size)
+    launches = {}
+    for dev in mesh.distinct:
+        p = k1_plan(bp, kk, shard, sm_count(dev))
+        kernel_params(dims, metric=metric, shape=shape, n_var=n_var,
+                      total=total, chunk=shard, lmax=lmax,
+                      table_cols=table_cols, bp=bp, kk=kk, start=0, low=0,
+                      limit=0, p=p)
+        launches[dev] = functools.partial(k1_run, p=p, **kw)
+    return _Step(compute, tuple(launches[d] for d in mesh.devices))
 
 
 def _validate_index_range(index_range, total: int) -> Tuple[int, int]:
@@ -266,6 +287,59 @@ def _fold_chunk(cv, cl, sums, counts, s0: int, bp: int, kk: int,
                 counts=torch.sum(counts))
 
 
+def _chunk_geometry(chunk_size: int, n_var: int, ndev: int) -> int:
+    """The chunk a sweep on ``ndev`` shards takes
+    (``repro/core/shard_sweep.py:952-963``): ``chunk_size`` rounded up to
+    a multiple of ``ndev``, clamped to the per-variant span rounded the
+    same way.  A chunk may so run past its variant; the mask decides."""
+    chunk = -(-max(int(chunk_size), 1) // ndev) * ndev
+    return min(chunk, -(-n_var // ndev) * ndev)
+
+
+def _first_min(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.argmin``'s pick over a 1-D tensor, as a 0-d tensor: the first
+    NaN if there is one, else the first minimum (not
+    :func:`~repro_torch.kernels.fused_sweep.sort_total`'s order, which
+    ranks a positive NaN last).  Tensor ops only, so nothing syncs."""
+    nan = torch.isnan(x)
+    return torch.where(torch.any(nan), torch.argmax(nan.to(torch.int32)),
+                       torch.argmin(x))
+
+
+def _combine_shards(parts: List[Dict[str, torch.Tensor]],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """The ``(ndev,)`` partials of one chunk's shards as one partial on
+    ``device``, as the reference's merge reads them
+    (``repro/core/shard_sweep.py:349-378``): candidates (and their output
+    rows) in shard order, the minimum and its flat index from the shard
+    ``jnp.argmin`` picks, sums and counts summed over the shards.  The
+    copies to ``device`` are ordered on the streams without a host wait.
+    One shard's partial is returned as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    parts = [{key: val.to(device, non_blocking=True)
+              for key, val in part.items()} for part in parts]
+    mins = torch.stack([part["mins"] for part in parts])
+    pick = _first_min(mins).view(1)
+    out = {key: torch.cat([part[key] for part in parts])
+           for key in ("cand_v", "cand_i", "cand_out") if key in parts[0]}
+    out["mins"] = mins.index_select(0, pick)[0]
+    out["amin_i"] = torch.stack([part["amin_i"] for part in parts]
+                                ).index_select(0, pick)[0]
+    for key in ("sums", "counts"):
+        out[key] = torch.sum(torch.stack([part[key] for part in parts]))
+    return out
+
+
+def _xla_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """XLA's ``min`` (the reference's ``.at[v].min``): a NaN propagates
+    and ``-0`` is below ``+0`` whichever operand holds it, where
+    ``torch.minimum`` keeps the first of two equal zeros.  Equal values
+    OR their bits, which only turns ``+0`` and ``-0`` into ``-0``."""
+    both = (a.view(torch.int32) | b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, both, torch.minimum(a, b))
+
+
 def _merge_candidates(c: Dict[str, torch.Tensor], v: int,
                       state: Dict[str, torch.Tensor], k: int) -> None:
     """Fold one chunk's O(k) partials into the running state, in place.
@@ -287,25 +361,29 @@ def _merge_candidates(c: Dict[str, torch.Tensor], v: int,
     nf[v] += c["counts"].to(nf.dtype)
     state["metric_sum"][v] += c["sums"]
     old_min = state["metric_min"][v].clone()
-    state["metric_min"][v] = torch.minimum(old_min, c["mins"])
+    state["metric_min"][v] = _xla_min(old_min, c["mins"])
     state["argmin"][v] = torch.where(c["mins"] < old_min, c["amin_i"],
                                      state["argmin"][v])
 
 
 def _staged_chunk(prep: "_StreamPrep", eval_uniform, start: int,
                   limit: int, *, chunk: int, bp: int, kk: int, metric: str,
-                  idx_dtype) -> Dict[str, torch.Tensor]:
-    """One staged chunk ``[start, start + chunk)`` of variant
-    ``start // n_var``: decode (K2), the banked evaluator against the
-    variant's row, block stats (K3a) and the chunk's top-kk with their
-    full output rows.  Points at or past ``limit`` are masked."""
-    dev = prep.table2.device
-    vals, _vid = grid_decode(prep.table2, start, shape=prep.vgrids[0].shape,
+                  idx_dtype, variant: int,
+                  replica: Tuple[torch.Tensor, PlanBank]
+                  ) -> Dict[str, torch.Tensor]:
+    """One staged shard ``[start, start + chunk)`` of ``variant`` (its
+    chunk's; a tail shard may start past the variant): decode (K2), the
+    banked evaluator against the variant's row, block stats (K3a) and
+    the top-kk with their full output rows, on the device of
+    ``replica``, the shard's ``(table2, bank)``.  Points at or past
+    ``limit`` are masked."""
+    table2, bank = replica
+    dev = table2.device
+    vals, _vid = grid_decode(table2, start, shape=prep.vgrids[0].shape,
                              n_var=prep.n_var, total=prep.total, chunk=chunk,
                              lmax=prep.lmax, idx_dtype=idx_dtype)
     flat = torch.arange(chunk, dtype=idx_dtype, device=dev) + start
-    out = eval_uniform(prep.bank, start // prep.n_var,
-                       points_from_axis_rows(vals))
+    out = eval_uniform(bank, variant, points_from_axis_rows(vals))
     ok = out["feasible"] & (flat < limit)
     metric_v = out[metric].to(torch.float32)
     mins, amins, sums, counts = block_stats(metric_v, ok, block_points=bp)
@@ -327,7 +405,12 @@ def _staged_chunk(prep: "_StreamPrep", eval_uniform, start: int,
 
 @dataclasses.dataclass
 class _StreamPrep:
-    """Lowered, device-resident sweep inputs (see :func:`_prepare_stream`)."""
+    """Lowered, device-resident sweep inputs (see :func:`_prepare_stream`).
+
+    ``table2`` and ``bank`` live on the first device of the mesh the prep
+    was made for; ``replicas`` holds what a launch reads (the axis table
+    and the bank) once for each distinct device, that one included, so a
+    repeated device shares one replica."""
     algos: List[str]
     labels: List[str]
     valgos: List[str]
@@ -340,14 +423,31 @@ class _StreamPrep:
     bank: PlanBank
     lmax: int
     table2: torch.Tensor         # (n_axes, V * Lmax) megakernel layout
+    replicas: Dict[torch.device, Tuple[torch.Tensor, PlanBank]]
+
+    def shards(self, mesh: BatchMesh
+               ) -> List[Tuple[torch.Tensor, PlanBank]]:
+        """``(table2, bank)`` for each shard of ``mesh``, copying them
+        once to a device the prep holds no replica on yet."""
+        with _STREAM_LOCK:
+            for dev in mesh.distinct:
+                if dev not in self.replicas:
+                    arrays = {key: val.to(dev)
+                              for key, val in self.bank.arrays.items()}
+                    self.replicas[dev] = (self.table2.to(dev),
+                                          dataclasses.replace(
+                                              self.bank, arrays=arrays))
+            return [self.replicas[dev] for dev in mesh.devices]
 
 
 def _prepare_stream(algorithm: Union[str, Sequence[str]] = "edgaze",
                     grids: Optional[Dict[str, Sequence]] = None, *,
-                    soc_node: int = 22, device="cuda") -> _StreamPrep:
-    """Resolve + lower a sweep's variant set once, onto ``device``
-    (``cuda`` unless the caller asks for ``"cpu"``)."""
-    device = resolve_device(device)
+                    soc_node: int = 22, device=None,
+                    mesh: Optional[BatchMesh] = None) -> _StreamPrep:
+    """Resolve + lower a sweep's variant set once, onto every distinct
+    device of ``mesh`` (default: a one-entry mesh on ``device``, which
+    is ``cuda`` unless the caller asks for ``"cpu"``)."""
+    mesh = resolve_mesh(mesh, device)
     algos = [algorithm] if isinstance(algorithm, str) else list(algorithm)
     labels: List[str] = []
     valgos: List[str] = []
@@ -370,13 +470,17 @@ def _prepare_stream(algorithm: Union[str, Sequence[str]] = "edgaze",
     n_variants = len(plans)
     tables = axis_tables(vgrids)
     _bump("preps")
-    return _StreamPrep(
+    device = mesh.devices[0]
+    bank = build_plan_bank(plans, device=device)
+    table2 = torch.from_numpy(fused_table2(tables)).to(device)
+    prep = _StreamPrep(
         algos=algos, labels=labels, valgos=valgos, vnames=vnames,
         vgrids=vgrids, n_var=n_var, n_variants=n_variants,
-        total=n_variants * n_var, tables=tables,
-        bank=build_plan_bank(plans, device=device),
-        lmax=int(tables.shape[2]),
-        table2=torch.from_numpy(fused_table2(tables)).to(device))
+        total=n_variants * n_var, tables=tables, bank=bank,
+        lmax=int(tables.shape[2]), table2=table2,
+        replicas={device: (table2, bank)})
+    prep.shards(mesh)
+    return prep
 
 
 def best_by_algorithm_summaries(summaries: Dict[str, Dict],
@@ -530,26 +634,32 @@ def _finalize(prep: _StreamPrep, host: Dict[str, np.ndarray], compute,
 
 
 class _Pacer:
-    """Bounds the dispatches in flight on a CUDA device: one event is
-    recorded after each, and the host waits on the oldest once more than
-    ``depth`` are pending (the reference blocks on the oldest dispatch's
-    counts, ``repro/core/shard_sweep.py:1097-1101``).  On the CPU every
-    dispatch has finished when it returns, so nothing is recorded."""
+    """Bounds the dispatches in flight on CUDA devices: after each one an
+    event is recorded on the current stream of every device in
+    ``devices`` (the mesh's distinct devices), and the host waits on the
+    oldest dispatch's events once more than ``depth`` are pending (the
+    reference blocks on the oldest dispatch's counts,
+    ``repro/core/shard_sweep.py:1097-1101``).  On the CPU every dispatch
+    has finished when it returns, so nothing is recorded."""
 
-    def __init__(self, device: torch.device, depth: int):
-        self.on_cuda = device.type == "cuda"
+    def __init__(self, devices: Sequence[torch.device], depth: int):
+        self.devices = list(devices)
+        self.on_cuda = self.devices[0].type == "cuda"
         self.depth = int(depth)
-        self.device = device
-        self.inflight: List[torch.cuda.Event] = []
+        self.inflight: List[List[torch.cuda.Event]] = []
 
     def dispatched(self) -> None:
         if not self.on_cuda:
             return
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        self.inflight.append(ev)
+        events = []
+        for dev in self.devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        self.inflight.append(events)
         if len(self.inflight) > self.depth:
-            self.inflight.pop(0).synchronize()
+            for ev in self.inflight.pop(0):
+                ev.synchronize()
 
 
 def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
@@ -559,7 +669,8 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                  block_points: int = 4096,
                  index_range: Optional[Tuple[int, int]] = None,
                  superchunk: Optional[int] = None, backend: str = "auto",
-                 engine: str = "fused", device="cuda",
+                 engine: str = "fused", device=None,
+                 mesh: Optional[BatchMesh] = None,
                  progress: Optional[Callable[[int, int], None]] = None,
                  pipeline_depth: int = 4,
                  on_partial: Optional[
@@ -571,13 +682,21 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
 
     ``algorithm`` may be a list: every variant of every algorithm is
     stacked into one PlanBank and interleaved in one variant-major flat
-    index space.  ``chunk_size`` is clamped to the per-variant span.
+    index space.  ``chunk_size`` is rounded up to a multiple of the mesh
+    size and clamped to the per-variant span (so rounded).
     ``index_range=(lo, hi)`` streams only that slice of the flat index
     space.  ``block_points`` is the kernels' reduction block.
 
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.BatchMesh`) splits every
+    chunk into ``mesh.size`` shards, shard *i* on ``mesh.devices[i]``;
+    without it the sweep runs on ``device`` (default ``"cuda"``) alone.
+    A ``device`` beside a ``mesh`` must name the mesh's first device,
+    where the state lives.
+
     Fused: each dispatch covers ``superchunk`` chunk ordinals (default:
     all of them, capped at 16) and launches the megakernel once per LIVE
-    ordinal; ``backend`` is ``"cuda"`` (the CUDA kernel), ``"torch"``
+    ordinal (once a shard: ``mesh.size`` launches); ``backend`` is
+    ``"cuda"`` (the CUDA kernel), ``"torch"``
     (the twin) or ``"auto"`` (``cuda`` on a CUDA device, ``torch`` on the
     CPU).  Staged: one dispatch per chunk, chunks aligned to variant
     boundaries; the kernels of the device run (twins on the CPU), so
@@ -600,7 +719,7 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     Without a hook the sweep keeps its one host sync.
 
     ``_prepared`` is the campaign runner's hoist hook: a
-    :class:`_StreamPrep` built once on ``device`` for the SAME
+    :class:`_StreamPrep` built once (for the mesh) for the SAME
     ``(algorithm, grids, soc_node)`` skips the per-call lowering, bank
     build and table transpose (callers are responsible for that match).
     """
@@ -608,7 +727,8 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     if engine not in ("fused", "staged"):
         raise ValueError(f"unknown engine {engine!r}; "
                          f"valid: ['fused', 'staged']")
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    device, ndev = mesh.devices[0], mesh.size
     if engine == "staged":
         if backend not in (None, "auto"):
             raise ValueError(
@@ -625,19 +745,22 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
     t0 = time.perf_counter()
     prep = (_prepared if _prepared is not None
             else _prepare_stream(algorithm, grids, soc_node=soc_node,
-                                 device=device))
+                                 mesh=mesh))
     if engine == "fused" and backend == "cuda":
         load_kernel_library()          # first use builds it: set-up time
     n_var, n_variants, total = prep.n_var, prep.n_variants, prep.total
     bank, lmax, table2 = prep.bank, prep.lmax, prep.table2
-    chunk = min(max(int(chunk_size), 1), n_var)
+    shards = prep.shards(mesh)            # (table2, bank) a shard
+    chunk = _chunk_geometry(chunk_size, n_var, ndev)
+    shard = chunk // ndev
     lo, hi = _validate_index_range(index_range, total)
     # int32 must hold start + chunk - 1 BEFORE tail clamping/masking
     wide = total + chunk >= 2 ** 31
     idx_dtype = torch.int64 if wide else torch.int32
 
-    bp = max(min(block_points, chunk), 1)
-    kk = min(k, chunk)
+    # a shard keeps its own block and candidates: it holds `shard` points
+    bp = max(min(block_points, shard), 1)
+    kk = min(k, shard)
     shape = prep.vgrids[0].shape
     state = _init_banked_state(k, n_variants, idx_dtype, device,
                                with_out=engine == "staged")
@@ -656,7 +779,7 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         dispatched = n_dispatches * s_len * chunk
         return StreamResult(
             algorithm="+".join(prep.algos), metric=metric, k=k,
-            n_points=covered, n_feasible=n_feasible, n_devices=1,
+            n_points=covered, n_feasible=n_feasible, n_devices=ndev,
             chunk_size=chunk, topk=rows, summaries=summaries,
             wall_s=time.perf_counter() - t_start, compile_s=compile_s,
             eval_s=eval_s, n_variants=n_variants, index_lo=lo, index_hi=hi,
@@ -691,27 +814,34 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
         s_len = (max(1, int(superchunk)) if superchunk
                  else min(max(n_chunks, 1), _DEFAULT_SUPERCHUNK))
         step = _step(
-            _fused_key(backend, device, chunk, metric, k, block_points,
+            _fused_key(backend, mesh, chunk, metric, k, block_points,
                        bank.dims, shape, n_var, lmax, s_len, cpv, wide),
-            lambda: _fused_step(backend, device, bank.dims, metric=metric,
+            lambda: _fused_step(backend, mesh, bank.dims, metric=metric,
                                 shape=shape, n_var=n_var, total=total,
-                                chunk=chunk, lmax=lmax,
+                                shard=shard, lmax=lmax,
                                 table_cols=table2.shape[1], bp=bp, kk=kk,
                                 idx_dtype=idx_dtype))
         compile_s = time.perf_counter() - t0
+        launches = tuple(zip(step.launches, shards))
 
         t0 = time.perf_counter()
-        pace = _Pacer(device, pipeline_depth)
+        pace = _Pacer(mesh.distinct, pipeline_depth)
         for d0 in range(c_lo, c_hi, s_len):
             for c in range(d0, min(d0 + s_len, c_hi)):   # dead: nothing
                 vi, r = divmod(c, cpv)
                 start = vi * n_var + r * chunk
                 limit = min(hi, (vi + 1) * n_var)
-                cv, cl, sums, counts = step.launch(
-                    table2, bank.fused[vi], start, lo, limit)
-                _merge_candidates(_fold_chunk(cv, cl, sums, counts, start,
-                                              bp, kk, idx_dtype),
-                                  vi, state, k)
+                # every shard of a live chunk launches, an all-masked
+                # tail shard too, as shard_map runs them all
+                parts = []
+                for i, (launch, (t2, bk)) in enumerate(launches):
+                    s0 = start + i * shard
+                    cv, cl, sums, counts = launch(t2, bk.fused[vi], s0, lo,
+                                                  limit)
+                    parts.append(_fold_chunk(cv, cl, sums, counts, s0, bp,
+                                             kk, idx_dtype))
+                _merge_candidates(_combine_shards(parts, device), vi, state,
+                                  k)
             dispatches += 1
             _bump("dispatches")
             pace.dispatched()
@@ -726,14 +856,14 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
                     on_partial(done, hi - lo, snapshot(dispatches, done))
     else:
         step = _step(
-            ("staged", backend, _device_key(device), chunk, metric, k,
+            ("staged", backend, _mesh_key(mesh), chunk, metric, k,
              block_points, tuple(int(d) for d in bank.dims), tuple(shape),
              n_var, lmax, "int64" if wide else "int32"),
             lambda: _Step(eval_uniform=build_banked_eval(bank.dims)[1]))
         compile_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        pace = _Pacer(device, pipeline_depth)
+        pace = _Pacer(mesh.distinct, pipeline_depth)
         done = 0
         # chunks are aligned to variant boundaries so each one is
         # variant-uniform (the evaluator reads one coefficient row);
@@ -742,10 +872,13 @@ def _stream_impl(algorithm: Union[str, Sequence[str]] = "edgaze",
             vlo = max(lo, vi * n_var)
             vhi = min(hi, (vi + 1) * n_var)
             for start in range(vlo, vhi, chunk):
-                _merge_candidates(_staged_chunk(
-                    prep, step.eval_uniform, start, vhi, chunk=chunk, bp=bp,
-                    kk=kk, metric=metric, idx_dtype=idx_dtype),
-                    vi, state, k)
+                parts = [_staged_chunk(
+                    prep, step.eval_uniform, start + i * shard, vhi,
+                    chunk=shard, bp=bp, kk=kk, metric=metric,
+                    idx_dtype=idx_dtype, variant=vi, replica=replica)
+                    for i, replica in enumerate(shards)]
+                _merge_candidates(_combine_shards(parts, device), vi, state,
+                                  k)
                 dispatches += 1
                 _bump("dispatches")
                 pace.dispatched()
@@ -768,8 +901,41 @@ def sweep_stream(*_args, **_kwargs):
         "engine='fused' or 'staged') instead")
 
 
-def evaluate_batch_sharded(*_args, **_kwargs):
-    """The reference's multi-device batch evaluator: not ported yet."""
-    raise NotImplementedError(
-        "evaluate_batch_sharded is not ported to repro_torch yet (ROADMAP "
-        "P8, multi-device sweeps); evaluate_batch runs on one device")
+def pad_points(points: DesignPoints, multiple: int
+               ) -> Tuple[DesignPoints, int]:
+    """Pad the batch axis up to a multiple by repeating the last point
+    (``repro/core/shard_sweep.py:146-159``); returns ``(padded,
+    original_batch)``, and callers slice the outputs back."""
+    b = points.batch
+    pad = (-b) % max(int(multiple), 1)
+    if pad == 0:
+        return points, b
+    return DesignPoints(*(torch.cat([x, x[-1:].expand(pad)])
+                          for x in points)), b
+
+
+def evaluate_batch_sharded(plan: EnergyPlan, points: DesignPoints, *,
+                           mesh: Optional[BatchMesh] = None,
+                           keep_unit_energies: bool = False,
+                           timings: Optional[Dict[str, float]] = None,
+                           hooks: Optional[bool] = None
+                           ) -> Dict[str, np.ndarray]:
+    """``evaluate_batch`` with the batch axis split across a mesh
+    (``repro/core/shard_sweep.py:162-188``; default
+    :func:`~repro_torch.launch.mesh.make_batch_mesh`, every visible GPU).
+
+    The batch is padded to a multiple of the mesh size and split into
+    equal shards, shard *i* scored on ``mesh.devices[i]`` (K4 on a CUDA
+    device; :func:`~repro_torch.core.batch.evaluate_split`), and the
+    outputs are sliced back to the batch.  Each point's outputs do not
+    depend on its shard, so the result equals ``evaluate_batch``'s, and
+    a one-entry mesh is ``evaluate_batch`` itself.  ``timings``
+    accumulates ``compile_s``/``eval_s`` like ``evaluate_batch``.
+    """
+    if mesh is None:
+        mesh = make_batch_mesh()
+    padded, b = pad_points(points, mesh.size)
+    out = evaluate_split(plan, padded, mesh.devices,
+                         keep_unit_energies=keep_unit_energies,
+                         timings=timings, hooks=hooks)
+    return {key: val[:b] for key, val in out.items()}

@@ -4,9 +4,10 @@ tables, plus the scalar ``estimate_energy`` oracle.
 Torch counterpart of the reference's ``repro/core/sweep.py:101-147,
 228-403``: :func:`_sweep_impl` walks each structural variant's
 :class:`~repro_torch.core.grid.ChunkedGrid` in chunks on the host, scores
-every chunk through the per-plan evaluator
-(:func:`repro_torch.core.batch.evaluate_batch`, whose per-category sums
-ride the ``category_reduce`` kernel) on the sweep's device, and returns
+every chunk through the per-plan evaluator, split across the sweep's
+mesh (:func:`repro_torch.core.shard_sweep.evaluate_batch_sharded`; a
+one-entry mesh is :func:`repro_torch.core.batch.evaluate_batch`, whose
+per-category sums ride the ``category_reduce`` kernel), and returns
 the full O(N) :class:`SweepResult` tables.  ``explore(engine=
 "monolithic" | "chunked")`` is its front door.
 
@@ -21,12 +22,14 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..launch.mesh import resolve_mesh
 from .axes import AXES, TECH_DECLARED, _tech_code
-from .batch import evaluate_batch, grid_hooks_active, make_points
+from .batch import grid_hooks_active, make_points
 from .digital import SystolicArray
 from .energy import CATEGORIES, estimate_energy, reference_outputs
 from .grid import _normalize_grids, build_variant, lower_variant, variant_grid
 from .plan import TECH_INDEX, EnergyPlan
+from .shard_sweep import evaluate_batch_sharded
 
 
 @dataclasses.dataclass
@@ -91,7 +94,7 @@ def _sweep_impl(algorithm: str = "edgaze",
                 grids: Optional[Dict[str, Sequence]] = None, *,
                 soc_node: int = 22, strict: bool = False,
                 chunk_size: Optional[int] = None, mesh=None,
-                device="cuda") -> SweepResult:
+                device=None) -> SweepResult:
     """Grid engine: score the cartesian product of the parameter grids.
 
     ``grids`` maps axis names (``variant`` + :data:`AXES`) to value lists;
@@ -99,13 +102,18 @@ def _sweep_impl(algorithm: str = "edgaze",
     evaluator call (one ``category_reduce`` launch on the card) per
     structural variant per chunk; ``chunk_size=None`` scores each variant
     in one batch.  ``strict`` raises on pipeline stalls and on points
-    that cannot meet the frame rate, like the scalar oracle.  ``device``
-    is ``"cuda"`` unless the caller asks for ``"cpu"``; ``mesh`` (the
-    multi-device split) is not ported yet.
+    that cannot meet the frame rate, like the scalar oracle.  Every
+    chunk goes through
+    :func:`~repro_torch.core.shard_sweep.evaluate_batch_sharded` on
+    ``mesh`` (a 1-D ``("batch",)`` mesh,
+    :func:`repro_torch.launch.mesh.make_batch_mesh`), split across its
+    devices and padded internally to a divisible batch
+    (``repro/core/sweep.py:293-313``); without one it runs on a
+    one-entry mesh on ``device``, which is ``"cuda"`` unless the caller
+    asks for ``"cpu"``: one evaluator call a chunk.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to repro_torch yet "
-                                  "(ROADMAP P8 (multi-device sweeps))")
+    mesh = resolve_mesh(mesh, device)
+    device = mesh.devices[0]
     t0 = time.perf_counter()
     variants, grids = _normalize_grids(algorithm, grids)
     # one sweep-level hook decision: a grid at the hook defaults never
@@ -126,7 +134,8 @@ def _sweep_impl(algorithm: str = "edgaze",
         for _start, flat in grid.chunks(chunk_size):
             n = len(flat[AXES[0]])
             points = make_points(plan, n, device=device, **flat)
-            out = evaluate_batch(plan, points, timings=timings, hooks=hooks)
+            out = evaluate_batch_sharded(plan, points, mesh=mesh,
+                                         timings=timings, hooks=hooks)
             if strict and not bool(out["feasible"].all()):
                 bad = int((~out["feasible"].astype(bool)).sum())
                 raise ValueError(

@@ -1,5 +1,5 @@
 # Copy of src/repro/core/usecases/study.py (jax-free model layer), with one
-# change: run_study takes device= (default "cuda") and passes it to explore().
+# change: run_study takes device= (default: "cuda") and passes it to explore().
 """Run the Sec. 6 studies: energy tables (Fig. 9/11) + power density (Tbl. 3).
 
 ``run_study`` rides the batched energy engine through the declarative
@@ -38,7 +38,7 @@ def _variants(algorithm: str):
 
 def run_study(algorithm: str, cis_nodes=(130, 65), soc_node: int = 22,
               strict: bool = False, engine: str = "batched",
-              chunk_size=None, mesh=None, device="cuda") -> List[Dict]:
+              chunk_size=None, mesh=None, device=None) -> List[Dict]:
     """Evaluate every variant x CIS node for one algorithm.
 
     Returns rows with total energy, category breakdown and power density.
@@ -48,7 +48,7 @@ def run_study(algorithm: str, cis_nodes=(130, 65), soc_node: int = 22,
     device-sharded evaluation (irrelevant at study sizes, but the study
     rides the same code path the mega-sweeps exercise).  ``device``
     (batched engine) is where the sweep runs: ``"cuda"`` unless the
-    caller asks for ``"cpu"``.
+    caller asks for ``"cpu"`` or passes a ``mesh``.
     """
     if engine == "scalar":
         return _run_study_scalar(algorithm, cis_nodes, soc_node, strict)

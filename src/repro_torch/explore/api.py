@@ -21,6 +21,9 @@ occupancy accounting and the engine's counters — like the reference's
 The sweep runs on ``device`` (default ``"cuda"``: the hand-written CUDA
 kernels) unless the caller passes ``device="cpu"`` (their plain-torch
 twins); without a GPU the default device raises instead of falling back.
+``mesh=`` (a :class:`repro_torch.launch.BatchMesh`) splits the batch
+axis of every engine across the mesh's devices, as the reference's
+``("batch",)`` mesh does.
 ``explore(space, service=svc)`` routes the request through a running
 :class:`repro_torch.serve.ExploreService` on the service's device.
 """
@@ -40,6 +43,7 @@ from ..core.shard_sweep import (StreamResult, _device_key, _stream_impl,
                                 best_by_algorithm_summaries,
                                 stream_cache_info)
 from ..core.sweep import SweepResult, _sweep_impl
+from ..launch.mesh import resolve_mesh
 from .space import DesignSpace
 
 #: engine names accepted by :func:`explore` (the reference's set)
@@ -144,7 +148,7 @@ def _cache_snapshot() -> Dict[str, Dict]:
 
 
 def _grid_explore(space: DesignSpace, engine: str, *, k, metric,
-                  chunk_size, strict, device) -> ExploreResult:
+                  chunk_size, strict, device, mesh=None) -> ExploreResult:
     """Grid engines: per-algorithm full tables -> unified result."""
     t0 = time.perf_counter()
     chunk = ((chunk_size or _DEFAULT_CHUNK) if engine == "chunked"
@@ -153,7 +157,7 @@ def _grid_explore(space: DesignSpace, engine: str, *, k, metric,
     for algo in space.algorithms:
         sweep_results[algo] = _sweep_impl(
             algo, space.grids, soc_node=space.soc_node, strict=strict,
-            chunk_size=chunk, device=device)
+            chunk_size=chunk, device=device, mesh=mesh)
 
     n_var = space.n_var
     # the concatenated per-algorithm tables ARE the variant-major flat
@@ -217,7 +221,8 @@ def _grid_explore(space: DesignSpace, engine: str, *, k, metric,
     return ExploreResult(
         space=space, engine=engine, metric=metric, k=k,
         n_points=space.n_points, n_feasible=int(feas_all.sum()),
-        n_variants=space.n_variants, n_devices=1, chunk_size=chunk,
+        n_variants=space.n_variants,
+        n_devices=mesh.size if mesh is not None else 1, chunk_size=chunk,
         topk=rows, summaries=summaries, wall_s=time.perf_counter() - t0,
         compile_s=sum(r.compile_s for r in sweep_results.values()),
         eval_s=sum(r.eval_s for r in sweep_results.values()),
@@ -295,8 +300,12 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
     carries the per-tenant serving metrics).  It runs on the service's
     device: ``device`` may be left out or name that device.
 
-    ``mesh`` is the reference's multi-device layer; it raises
-    ``NotImplementedError`` until ported.
+    ``mesh`` (a :class:`repro_torch.launch.BatchMesh`, see
+    :func:`~repro_torch.launch.make_batch_mesh`) splits the batch axis
+    of every engine across its devices: the grid engines' batches, the
+    streaming engines' chunks and a campaign's shards; ``n_devices`` is
+    its size.  Without it the sweep runs on ``device`` alone; beside it,
+    ``device`` may be left out or name the mesh's first device.
     """
     if not isinstance(space, DesignSpace):
         raise TypeError(f"explore() takes a DesignSpace, got "
@@ -333,9 +342,9 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
                                block_points=block_points,
                                superchunk=superchunk, backend=backend)
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to repro_torch yet "
-                                  "(ROADMAP P8 (multi-device sweeps))")
-    if device is None:
+        mesh = resolve_mesh(mesh, device)
+        device = mesh.devices[0]
+    elif device is None:
         device = "cuda"
     if checkpoint_dir is not None or campaign is not None \
             or workers is not None:
@@ -356,7 +365,7 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
                             superchunk=superchunk,
                             block_points=block_points, backend=backend,
                             workers=workers, options=campaign,
-                            device=device)
+                            device=device, mesh=mesh)
     engine = _resolve_engine(engine, space, chunk_size, index_range)
 
     if engine in ("monolithic", "chunked"):
@@ -371,7 +380,7 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
                                  f"('fused' or 'staged'), not {engine!r}")
         return _grid_explore(space, engine, k=k, metric=metric,
                              chunk_size=chunk_size, strict=strict,
-                             device=device)
+                             device=device, mesh=mesh)
 
     if strict:
         raise ValueError("strict=True requires a grid engine "
@@ -383,7 +392,8 @@ def explore(space: DesignSpace, *, k: int = 16, metric: str = "total_j",
         chunk_size=chunk_size or _DEFAULT_CHUNK, metric=metric, k=k,
         block_points=block_points, index_range=index_range,
         superchunk=superchunk, backend=backend, engine=engine,
-        device=device, progress=progress, pipeline_depth=pipeline_depth)
+        device=device, mesh=mesh, progress=progress,
+        pipeline_depth=pipeline_depth)
     return _stream_to_explore(space, st, wall_s=time.perf_counter() - t0,
                               device=device)
 

@@ -3,15 +3,16 @@
 The port's streaming engine builds its per-sweep step state on SHAPES
 only (``repro_torch.core.shard_sweep._step``: the coefficient compute,
 K1's plan and fixed launch parameters), keyed on bank dims, grid shape,
-chunk geometry, scan length, reduction params, lane and device, while
+chunk geometry, scan length, reduction params, lane and mesh, while
 coefficients and axis values are inputs.  Two requests whose shapes
 agree therefore share a step no matter how different their design-point
 VALUES are.  This module exploits that, as the reference's
 ``repro.serve.coalesce`` does with its step executable:
 
 * :func:`prepare_request` resolves a request exactly the way
-  ``_stream_impl`` would (same chunk clamping, same superchunk default,
-  one hoisted ``_StreamPrep`` on the service's device) into a
+  ``_stream_impl`` would (same chunk rounding and clamping, same
+  superchunk default, one hoisted ``_StreamPrep`` on the service's mesh)
+  into a
   :class:`PreparedRequest`;
 * :func:`compat_key` IS the fused step key of that request, so equal
   compat keys share one step build by construction;
@@ -32,13 +33,12 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Tuple
 
-import torch
-
 from ..campaign.merge import merge_stream_results
 from ..core.shard_sweep import (_DEFAULT_SUPERCHUNK, StreamResult,
-                                _fused_key, _prepare_stream, _StreamPrep,
-                                _stream_impl)
+                                _chunk_geometry, _fused_key, _prepare_stream,
+                                _StreamPrep, _stream_impl)
 from ..explore.api import _DEFAULT_CHUNK
+from ..launch.mesh import BatchMesh
 from .errors import RequestTimeout
 from .stream import PartialEmitter
 
@@ -68,19 +68,21 @@ class PreparedRequest:
 def prepare_request(space, *, k: int, metric: str, backend: str,
                     chunk_size: Optional[int], block_points: int,
                     superchunk: Optional[int],
-                    device: torch.device) -> PreparedRequest:
+                    mesh: BatchMesh) -> PreparedRequest:
     """Resolve a request the way ``_stream_impl`` would.
 
-    The chunk clamping and superchunk default MIRROR the streaming
-    driver exactly (the port has no mesh, so no rounding to a device
-    multiple), so a solo ``explore()`` of the same space with the same
-    arguments resolves to the same step key — serve traffic and library
-    calls share warm steps both ways.  ``backend`` must already be
-    resolved ("cuda"/"torch"); the prep is built on ``device``.
+    The chunk rounding to the mesh's size, its clamping and the
+    superchunk default MIRROR the streaming driver exactly
+    (``repro/serve/coalesce.py:66-87``), so a solo ``explore()`` of the
+    same space with the same arguments resolves to the same step key —
+    serve traffic and library calls share warm steps both ways.
+    ``backend`` must already be resolved ("cuda"/"torch"); the prep is
+    built for ``mesh``.
     """
     prep = _prepare_stream(list(space.algorithms), space.grids,
-                           soc_node=space.soc_node, device=device)
-    chunk = min(max(int(chunk_size or _DEFAULT_CHUNK), 1), prep.n_var)
+                           soc_node=space.soc_node, mesh=mesh)
+    chunk = _chunk_geometry(chunk_size or _DEFAULT_CHUNK, prep.n_var,
+                            mesh.size)
     cpv = -(-prep.n_var // chunk)
     n_ord = cpv * prep.n_variants
     s_len = (max(1, int(superchunk)) if superchunk
@@ -91,10 +93,10 @@ def prepare_request(space, *, k: int, metric: str, backend: str,
         cpv=cpv, wide=prep.total + chunk >= 2 ** 31, prep=prep)
 
 
-def compat_key(pr: PreparedRequest, device: torch.device) -> tuple:
+def compat_key(pr: PreparedRequest, mesh: BatchMesh) -> tuple:
     """Dispatch-compatibility key: the fused step key of the request on
-    ``device``.  Equal keys => the group shares ONE step build."""
-    return _fused_key(pr.backend, device, pr.chunk, pr.metric, pr.k,
+    ``mesh``.  Equal keys => the group shares ONE step build."""
+    return _fused_key(pr.backend, mesh, pr.chunk, pr.metric, pr.k,
                       pr.block_points, pr.prep.bank.dims,
                       pr.prep.vgrids[0].shape, pr.prep.n_var,
                       pr.prep.lmax, pr.s_len, pr.cpv, pr.wide)
@@ -143,20 +145,20 @@ class GroupMember:
 
 
 def _dispatch_segment(member: GroupMember, lo: int, hi: int,
-                      device: torch.device) -> StreamResult:
+                      mesh: BatchMesh) -> StreamResult:
     pr = member.pr
     st = _stream_impl(
         list(pr.space.algorithms), pr.space.grids,
         soc_node=pr.space.soc_node, chunk_size=pr.chunk,
         metric=pr.metric, k=pr.k, block_points=pr.block_points,
         index_range=(lo, hi), engine="fused", superchunk=pr.s_len,
-        backend=pr.backend, device=device, _prepared=pr.prep)
+        backend=pr.backend, mesh=mesh, _prepared=pr.prep)
     member.segments += 1
     member.dispatches += st.dispatches
     return st
 
 
-def run_group(members: List[GroupMember], *, device: torch.device) -> None:
+def run_group(members: List[GroupMember], *, mesh: BatchMesh) -> None:
     """Round-robin a compatible group through the shared step.
 
     Each turn dispatches ONE superchunk segment for the next member with
@@ -178,7 +180,7 @@ def run_group(members: List[GroupMember], *, device: torch.device) -> None:
             continue
         lo, hi = segments.popleft()
         try:
-            partials.append(_dispatch_segment(member, lo, hi, device))
+            partials.append(_dispatch_segment(member, lo, hi, mesh))
         except Exception as exc:  # noqa: BLE001 - contained per member
             member.error = exc
             continue
@@ -196,7 +198,7 @@ def run_group(members: List[GroupMember], *, device: torch.device) -> None:
                 member.error = exc
 
 
-def run_solo(member: GroupMember, *, device: torch.device) -> None:
+def run_solo(member: GroupMember, *, mesh: BatchMesh) -> None:
     """Dispatch one member standalone (full range, one ``_stream_impl``
     call), streaming partials through the driver's ``on_partial``
     hook."""
@@ -218,7 +220,7 @@ def run_solo(member: GroupMember, *, device: torch.device) -> None:
             soc_node=pr.space.soc_node, chunk_size=pr.chunk,
             metric=pr.metric, k=pr.k, block_points=pr.block_points,
             engine="fused", superchunk=pr.s_len, backend=pr.backend,
-            device=device,
+            mesh=mesh,
             on_partial=hook if emitter is not None else None,
             _prepared=pr.prep)
     except Exception as exc:  # noqa: BLE001 - contained per member

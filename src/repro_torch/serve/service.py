@@ -3,7 +3,9 @@
 :class:`ExploreService` owns one dispatch worker thread, a bounded
 request queue, a result cache and the coalescing scheduler, and serves
 concurrent ``explore()``-shaped requests on ONE device (``cuda`` unless
-the caller asks for ``cpu``), as the reference's
+the caller asks for ``cpu``) or on one
+:class:`~repro_torch.launch.mesh.BatchMesh` (``mesh=``; the state of
+each request lives on the mesh's first device), as the reference's
 ``repro.serve.ExploreService`` does on its mesh:
 
 * **submit** (:meth:`submit` / :meth:`asubmit`) is non-blocking: it
@@ -50,7 +52,8 @@ import torch
 from ..explore.api import (ENGINES, ExploreResult, _stream_to_explore,
                            _validate_request, explore)
 from ..explore.space import DesignSpace
-from ..kernels.runtime import resolve_backend, resolve_device
+from ..kernels.runtime import resolve_backend
+from ..launch.mesh import BatchMesh, resolve_mesh
 from .cache import ResultCache, result_cache_key
 from .coalesce import GroupMember, compat_key, prepare_request, run_group, \
     run_solo
@@ -134,8 +137,9 @@ class ExploreService:
         Where every request runs (default ``"cuda"``; ``"cpu"`` runs the
         twins).  Without a GPU a CUDA service raises.
     mesh:
-        The reference's multi-device mesh: raises ``NotImplementedError``
-        (ROADMAP P8).
+        A :class:`~repro_torch.launch.mesh.BatchMesh` every request's
+        chunks split across, in place of ``device`` (which may then be
+        left out or name the mesh's first device).
     """
 
     _SHUTDOWN = object()
@@ -145,23 +149,12 @@ class ExploreService:
                  cache_capacity: int = 128,
                  cache_ttl_s: Optional[float] = None,
                  default_timeout_s: Optional[float] = None,
-                 partial_interval_s: float = 0.05, device="cuda",
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported to repro_torch yet (ROADMAP P8, "
-                "multi-device sweeps); a service runs on one device=")
+                 partial_interval_s: float = 0.05, device=None,
+                 mesh: Optional[BatchMesh] = None):
         if int(max_queue) < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        device = resolve_device(device)
-        if device.type == "cuda":
-            if device.index is None:
-                device = torch.device("cuda", torch.cuda.current_device())
-            if device.index >= torch.cuda.device_count():
-                raise ValueError(f"device={str(device)!r}: this host has "
-                                 f"{torch.cuda.device_count()} CUDA "
-                                 f"device(s)")
-        self._device = device
+        self._mesh = resolve_mesh(mesh, device)
+        self._device = self._mesh.devices[0]
         self._queue: "queue.Queue" = queue.Queue(maxsize=int(max_queue))
         self._window = max(float(coalesce_window_s), 0.0)
         self._max_batch = max(int(max_batch), 1)
@@ -191,9 +184,14 @@ class ExploreService:
 
     @property
     def device(self) -> torch.device:
-        """The device every request runs on (a CUDA device with its
-        index)."""
+        """The device every request's state lives on (a CUDA device with
+        its index): the mesh's first."""
         return self._device
+
+    @property
+    def mesh(self) -> BatchMesh:
+        """The mesh every request runs on (one entry without ``mesh=``)."""
+        return self._mesh
 
     def close(self, *, drain: bool = True,
               timeout: Optional[float] = None) -> None:
@@ -403,22 +401,22 @@ class ExploreService:
                 req.space, k=req.k, metric=req.metric,
                 backend=req.backend, chunk_size=req.chunk_size,
                 block_points=req.block_points,
-                superchunk=req.superchunk, device=self._device)
+                superchunk=req.superchunk, mesh=self._mesh)
             emitter = (PartialEmitter(
                 req.stream, min_interval_s=self._partial_interval_s)
                 if req.want_stream else None)
             members[req.request_id] = GroupMember(
                 pr=pr, emitter=emitter, deadline=req.deadline)
-            groups.setdefault(compat_key(pr, self._device),
+            groups.setdefault(compat_key(pr, self._mesh),
                               []).append(req)
 
         for group in groups.values():
             self.metrics_.observe_group(len(group))
             gm = [members[r.request_id] for r in group]
             if len(gm) >= 2:
-                run_group(gm, device=self._device)
+                run_group(gm, mesh=self._mesh)
             else:
-                run_solo(gm[0], device=self._device)
+                run_solo(gm[0], mesh=self._mesh)
             total = sum(m.dispatches for m in gm) or 1
             self.metrics_.bump("dispatches",
                                sum(m.dispatches for m in gm))
@@ -467,7 +465,7 @@ class ExploreService:
         grid engines): one inline explore() on the worker thread."""
         self.metrics_.observe_group(1)
         kw = dict(k=req.k, metric=req.metric, engine=req.engine,
-                  chunk_size=req.chunk_size, device=self._device)
+                  chunk_size=req.chunk_size, mesh=self._mesh)
         if req.engine == "staged":
             kw.update(block_points=req.block_points,
                       superchunk=req.superchunk)

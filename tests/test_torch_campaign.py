@@ -34,6 +34,7 @@ from repro_torch.campaign.manifest import read_shard, shard_path
 from repro_torch.core.shard_sweep import (StreamResult, stream_cache_clear,
                                           stream_cache_info)
 from repro_torch.explore import DesignSpace, explore
+from repro_torch.launch import make_batch_mesh
 
 REL = 1e-6
 
@@ -426,12 +427,49 @@ def test_budgeted_shards_run_on_the_timeout_thread(space, straight,
 
 def test_mesh_and_default_device_without_cuda_raise(space, tmp_path,
                                                     monkeypatch):
-    with pytest.raises(NotImplementedError, match="P8"):
-        run_campaign(space, str(tmp_path), device=CPU, mesh=object())
+    """``mesh=`` takes a ``BatchMesh`` and a ``device`` beside it must
+    name the mesh's first device; the default device is CUDA, and
+    without a GPU the campaign raises before any write."""
+    mesh = make_batch_mesh(8, device=CPU)
+    with pytest.raises(TypeError, match="BatchMesh"):
+        run_campaign(space, str(tmp_path / "a"), mesh=object())
+    with pytest.raises(ValueError, match="conflicts with mesh="):
+        run_campaign(space, str(tmp_path / "b"), mesh=mesh,
+                     device="cuda:0")
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+    res = run_campaign(space, str(tmp_path / "c"), k=K, engine="fused",
+                       chunk_size=CHUNK, mesh=mesh, device=CPU,
+                       options=_opts())
+    assert res.n_devices == 8 and res.device == CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_campaign(space, str(tmp_path / "d"))
     assert not (tmp_path / "d").exists(), "refused before any write"
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_campaign_on_a_mesh_equals_straight_on_it(space, tmp_path, workers):
+    """A campaign on an 8-shard CPU mesh, serial and on two worker
+    processes (each rebuilds the mesh from the devices it is sent),
+    equals a straight sweep on the same mesh: top-k bit for bit, counts
+    exact, means rel 1e-5.  The manifest and the merged result record
+    the mesh's size."""
+    mesh = make_batch_mesh(8, device=CPU)
+    straight = explore(space, engine="fused", chunk_size=CHUNK, k=K,
+                       superchunk=SUPER, mesh=mesh)
+    res = run_campaign(space, str(tmp_path), k=K, engine="fused",
+                       chunk_size=CHUNK, mesh=mesh, workers=workers,
+                       options=_opts())
+    assert not res.campaign["partial"]
+    assert res.n_devices == straight.n_devices == 8
+    assert res.chunk_size == straight.chunk_size == 8   # 4 rounded to 8
+    assert res.topk == straight.topk
+    _assert_equal(res, straight)
+    man = json.loads((tmp_path / "manifest.json").read_text())
+    assert man["torch"]["n_devices"] == 8
+    if workers == 2:
+        assert set(res.campaign["worker_preps"]) == {1}
+        assert not any(res.campaign["worker_modules"].values())
 
 
 # ---------------------------------------------------------------------------

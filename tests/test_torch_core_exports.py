@@ -3,10 +3,10 @@
 reference's.
 
 * ``__all__`` holds the reference's names; each resolves to the port's
-  object, or, where its layer is not ported (``evaluate_batch_sharded``:
-  ROADMAP P8; the deprecated ``sweep`` / ``sweep_stream`` shims), to a
-  function that raises ``NotImplementedError`` naming what stands in
-  its place.  The eager names are the copied model layer's own objects;
+  object (``evaluate_batch_sharded`` too, the batch split over a
+  ``BatchMesh``), or, for the deprecated ``sweep`` / ``sweep_stream``
+  shims left out on purpose, to a function that raises
+  ``NotImplementedError`` naming what stands in its place.  The eager names are the copied model layer's own objects;
   the lazy ones resolve through the reference's ``__getattr__``.
 * ``from repro_torch.core import *`` in a fresh interpreter loads no
   ``jax*`` and no ``repro`` module.
@@ -28,8 +28,7 @@ import repro.core as ref_core
 import repro_torch.core as core
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-UNPORTED = {"evaluate_batch_sharded": "ROADMAP P8",
-            "sweep": r"deprecated sweep\(\) shim \(ROADMAP",
+UNPORTED = {"sweep": r"deprecated sweep\(\) shim \(ROADMAP",
             "sweep_stream": r"deprecated sweep_stream\(\) shim \(ROADMAP"}
 _VARIANTS = ("2d_in", "3d_in", "2d_in_mixed")   # differing unit counts
 

@@ -13,7 +13,10 @@ through ``fused_sweep.run`` and counted on its route; there the
 candidates' positions are also held equal at the +inf padding, which the
 kernel's lexicographic merge gives exactly as the twin's stable sort.
 A served tenant is held to its solo call: top-k values and indices
-bit-equal, full rows rel 1e-6.
+bit-equal, full rows rel 1e-6.  Four shards on one card
+(``BatchMesh([cuda:0] * 4)``) are held to the port's 4-shard CPU mesh
+(top-k indices exact, values rel 1e-6) and to the card's one-device
+run (top-k bit for bit), with K1 and K4 launched once a shard.
 """
 import json
 
@@ -282,6 +285,44 @@ def test_explore_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose([r["total_j"] for r in gpu.topk],
                                [r["total_j"] for r in cpu.topk], rtol=1e-6)
     assert gpu.cache["stream"]["kernel_launches"] > 0
+
+
+@pytest.mark.parametrize("engine", ["fused", "staged", "chunked"])
+def test_repeated_device_mesh_matches_the_cpu_mesh(cuda, engine):
+    """Four shards on one card (``BatchMesh([cuda:0] * 4)``: K1, or K2
+    and K3a, once a shard of every chunk; K4 once a shard of every batch)
+    against the port's 4-shard CPU mesh: top-k indices exact and values
+    rel 1e-6, counts exact; the card's mesh against its one-device run:
+    top-k bit for bit."""
+    from repro_torch.core.shard_sweep import stream_cache_info
+    from repro_torch.explore import DesignSpace, explore
+    from repro_torch.kernels.category_reduce import COUNTS as K4
+    from repro_torch.launch import BatchMesh, make_batch_mesh
+    space = DesignSpace(["edgaze", "rhythmic"], {
+        k: v for k, v in GRIDS.items() if k != "variant"})
+    four = BatchMesh([torch.device("cuda", 0)] * 4)
+    kw = dict(engine=engine, chunk_size=130, k=5)
+    before = (stream_cache_info()["kernel_launches"], K4["kernel_launches"])
+    gpu = explore(space, mesh=four, **kw)
+    launched = (stream_cache_info()["kernel_launches"] - before[0],
+                K4["kernel_launches"] - before[1])
+    cpu = explore(space, mesh=make_batch_mesh(4, device="cpu"), **kw)
+    one = explore(space, **kw)
+    assert gpu.n_devices == cpu.n_devices == 4
+    # streaming chunks round up to a multiple of the mesh; a grid batch
+    # keeps its size and pads its last shard
+    assert gpu.chunk_size == (130 if engine == "chunked" else 132)
+    assert (gpu.n_points, gpu.n_feasible) == (cpu.n_points, cpu.n_feasible)
+    assert [(r["algorithm"], r["variant"], r["index"]) for r in gpu.topk] \
+        == [(r["algorithm"], r["variant"], r["index"]) for r in cpu.topk]
+    np.testing.assert_allclose([r["total_j"] for r in gpu.topk],
+                               [r["total_j"] for r in cpu.topk], rtol=1e-6)
+    assert gpu.topk == one.topk and gpu.n_feasible == one.n_feasible
+    if engine == "fused":
+        n_var = gpu.n_points // gpu.n_variants
+        assert launched[0] == 4 * gpu.n_variants * -(-n_var // 132)
+    elif engine == "chunked":
+        assert launched[1] == 4 * gpu.dispatches
 
 
 # ---------------------------------------------------------------------------

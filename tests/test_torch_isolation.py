@@ -176,6 +176,7 @@ def _offenders(files):
 def test_port_sources_import_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20, files
+    assert PORT / "launch" / "mesh.py" in files
     offenders = _offenders(files)
     assert not offenders, offenders
 
@@ -222,12 +223,13 @@ def test_bank_and_prep_default_device_without_cuda_raises(monkeypatch,
 
 def test_unported_engines_and_layers_raise(tmp_path):
     """Every engine of ``explore()`` runs, and so do a campaign
-    (``checkpoint_dir=`` with ``campaign=`` and ``workers=``) and a
+    (``checkpoint_dir=`` with ``campaign=`` and ``workers=``), a
     served request (``service=``; anything but a service raises
-    ``TypeError``); the multi-device layer still raises naming its
-    ROADMAP item."""
+    ``TypeError``) and the multi-device split (``mesh=``, a
+    ``BatchMesh``; anything else raises ``TypeError``)."""
     from repro_torch.campaign import CampaignOptions
     from repro_torch.explore import DesignSpace, explore
+    from repro_torch.launch import make_batch_mesh
     from repro_torch.serve import ExploreService
     space = DesignSpace(["edgaze"], {"variant": ["2d_in"]})
     for engine in ("monolithic", "chunked", "staged", "fused"):
@@ -236,7 +238,11 @@ def test_unported_engines_and_layers_raise(tmp_path):
     res = explore(space, k=1, device="cpu", checkpoint_dir=str(tmp_path),
                   campaign=CampaignOptions(), workers=1)
     assert res.n_points == 1 and res.campaign["n_executed"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
+    for engine in ("monolithic", "staged", "fused"):
+        res = explore(space, k=1, engine=engine,
+                      mesh=make_batch_mesh(2, device="cpu"))
+        assert res.n_devices == 2 and res.n_points == 1, res
+    with pytest.raises(TypeError, match="BatchMesh"):
         explore(space, k=1, device="cpu", mesh=object())
     with ExploreService(device="cpu") as svc:
         res = explore(space, k=1, service=svc, device="cpu")

@@ -36,6 +36,7 @@ from repro_torch.core import shard_sweep
 from repro_torch.core.shard_sweep import (_stream_impl, stream_cache_clear,
                                           stream_cache_info)
 from repro_torch.explore import DesignSpace, explore
+from repro_torch.launch import make_batch_mesh
 from repro_torch.serve import (ExploreService, PartialUpdate, QueueFull,
                                RequestTimeout, ResultCache, ServiceClosed,
                                TenantStream, result_cache_key)
@@ -44,6 +45,7 @@ from repro_torch.serve.coalesce import (compat_key, plan_segments,
 
 REL = 1e-6
 CPU = torch.device("cpu")
+ONE = make_batch_mesh(1, device="cpu")        # a one-entry CPU mesh
 
 BASE = {"variant": ["2d_in", "3d_in"],
         "cis_node": [130.0, 65.0],
@@ -236,10 +238,17 @@ def test_explore_service_takes_its_own_device(svc):
 
 
 def test_service_device_and_mesh(monkeypatch):
-    """``mesh=`` raises naming ROADMAP P8; the default device is CUDA,
-    and without a GPU the service raises instead of falling back."""
-    with pytest.raises(NotImplementedError, match="P8"):
+    """``mesh=`` takes a ``BatchMesh`` (its first device is the
+    service's), a ``device`` beside it must name that device; the default
+    device is CUDA, and without a GPU the service raises instead of
+    falling back."""
+    mesh = make_batch_mesh(8, device="cpu")
+    with pytest.raises(TypeError, match="BatchMesh"):
         ExploreService(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="conflicts with mesh="):
+        ExploreService(mesh=mesh, device="cuda:0")
+    with ExploreService(mesh=mesh, device="cpu") as svc:
+        assert svc.mesh is mesh and svc.device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ExploreService()
@@ -255,16 +264,64 @@ def _prepare(space, **kw):
     base = dict(k=5, metric="total_j", backend="torch", chunk_size=8,
                 block_points=4096, superchunk=2)
     base.update(kw)
-    return prepare_request(space, device=CPU, **base)
+    return prepare_request(space, mesh=ONE, **base)
 
 
 def test_compat_key_groups_shapes_not_values():
     pr0, pr1 = _prepare(_space(0)), _prepare(_space(7))
-    assert compat_key(pr0, CPU) == compat_key(pr1, CPU)
+    assert compat_key(pr0, ONE) == compat_key(pr1, ONE)
     for kw in (dict(k=6), dict(metric="on_sensor_j"),
                dict(chunk_size=4), dict(superchunk=1)):
         pr2 = _prepare(_space(0), **kw)
-        assert compat_key(pr2, CPU) != compat_key(pr0, CPU), kw
+        assert compat_key(pr2, ONE) != compat_key(pr0, ONE), kw
+
+
+def test_compat_key_names_the_mesh():
+    """A one-shard mesh keys a request as ``device=`` does (its step is
+    the one a solo ``explore(device=)`` builds); an 8-shard mesh keys it
+    apart, with the chunk rounded to the mesh's size."""
+    one, eight = make_batch_mesh(1, device="cpu"), make_batch_mesh(
+        8, device="cpu")
+    pr = _prepare(_space(0), chunk_size=5)
+    pr1 = prepare_request(_space(0), mesh=one, **dict(
+        k=5, metric="total_j", backend="torch", chunk_size=5,
+        block_points=4096, superchunk=2))
+    pr8 = prepare_request(_space(0), mesh=eight, **dict(
+        k=5, metric="total_j", backend="torch", chunk_size=5,
+        block_points=4096, superchunk=2))
+    assert (pr.chunk, pr1.chunk, pr8.chunk) == (5, 5, 8)
+    assert compat_key(pr1, one) == compat_key(pr, ONE)
+    assert compat_key(pr8, eight) != compat_key(pr1, one)
+    stream_cache_clear()
+    explore(_space(0), k=5, engine="fused", chunk_size=5, superchunk=2,
+            device="cpu")
+    assert list(shard_sweep._STEPS) == [compat_key(pr1, one)]
+    stream_cache_clear()
+
+
+def test_mesh_tenants_equal_their_solo_calls():
+    """8 coalesced tenants of a service on an 8-shard CPU mesh: one
+    group, one step, each tenant's top-k bit for bit its solo call on the
+    same mesh, counts exact."""
+    mesh = make_batch_mesh(8, device="cpu")
+    kw = dict(k=5, engine="fused", chunk_size=8, superchunk=2)
+    stream_cache_clear()
+    results = {}
+    with ExploreService(coalesce_window_s=0.2, mesh=mesh) as svc:
+        def client(i):
+            results[i] = explore(_space(i), service=svc, **kw)
+        _concurrently(client, 8)
+    assert stream_cache_info()["step_builds"] == 1
+    for i, res in results.items():
+        assert res.serve["coalesce_group"] == 8 and res.n_devices == 8
+        solo = explore(_space(i), mesh=mesh, **kw)
+        assert res.topk == solo.topk
+        assert (res.n_points, res.n_feasible) == (solo.n_points,
+                                                  solo.n_feasible)
+        assert [s["n_feasible"] for s in res.summaries.values()] \
+            == [s["n_feasible"] for s in solo.summaries.values()]
+    assert stream_cache_info()["step_builds"] == 1
+    stream_cache_clear()
 
 
 def test_plan_segments_tile_the_flat_space():
@@ -668,13 +725,13 @@ def test_compat_key_groups_like_the_reference():
                     block_points=4096, superchunk=2)
         base.update(kw)
         pr = prepare_request(_request_space(name, DesignSpace),
-                             backend="torch", device=CPU, **base)
+                             backend="torch", mesh=ONE, **base)
         rp = ref_prepare(_request_space(name, RefSpace), backend="xla",
                          mesh=mesh, **base)
         assert (pr.chunk, pr.s_len, pr.cpv, pr.wide, pr.total) \
             == (rp.chunk, rp.s_len, rp.cpv, rp.wide, rp.total)
         assert plan_segments(pr) == ref_segments(rp)
-        ours.append(compat_key(pr, CPU))
+        ours.append(compat_key(pr, ONE))
         ref.append(ref_key(rp, mesh))
     assert partition(ours) == partition(ref)
     # v7 and soc join v0, v3 joins v0 at chunk 100 (both clamp to 12),

@@ -385,7 +385,8 @@ def test_staged_chunk_candidates_match_reference(patch_both):
                                       "cpu", with_out=True)
         ours._merge_candidates(ours._staged_chunk(
             our_prep, eval_uniform, start, limit, chunk=chunk, bp=bp, kk=k,
-            metric="total_j", idx_dtype=torch.int32),
+            metric="total_j", idx_dtype=torch.int32, variant=start // n_var,
+            replica=(our_prep.table2, our_prep.bank)),
             start // n_var, got, k)
         _assert_state_equal(got, want, f"chunk at {start}", rel=1e-6)
 
