@@ -85,7 +85,22 @@ read just after:
   launch of the tensor-core (wgmma) route, within one bf16 rounding of
   the twin, timed beside the twin and ``scaled_dot_product_attention``
   (whose distance from the twin is reported: it rounds P to bf16 once);
-  then K9's SIMT route (f32) at the same widths.
+  then K9's SIMT route (f32) at the same widths;
+* LM serving (P12a, ``repro_torch.models``; plain torch ops, no kernel of
+  the port, every launch counter checked still 0) — qwen2-7b at its
+  published width and depth (bf16, 7.07e9 parameters, 4 prompts of 1,024
+  tokens, ``max_seq`` 1,056, 32 greedy tokens), the nine other
+  architectures at full width with depth cut to 2 layers (B = 2, 512
+  tokens, 8 greedy tokens; mixtral B = 1 and 4,608 tokens past its
+  4,096 window; llava on embeddings, whisper on 1,500 audio frames; MoE
+  at capacity factor 8.0): prefill and a decode step under the sync
+  debug mode "error", the decode step against ``forward`` over one
+  more position (``2e-2 max(scale, 1)``), prefill ms, tokens/s and
+  decode ms a token, qwen2-7b's beside its bounds with a profiled decode
+  of 4 tokens (busy share, kernels a token); then the ten reduced
+  configs and qwen2-7b at full width with 2 layers, f32, on the card
+  against the port on the CPU (1e-4 max|cpu|, greedy tokens equal); the
+  ``lm_path`` line.
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
@@ -124,6 +139,7 @@ by kernel and the device's busy share, and writes chrome traces to
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -273,6 +289,17 @@ SYNTHETIC_GRID = {"cis_node": [130.0, 90.0, 45.0, 22.0],
 REL = 1e-6          # the reference's parity tolerance (values, top-k)
 REL_SUM = 1e-5      # block sums: 4096 f32 terms summed in another order
 REL_MEAN = 1e-5     # per-variant means: sums of such sums
+
+# the LM serving path (P12a): qwen2-7b at its published width and depth,
+# (batch, prompt, max_seq, greedy tokens); the nine others at full width
+# cut to 2 layers, (batch, prompt, greedy tokens), mixtral past its
+# 4096-token window so that the prefill's ring roll runs at full width
+LM_MAIN = (4, 1024, 1056, 32)
+LM_OTHERS = (2, 512, 8)
+LM_LONG = {"mixtral_8x7b": (1, 4608)}
+LM_CONT_RULE = 2e-2   # decode vs forward: 2e-2 * max(scale, 1), as the
+#                       reference's tests/test_archs.py:85
+LM_F32_REL = 1e-4     # card vs CPU in f32: 1e-4 * max|cpu|
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit):
 # FP32 outside the tensor cores, dense f16/bf16 on the tensor cores (f32
@@ -2874,6 +2901,277 @@ def attention_f32_timing(fa):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (P12a): plain torch ops, no kernel of the port
+# ---------------------------------------------------------------------------
+def lm_inputs(cfg, b, s, seed, device):
+    """``s`` prompt positions and the next one, from a numpy seed: tokens
+    (embeddings for vlm), plus the stub audio frames for encdec."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "vlm":
+        out["embeds"] = rng.standard_normal((b, s + 1, cfg.d_model),
+                                            dtype=np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (b, s + 1))
+    if cfg.family == "encdec":
+        out["audio_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def lm_prompt(full, s):
+    """(the batch of the first ``s`` positions, position ``s``'s input)"""
+    key = "embeds" if "embeds" in full else "tokens"
+    return dict(full, **{key: full[key][:, :s]}), full[key][:, s:s + 1]
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def greedy(logits):
+    return torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+
+def lm_serve(M, cfg, params, full, s, new, max_seq) -> dict:
+    """One architecture on the card, under ``torch.inference_mode()``:
+    prefill and one decode step with the sync debug mode at "error" (a
+    host sync raises), their logits finite, the decode step held to
+    ``forward`` over ``s + 1`` positions at the last one (the continuity
+    rule of ``tests/test_archs.py:58-85``), then prefill and ``new``
+    greedy decode steps timed with CUDA events."""
+    b = next(iter(full.values())).shape[0]
+    batch, nxt = lm_prompt(full, s)
+    # warm-up outside the guarded run: cuBLAS handles and workspaces
+    _, cache = M.prefill(params, batch, M.init_cache(cfg, b, max_seq), cfg)
+    M.decode_step(params, nxt, cache, cfg)
+    cache = M.init_cache(cfg, b, max_seq)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = M.prefill(params, batch, cache, cfg)
+        dlog, cache = M.decode_step(params, nxt, cache, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(dlog).all()),
+          f"{cfg.arch_id}: prefill or decode logits not finite")
+    check(tuple(cache["pos"].shape) == () and int(cache["pos"]) == s + 1,
+          f"{cfg.arch_id}: cache pos {cache['pos']}")
+    del cache
+    ref = M.forward(params, full, cfg)[:, s].float()
+    scale = float(ref.abs().max())
+    err = float((dlog[:, 0].float() - ref).abs().max())
+    check(math.isfinite(scale) and err < LM_CONT_RULE * max(scale, 1.0),
+          f"{cfg.arch_id}: decode vs forward err {err} (scale {scale})")
+    del ref, logits, dlog
+    torch.cuda.synchronize()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cache = M.init_cache(cfg, b, max_seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    logits, cache = M.prefill(params, batch, cache, cfg)
+    ev[1].record()
+    toks = [greedy(logits)]
+    for _ in range(new):
+        logits, cache = M.decode_step(params, toks[-1], cache, cfg)
+        toks.append(greedy(logits))
+    ev[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = torch.cat(toks, dim=1)
+    check(bool(torch.isfinite(logits).all()) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"{cfg.arch_id}: greedy decode")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    return {"batch": b, "prompt": s, "max_seq": max_seq,
+            "decode_tokens": new, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": b * s / (prefill_ms * 1e-3),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2]) / new,
+            "wall_s": wall, "continuity_err": err, "continuity_scale": scale,
+            "continuity_bound": LM_CONT_RULE * max(scale, 1.0),
+            "host_syncs": 0, "cache_bytes": tree_bytes(cache),
+            "sample": toks[0, :8].tolist()}
+
+
+def lm_cut(arch):
+    """A published config at full width with its depth cut to 2 layers
+    (whisper's encoder too; zamba2 keeps shared_attn_every 6, so one
+    shared block runs); MoE at capacity factor 8.0, as
+    ``tests/test_archs.py:63``.  Returns (config, the cuts named)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    upd, cuts = {"n_layers": 2}, [f"n_layers {cfg.n_layers} -> 2"]
+    if cfg.n_encoder_layers:
+        upd["n_encoder_layers"] = 2
+        cuts.append(f"n_encoder_layers {cfg.n_encoder_layers} -> 2")
+    if cfg.shared_attn_every:
+        cuts.append(f"shared_attn_every {cfg.shared_attn_every} kept: one "
+                    f"shared block")
+    if cfg.family == "moe":
+        upd["moe_capacity_factor"] = 8.0
+        cuts.append(f"moe_capacity_factor {cfg.moe_capacity_factor} -> 8.0")
+    return dataclasses.replace(cfg, **upd), cuts
+
+
+def lm_card_vs_cpu(M, cfg, params, full, s, steps) -> dict:
+    """The same weights and inputs (f32) through prefill and ``steps``
+    greedy decode steps on the CPU and on the card: every step's logits
+    and the final caches within ``LM_F32_REL * max|cpu|``, the greedy
+    tokens equal."""
+    b = next(iter(full.values())).shape[0]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p, f = tree_to(params, dev), tree_to(full, dev)
+        batch, _ = lm_prompt(f, s)
+        logits, cache = M.prefill(p, batch,
+                                  M.init_cache(cfg, b, s + steps, device=dev),
+                                  cfg)
+        outs, toks = [logits], []
+        for _ in range(steps):
+            toks.append(greedy(logits))
+            logits, cache = M.decode_step(p, toks[-1], cache, cfg)
+            outs.append(logits)
+        runs[dev] = (outs, torch.cat(toks, dim=1), cache)
+        del p, f
+    (c_out, c_tok, c_cache), (g_out, g_tok, g_cache) = (runs["cpu"],
+                                                        runs["cuda"])
+    check(torch.equal(c_tok, g_tok.cpu()), f"{cfg.arch_id}: greedy tokens "
+          f"{g_tok.tolist()} on the card, {c_tok.tolist()} on the CPU")
+    worst = 0.0
+    pairs = list(zip(c_out, g_out)) + [(c_cache[k], g_cache[k])
+                                       for k in c_cache]
+    for c, g in pairs:
+        c, g = c.double(), g.cpu().double()
+        rel = float((g - c).abs().max() / max(float(c.abs().max()), 1e-30))
+        check(rel <= LM_F32_REL, f"{cfg.arch_id}: card vs CPU rel {rel}")
+        worst = max(worst, rel)
+    return {"max_rel_err": worst, "tokens": c_tok[0].tolist()}
+
+
+def lm_path(smi, kernel_mods=()) -> dict:
+    """The LM stack's serving path (P12a) on the card: qwen2-7b at its
+    published width and depth (bf16, 4 prompts of 1024 tokens, 32 greedy
+    tokens; a profiled decode of 4 tokens for the device's busy share
+    and kernels a token, beside the bounds), the nine other
+    architectures at full width cut to 2 layers, and the card held to
+    the CPU path in f32 (the ten reduced configs; qwen2-7b at full width
+    with 2 layers).  No kernel of ``repro_torch.kernels`` is on the path:
+    their launch counters stay at 0."""
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.models import model as M
+    t_start = time.perf_counter()
+    reset_all(kernel_mods)
+    out = {"power_limit": smi}
+    with torch.inference_mode():
+        cfg = get_config("qwen2_7b")
+        b, s, max_seq, new = LM_MAIN
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, 0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(int(np.prod(shape))
+                       for shape, _ in M.param_shapes(cfg).values())
+        n_embed = cfg.vocab * cfg.d_model
+        check(tree_bytes(params) == 2 * n_params, "qwen2-7b: not bf16")
+        full = lm_inputs(cfg, b, s, 0, "cuda")
+        rec = lm_serve(M, cfg, params, full, s, new, max_seq)
+        # bounds: decode reads every weight and the K/V cache once a
+        # token; prefill does 2 flops a weight of the layers a token,
+        # causal attention's 4 hd flops a (query, key) pair, and the last
+        # position's logits
+        L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
+        ops = (2 * (n_params - n_embed) * b * s
+               + 4 * hd * H * L * b * s * (s + 1) // 2 + 2 * n_embed * b)
+        weight_bytes = tree_bytes(params)
+        decode_bytes = weight_bytes + rec["cache_bytes"]
+        by_ops, by_bytes = ops / PEAK_HALF, weight_bytes / PEAK_BYTES
+        rec.update(
+            params=n_params, params_gb=weight_bytes / 1e9, init_s=init_s,
+            prefill_ops=ops, prefill_bound_ms=max(by_ops, by_bytes) * 1e3,
+            prefill_bound_by="operations" if by_ops >= by_bytes
+            else "bytes",
+            decode_bytes=decode_bytes,
+            decode_bound_ms=decode_bytes / PEAK_BYTES * 1e3,
+            decode_bound_by="bytes")
+        # the device's busy share and kernels a token: a profiled decode
+        # of 4 tokens after a fresh prefill
+        batch, _ = lm_prompt(full, s)
+        logits, cache = M.prefill(params, batch,
+                                  M.init_cache(cfg, b, max_seq), cfg)
+        state = {"toks": greedy(logits), "cache": cache}
+
+        def decode4():
+            for _ in range(4):
+                lg, state["cache"] = M.decode_step(params, state["toks"],
+                                                   state["cache"], cfg)
+                state["toks"] = greedy(lg)
+        prof = profile_path("lm_decode_qwen2_7b", decode4)
+        rec.update(
+            profiled_decode_ms_per_token=prof["wall_s"] / 4 * 1e3,
+            kernels_per_token=prof["device_kernels"] / 4,
+            device_busy_ms_per_token=prof["device_busy_s"] / 4 * 1e3,
+            busy_share=prof["device_busy_s"] / 4 * 1e3
+            / rec["decode_ms_per_token"],
+            busy_share_profiled=prof["device_busy_share_of_wall"])
+        out["qwen2_7b"] = rec
+        del params, full, state, cache, logits
+        torch.cuda.empty_cache()
+
+        others = {}
+        for arch in ARCH_IDS:
+            if arch == "qwen2_7b":
+                continue
+            cfg, cuts = lm_cut(arch)
+            b, s = LM_LONG.get(arch, LM_OTHERS[:2])
+            new = LM_OTHERS[2]
+            params = M.init_params(cfg, 0)
+            full = lm_inputs(cfg, b, s, 1, "cuda")
+            rec = lm_serve(M, cfg, params, full, s, new, s + new)
+            rec["cuts"] = cuts
+            rec["params"] = sum(int(np.prod(shape)) for shape, _ in
+                                M.param_shapes(cfg).values())
+            if cfg.sliding_window:
+                rec["window"] = cfg.sliding_window
+            others[arch] = rec
+            del params, full
+            torch.cuda.empty_cache()
+        out["full_width_2_layers"] = others
+
+        # the card against the CPU path, f32 (TF32 off)
+        versus = {}
+        for arch in ARCH_IDS:
+            cfg = reduced(get_config(arch))
+            params = M.init_params(cfg, 0, device="cpu")
+            full = lm_inputs(cfg, 2, 48, 2, "cpu")
+            versus[arch] = lm_card_vs_cpu(M, cfg, params, full, 48, 3)
+        cfg = dataclasses.replace(get_config("qwen2_7b"), n_layers=2,
+                                  dtype="float32")
+        params = tree_to(M.init_params(cfg, 0), "cpu")
+        torch.cuda.empty_cache()
+        full = lm_inputs(cfg, 1, 128, 3, "cpu")
+        versus["qwen2_7b_full_width_2_layers"] = lm_card_vs_cpu(
+            M, cfg, params, full, 128, 4)
+        out["card_vs_cpu_f32"] = versus
+        del params
+        torch.cuda.empty_cache()
+    launched = {m.__name__.rsplit(".", 1)[-1]: m.COUNTS["kernel_launches"]
+                for m in kernel_mods if m.COUNTS["kernel_launches"]}
+    check(not launched, f"LM path launched port kernels {launched}")
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"lm_path": out})
+    return out
+
+
 def ptxas_by_entry(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
     spills"}``, the kernel names demangled by ``c++filt`` where it runs."""
@@ -3468,6 +3766,9 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in k9
                         if r["route"] == "simt"),
         power_limit=power, **f32_by_shape[0], by_shape=f32_by_shape))
+    # ----- 10. the LM stack's serving path (P12a): no port kernel ----------
+    lm_path(power, kernel_mods)
+
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

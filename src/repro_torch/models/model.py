@@ -1,0 +1,643 @@
+"""Unified model zoo: init / forward / prefill / decode for every family.
+
+Torch counterpart of ``src/repro/models/model.py``.  Families: dense
+(olmo, qwen2/2.5/3), vlm (llava backbone, stub frontend), moe (granite,
+mixtral + SWA), ssm (falcon-mamba), hybrid (zamba2: mamba2 + one shared
+attention block), encdec (whisper, stub audio frontend).
+
+Conventions, as the reference's:
+  * params are nested dicts of tensors; per-layer params are *stacked*
+    on a leading L axis, and the layer stack is a Python loop over the
+    views ``w[i]`` (``remat`` and ``unroll`` are accepted and change no
+    value: serving runs under ``torch.inference_mode()``, with no
+    autograd to rematerialise for);
+  * attention projections are fused 2-D matrices;
+  * caches are dicts of stacked buffers: fused ``[L, B, Sc, KV*hd]``
+    K/V, a ring of ``window`` slots under a sliding window, f32 SSM
+    state, and ``pos``, a 0-d int32 tensor on the device.
+
+One difference, on purpose: :func:`decode_step` writes the new K/V row
+and SSM state into the caller's cache tensors in place (the reference
+returns new arrays) and returns a new dict with ``pos + 1``; copying
+the cache for every token would cost more than the token.  Neither
+:func:`prefill` nor :func:`decode_step` reads a device value on the
+host: the cache slot is computed on the device from ``cache["pos"]``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.runtime import resolve_device
+from .common import apply_rope, chunked_attention, decode_attention, \
+    dense_init, norm, rmsnorm, silu
+from .config import ModelConfig
+from .moe import moe_ffn
+from .ssm import _mamba1_scan, mamba1_decode, mamba1_forward, \
+    mamba2_decode, mamba2_forward
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ===========================================================================
+# Parameter construction (concrete + abstract share one shape spec)
+# ===========================================================================
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """Flat {path: (shape, dtype)} description of the parameter tree."""
+    d, hd = cfg.d_model, cfg.head_dim
+    H, KV, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    dt = _dtype(cfg)
+    out: Dict[str, Tuple[Tuple[int, ...], Any]] = {
+        "embed": ((cfg.vocab, d), dt)}
+    if not cfg.non_parametric_ln:
+        out["final_norm"] = ((d,), dt)
+
+    def attn(prefix: str, stack: Tuple[int, ...], cross: bool = False):
+        p = "cross_" if cross else ""
+        out[f"{prefix}/{p}wq"] = (stack + (d, H * hd), dt)
+        out[f"{prefix}/{p}wk"] = (stack + (d, KV * hd), dt)
+        out[f"{prefix}/{p}wv"] = (stack + (d, KV * hd), dt)
+        out[f"{prefix}/{p}wo"] = (stack + (H * hd, d), dt)
+        if cfg.qkv_bias and not cross:
+            out[f"{prefix}/bq"] = (stack + (H * hd,), dt)
+            out[f"{prefix}/bk"] = (stack + (KV * hd,), dt)
+            out[f"{prefix}/bv"] = (stack + (KV * hd,), dt)
+        if cfg.qk_norm and not cross:
+            out[f"{prefix}/q_norm"] = (stack + (hd,), dt)
+            out[f"{prefix}/k_norm"] = (stack + (hd,), dt)
+
+    def mlp(prefix: str, stack: Tuple[int, ...]):
+        if cfg.family == "moe" and prefix.startswith("layers"):
+            E, Fe = cfg.n_experts, cfg.expert_d_ff
+            out[f"{prefix}/router"] = (stack + (d, E), dt)
+            out[f"{prefix}/we_gate"] = (stack + (E, d, Fe), dt)
+            out[f"{prefix}/we_up"] = (stack + (E, d, Fe), dt)
+            out[f"{prefix}/we_down"] = (stack + (E, Fe, d), dt)
+        else:
+            out[f"{prefix}/w_gate"] = (stack + (d, cfg.d_ff), dt)
+            out[f"{prefix}/w_up"] = (stack + (d, cfg.d_ff), dt)
+            out[f"{prefix}/w_down"] = (stack + (cfg.d_ff, d), dt)
+
+    def norms(prefix: str, stack: Tuple[int, ...], names):
+        if cfg.non_parametric_ln:
+            return
+        for n in names:
+            out[f"{prefix}/{n}"] = (stack + (d,), dt)
+
+    def mamba(prefix: str, stack: Tuple[int, ...]):
+        dI, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        out[f"{prefix}/norm"] = (stack + (d,), dt)
+        out[f"{prefix}/in_proj"] = (stack + (d, 2 * dI), dt)
+        out[f"{prefix}/conv_w"] = (stack + (dI, K), dt)
+        out[f"{prefix}/conv_b"] = (stack + (dI,), dt)
+        out[f"{prefix}/out_proj"] = (stack + (dI, d), dt)
+        if cfg.ssm_version == 1:
+            R = max(d // 16, 1)
+            out[f"{prefix}/x_proj"] = (stack + (dI, R + 2 * N), dt)
+            out[f"{prefix}/dt_proj"] = (stack + (R, dI), dt)
+            out[f"{prefix}/dt_bias"] = (stack + (dI,), dt)
+            out[f"{prefix}/a_log"] = (stack + (dI, N), dt)
+            out[f"{prefix}/d_skip"] = (stack + (dI,), dt)
+        else:
+            nh = cfg.ssm_heads
+            out[f"{prefix}/bc_proj"] = (stack + (d, 2 * N), dt)
+            out[f"{prefix}/dt_proj"] = (stack + (d, nh), dt)
+            out[f"{prefix}/dt_bias"] = (stack + (nh,), dt)
+            out[f"{prefix}/a_log"] = (stack + (nh,), dt)
+            out[f"{prefix}/d_skip"] = (stack + (nh,), dt)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        attn("layers", (L,))
+        mlp("layers", (L,))
+        norms("layers", (L,), ["attn_norm", "mlp_norm"])
+    elif fam == "ssm":
+        mamba("layers", (L,))
+    elif fam == "hybrid":
+        mamba("layers", (L,))
+        attn("shared", ())
+        out["shared/w_gate"] = ((d, cfg.d_ff), dt)
+        out["shared/w_up"] = ((d, cfg.d_ff), dt)
+        out["shared/w_down"] = ((cfg.d_ff, d), dt)
+        norms("shared", (), ["attn_norm", "mlp_norm"])
+    elif fam == "encdec":
+        Le = cfg.n_encoder_layers
+        attn("enc_layers", (Le,))
+        mlp("enc_layers", (Le,))
+        norms("enc_layers", (Le,), ["attn_norm", "mlp_norm"])
+        out["enc_final_norm"] = ((d,), dt)
+        attn("layers", (L,))
+        attn("layers", (L,), cross=True)
+        mlp("layers", (L,))
+        norms("layers", (L,), ["attn_norm", "cross_norm", "mlp_norm"])
+    else:
+        raise ValueError(f"unknown family {fam}")
+    return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Params:
+    tree: Params = {}
+    for path, leaf in flat.items():
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage)."""
+    return _unflatten({p: torch.empty(s, dtype=d, device="meta")
+                       for p, (s, d) in param_shapes(cfg).items()})
+
+
+def _generator(key: Union[int, torch.Generator],
+               device: torch.device) -> torch.Generator:
+    if isinstance(key, torch.Generator):
+        if key.device.type != device.type:
+            raise ValueError(f"generator on {key.device}, params on "
+                             f"{device}: pass a generator on the device")
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
+def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
+                device="cuda") -> Params:
+    """Initialised parameters on ``device`` (default ``cuda``; without a
+    GPU that raises: pass ``device="cpu"``).
+
+    ``key`` is a seed or a ``torch.Generator`` on the device.  Norms and
+    ``d_skip`` are ones, biases zeros, mamba1's ``a_log`` is
+    ``log(1..N)`` (zeros otherwise), every other weight normal x
+    ``fan_in ** -0.5`` drawn in path order.  The draws cannot equal
+    ``jax.random``'s: to hold the port to the reference, carry the
+    reference's weights across (:mod:`repro_torch.models.convert`).
+    """
+    device = resolve_device(device)
+    gen = _generator(key, device)
+    flat = {}
+    for path, (shape, dtype) in param_shapes(cfg).items():
+        name = path.split("/")[-1]
+        if "norm" in name or name == "d_skip":
+            flat[path] = torch.ones(shape, dtype=dtype, device=device)
+        elif name in ("bq", "bk", "bv", "conv_b", "dt_bias"):
+            flat[path] = torch.zeros(shape, dtype=dtype, device=device)
+        elif name == "a_log":
+            if len(shape) >= 2 and shape[-1] == cfg.ssm_state and \
+                    cfg.ssm_version == 1:
+                a = torch.log(torch.arange(1, cfg.ssm_state + 1,
+                                           dtype=torch.float32,
+                                           device=device))
+                flat[path] = a.expand(shape).to(dtype).contiguous()
+            else:
+                flat[path] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            flat[path] = dense_init(gen, shape, dtype)
+    return _unflatten(flat)
+
+
+def _layer(stacked: Params, i) -> Params:
+    """The weights of layer ``i`` (an int or a slice) of a stacked tree."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
+# ===========================================================================
+# Blocks
+# ===========================================================================
+def _proj_qkv(w, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = torch.einsum("bsd,dq->bsq", x, w["wq"])
+    k = torch.einsum("bsd,dq->bsq", x, w["wk"])
+    v = torch.einsum("bsd,dq->bsq", x, w["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, w["q_norm"])
+        k = rmsnorm(k, w["k_norm"])
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attend(w, q, k, v, cfg: ModelConfig, causal=True, window=0):
+    B, S = q.shape[:2]
+    o = chunked_attention(q, k, v, causal=causal, window=window,
+                          q_chunk=cfg.attn_q_chunk)
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return torch.einsum("bsq,qd->bsd", o, w["wo"])
+
+
+def self_attention(w, x, cfg: ModelConfig, positions, causal=True,
+                   window=0) -> torch.Tensor:
+    q, k, v = _proj_qkv(w, x, cfg, positions)
+    return _attend(w, q, k, v, cfg, causal=causal, window=window)
+
+
+def cross_attention(w, x, memory, cfg: ModelConfig) -> torch.Tensor:
+    B, S, _ = x.shape
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = torch.einsum("bsd,dq->bsq", x, w["cross_wq"]).reshape(B, S, H, hd)
+    k = torch.einsum("bsd,dq->bsq", memory, w["cross_wk"]).reshape(
+        B, memory.shape[1], KV, hd)
+    v = torch.einsum("bsd,dq->bsq", memory, w["cross_wv"]).reshape(
+        B, memory.shape[1], KV, hd)
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk)
+    return torch.einsum("bsq,qd->bsd", o.reshape(B, S, H * hd),
+                        w["cross_wo"])
+
+
+def mlp_ffn(w, x, cfg: ModelConfig) -> torch.Tensor:
+    h = torch.einsum("bsd,df->bsf", x, w["w_gate"])
+    u = torch.einsum("bsd,df->bsf", x, w["w_up"])
+    h = silu(h.float()).to(x.dtype) * u
+    return torch.einsum("bsf,fd->bsd", h, w["w_down"])
+
+
+def _ffn(w, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """The MoE FFN on an MoE layer, else the dense one."""
+    if cfg.family == "moe" and "router" in w:
+        return moe_ffn(w, x, cfg)
+    return mlp_ffn(w, x, cfg), {}
+
+
+def attn_mlp_layer(w, x, cfg: ModelConfig, positions, causal=True) -> Tuple:
+    h = norm(cfg, x, w.get("attn_norm"))
+    x = x + self_attention(w, h, cfg, positions, causal=causal,
+                           window=cfg.sliding_window)
+    h = norm(cfg, x, w.get("mlp_norm"))
+    y, aux = _ffn(w, h, cfg)
+    return x + y, aux
+
+
+def attn_mlp_layer_with_cross(w, x, memory, cfg, positions):
+    h = norm(cfg, x, w.get("attn_norm"))
+    x = x + self_attention(w, h, cfg, positions, causal=True)
+    h = norm(cfg, x, w.get("cross_norm"))
+    x = x + cross_attention(w, h, memory, cfg)
+    h = norm(cfg, x, w.get("mlp_norm"))
+    return x + mlp_ffn(w, h, cfg), {}
+
+
+def mamba_layer(w, x, cfg: ModelConfig) -> torch.Tensor:
+    h = norm(cfg, x, w["norm"])
+    if cfg.ssm_version == 1:
+        y = mamba1_forward(w, h, cfg)
+    else:
+        y = mamba2_forward(w, h, cfg)
+    return x + y
+
+
+# ===========================================================================
+# Forward
+# ===========================================================================
+def _embed_in(params, batch, cfg: ModelConfig):
+    if "embeds" in batch:                       # vlm stub frontend
+        x = batch["embeds"]
+    else:
+        x = F.embedding(batch["tokens"], params["embed"])
+    return x.to(_dtype(cfg))
+
+
+def _logits_out(params, x, cfg: ModelConfig):
+    x = norm(cfg, x, params.get("final_norm"))
+    return torch.einsum("bsd,vd->bsv", x, params["embed"])
+
+
+def _n_layers(stacked: Params) -> int:
+    return next(iter(stacked.values())).shape[0]
+
+
+def _scan_layers(layer_fn, x, stacked_w, remat=True, unroll=False):
+    """The layer stack: ``layer_fn(w[i], x)`` for each layer in turn.
+    ``remat`` and ``unroll`` (the reference's ``jax.remat`` and its
+    python-unrolled ``lax.scan``) change no value here."""
+    del remat, unroll
+    for i in range(_n_layers(stacked_w)):
+        out = layer_fn(_layer(stacked_w, i), x)
+        x = out[0] if isinstance(out, tuple) else out
+    return x
+
+
+def forward(params: Params, batch: Dict, cfg: ModelConfig,
+            remat: bool = True, unroll: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits [B,S,V]."""
+    x = _embed_in(params, batch, cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    fam = cfg.family
+
+    if fam in ("dense", "vlm", "moe"):
+        def layer(w, h):
+            return attn_mlp_layer(w, h, cfg, positions)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+    elif fam == "ssm":
+        def layer(w, h):
+            return mamba_layer(w, h, cfg)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+    elif fam == "hybrid":
+        x = _hybrid_forward(params, x, cfg, positions, remat, unroll)
+    elif fam == "encdec":
+        memory = _encode(params, batch["audio_embeds"], cfg, remat, unroll)
+
+        def layer(w, h):
+            return attn_mlp_layer_with_cross(w, h, memory, cfg, positions)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+    else:
+        raise ValueError(fam)
+    return _logits_out(params, x, cfg)
+
+
+def _encode(params, audio_embeds, cfg: ModelConfig, remat=True,
+            unroll=False):
+    x = audio_embeds.to(_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    ecfg = dataclasses.replace(cfg, family="dense", sliding_window=0)
+
+    def layer(w, h):
+        return attn_mlp_layer(w, h, ecfg, positions, causal=False)
+    x = _scan_layers(layer, x, params["enc_layers"], remat, unroll)
+    return norm(cfg, x, params.get("enc_final_norm"))
+
+
+def _groups(cfg: ModelConfig):
+    """Zamba2's mamba groups: (start, size) of each run of
+    ``shared_attn_every`` blocks, ``ceil(L / every)`` of them."""
+    every, L = cfg.shared_attn_every, cfg.n_layers
+    return [(s, min(every, L - s)) for s in range(0, L, every)]
+
+
+def _hybrid_forward(params, x, cfg: ModelConfig, positions, remat=True,
+                    unroll=False):
+    """Zamba2: groups of mamba2 blocks with ONE shared attention block
+    applied after each group (the shared block's params are reused)."""
+    shared = params["shared"]
+    acfg = dataclasses.replace(cfg, family="dense")
+    for start, g in _groups(cfg):
+        def layer(w, h):
+            return mamba_layer(w, h, cfg)
+        x = _scan_layers(layer, x, _layer(params["layers"],
+                                          slice(start, start + g)),
+                         remat, unroll)
+        x, _ = attn_mlp_layer(shared, x, acfg, positions)
+    return x
+
+
+# ===========================================================================
+# Caches / prefill / decode
+# ===========================================================================
+def _cache_seq_len(cfg: ModelConfig, max_seq: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, max_seq)
+    return max_seq
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
+    """The cache skeleton as ``meta`` tensors."""
+    return _cache_impl(cfg, batch, max_seq, torch.device("meta"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> Dict:
+    """A zeroed cache on ``device`` (default ``cuda``; without a GPU that
+    raises: pass ``device="cpu"``)."""
+    return _cache_impl(cfg, batch, max_seq, resolve_device(device))
+
+
+def _cache_impl(cfg: ModelConfig, B: int, max_seq: int,
+                device: torch.device):
+    dt = _dtype(cfg)
+    hd, KV = cfg.head_dim, cfg.n_kv_heads
+    S = _cache_seq_len(cfg, max_seq)
+
+    def arr(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    cache: Dict[str, Any] = {"pos": arr((), torch.int32)}
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        cache["kv_k"] = arr((cfg.n_layers, B, S, KV * hd))
+        cache["kv_v"] = arr((cfg.n_layers, B, S, KV * hd))
+    elif fam == "ssm":
+        cache["conv"] = arr((cfg.n_layers, B, cfg.d_inner, cfg.ssm_conv - 1))
+        cache["ssm"] = arr((cfg.n_layers, B, cfg.d_inner, cfg.ssm_state),
+                           torch.float32)
+    elif fam == "hybrid":
+        n_shared = len(_groups(cfg))
+        cache["conv"] = arr((cfg.n_layers, B, cfg.d_inner, cfg.ssm_conv - 1))
+        nh, p = cfg.ssm_heads, cfg.d_inner // cfg.ssm_heads
+        cache["ssm"] = arr((cfg.n_layers, B, nh, p, cfg.ssm_state),
+                           torch.float32)
+        cache["kv_k"] = arr((n_shared, B, S, KV * hd))
+        cache["kv_v"] = arr((n_shared, B, S, KV * hd))
+    elif fam == "encdec":
+        cache["kv_k"] = arr((cfg.n_layers, B, S, KV * hd))
+        cache["kv_v"] = arr((cfg.n_layers, B, S, KV * hd))
+        cache["enc_out"] = arr((B, cfg.encoder_seq, cfg.d_model))
+    return cache
+
+
+def _attn_decode_one(w, x, k_cache, v_cache, pos, cfg: ModelConfig,
+                     window: int):
+    """x: [B,1,D]; k/v_cache: [B,Sc,KV*hd] fused, written IN PLACE at the
+    slot of ``pos``: ``pos % Sc`` under a window, else ``min(pos,
+    Sc - 1)`` (the reference's ``dynamic_update_slice`` clamps, so a
+    full cache that overflows rewrites its last slot)."""
+    B = x.shape[0]
+    hd, KV, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    q, k, v = _proj_qkv(w, x, cfg, pos.expand(B, 1))
+    Sc = k_cache.shape[1]
+    slot = pos % Sc if window > 0 else torch.clamp(pos, max=Sc - 1)
+    slot = slot.long().reshape(1)
+    k_cache.index_copy_(1, slot, k.reshape(B, 1, KV * hd))
+    v_cache.index_copy_(1, slot, v.reshape(B, 1, KV * hd))
+    o = decode_attention(q, k_cache.reshape(B, Sc, KV, hd),
+                         v_cache.reshape(B, Sc, KV, hd), cache_len=pos + 1,
+                         window=window, no_repeat=cfg.decode_no_repeat)
+    return torch.einsum("bsq,qd->bsd", o.reshape(B, 1, H * hd), w["wo"])
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cache: Dict,
+                cfg: ModelConfig, unroll: bool = False
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: [B,1] (or embeds [B,1,D]) -> logits
+    [B,1,V].  Writes into ``cache``'s tensors in place and returns a new
+    dict holding them with ``pos + 1``."""
+    del unroll
+    fam = cfg.family
+    pos = cache["pos"]
+    if tokens.ndim == 3:
+        x = tokens.to(_dtype(cfg))
+    else:
+        x = F.embedding(tokens, params["embed"]).to(_dtype(cfg))
+
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        for i in range(cfg.n_layers):
+            w = _layer(params["layers"], i)
+            hh = norm(cfg, x, w.get("attn_norm"))
+            x = x + _attn_decode_one(w, hh, cache["kv_k"][i],
+                                     cache["kv_v"][i], pos, cfg,
+                                     cfg.sliding_window)
+            if fam == "encdec":
+                hh = norm(cfg, x, w.get("cross_norm"))
+                x = x + cross_attention(w, hh, cache["enc_out"], cfg)
+            hh = norm(cfg, x, w.get("mlp_norm"))
+            x = x + _ffn(w, hh, cfg)[0]
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_decode_one(params, x, cache, i, cfg, mamba1_decode)
+    elif fam == "hybrid":
+        x = _hybrid_decode(params, x, cache, cfg)
+
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return _logits_out(params, x, cfg), new_cache
+
+
+def _mamba_decode_one(params, x, cache, i, cfg: ModelConfig, step):
+    """Mamba block ``i`` on one token; its conv and SSM states are
+    written into the cache in place."""
+    w = _layer(params["layers"], i)
+    conv, ssm = cache["conv"][i], cache["ssm"][i]
+    y, new_conv, new_ssm = step(w, norm(cfg, x, w["norm"]), conv, ssm, cfg)
+    conv.copy_(new_conv)
+    ssm.copy_(new_ssm)
+    return x + y
+
+
+def _hybrid_decode(params, x, cache, cfg: ModelConfig):
+    pos = cache["pos"]
+    shared = params["shared"]
+    acfg = dataclasses.replace(cfg, family="dense")
+    for g_idx, (start, g) in enumerate(_groups(cfg)):
+        for i in range(start, start + g):
+            x = _mamba_decode_one(params, x, cache, i, cfg, mamba2_decode)
+        # shared attention block
+        hh = norm(acfg, x, shared.get("attn_norm"))
+        x = x + _attn_decode_one(shared, hh, cache["kv_k"][g_idx],
+                                 cache["kv_v"][g_idx], pos, acfg,
+                                 cfg.sliding_window)
+        hh = norm(acfg, x, shared.get("mlp_norm"))
+        x = x + mlp_ffn(shared, hh, acfg)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full-sequence forward that also fills the cache
+# ---------------------------------------------------------------------------
+def prefill(params: Params, batch: Dict, cache: Dict,
+            cfg: ModelConfig, unroll: bool = False
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt, fill the cache (new tensors, as the
+    reference's), return last-position logits."""
+    del unroll
+    fam = cfg.family
+    x = _embed_in(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    new_cache = dict(cache)
+    Sc = cache["kv_k"].shape[2] if "kv_k" in cache else 0
+
+    def kv_into_cache(k, v):
+        """k,v: [B,S,KV,hd] -> cache layout [B,Sc,KV*hd] (keep last Sc).
+
+        Ring invariant: position p lives at slot p % Sc, so later decode
+        writes (slot = pos % Sc) evict exactly the token that falls out
+        of the window."""
+        KVhd = cfg.n_kv_heads * cfg.head_dim
+        kf = k.reshape(B, S, KVhd)
+        vf = v.reshape(B, S, KVhd)
+        if S >= Sc:
+            kf, vf = kf[:, S - Sc:], vf[:, S - Sc:]
+            shift = (S - Sc) % Sc
+            if shift:
+                kf = torch.roll(kf, shift, dims=1)
+                vf = torch.roll(vf, shift, dims=1)
+            return kf, vf
+        pad = (0, 0, 0, Sc - S)
+        return F.pad(kf, pad), F.pad(vf, pad)
+
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        memory = None
+        if fam == "encdec":
+            memory = _encode(params, batch["audio_embeds"], cfg)
+            new_cache["enc_out"] = memory
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            w = _layer(params["layers"], i)
+            hh = norm(cfg, x, w.get("attn_norm"))
+            q, k, v = _proj_qkv(w, hh, cfg, positions)
+            x = x + _attend(w, q, k, v, cfg, window=cfg.sliding_window)
+            if fam == "encdec":
+                hh = norm(cfg, x, w.get("cross_norm"))
+                x = x + cross_attention(w, hh, memory, cfg)
+            hh = norm(cfg, x, w.get("mlp_norm"))
+            x = x + _ffn(w, hh, cfg)[0]
+            kc, vc = kv_into_cache(k, v)
+            ks.append(kc)
+            vs.append(vc)
+        new_cache["kv_k"], new_cache["kv_v"] = torch.stack(ks), \
+            torch.stack(vs)
+
+    elif fam == "ssm":
+        x, convs, ssms = _ssm_prefill(params, x, cfg)
+        new_cache["conv"], new_cache["ssm"] = convs, ssms
+
+    elif fam == "hybrid":
+        x, states = _hybrid_prefill(params, x, cfg, positions,
+                                    kv_into_cache)
+        new_cache.update(states)
+
+    new_cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
+    logits = _logits_out(params, x[:, -1:], cfg)
+    return logits, new_cache
+
+
+def _ssm_prefill(params, x, cfg: ModelConfig):
+    """Mamba-1 stack over the prompt: the output and each layer's conv
+    tail (before the conv) and final f32 state."""
+    convs, ssms = [], []
+    for i in range(cfg.n_layers):
+        w = _layer(params["layers"], i)
+        y, conv_tail, h_last = _mamba1_scan(w, norm(cfg, x, w["norm"]), cfg)
+        x = x + y
+        convs.append(conv_tail)
+        ssms.append(h_last)
+    return x, torch.stack(convs), torch.stack(ssms)
+
+
+def _hybrid_prefill(params, x, cfg: ModelConfig, positions, kv_into_cache):
+    """Mamba2 groups + shared attention, filling the shared block's
+    caches."""
+    shared = params["shared"]
+    acfg = dataclasses.replace(cfg, family="dense")
+    convs, ssms, kks, vvs = [], [], [], []
+    for start, g in _groups(cfg):
+        for i in range(start, start + g):
+            w = _layer(params["layers"], i)
+            y, conv_tail, hs = mamba2_forward(w, norm(cfg, x, w["norm"]),
+                                              cfg, return_state=True)
+            x = x + y
+            convs.append(conv_tail)
+            ssms.append(hs)
+        hh = norm(acfg, x, shared.get("attn_norm"))
+        q, k, v = _proj_qkv(shared, hh, acfg, positions)
+        x = x + _attend(shared, q, k, v, cfg, window=cfg.sliding_window)
+        hh = norm(acfg, x, shared.get("mlp_norm"))
+        x = x + mlp_ffn(shared, hh, acfg)
+        kc, vc = kv_into_cache(k, v)
+        kks.append(kc)
+        vvs.append(vc)
+    return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
+               "kv_k": torch.stack(kks), "kv_v": torch.stack(vvs)}

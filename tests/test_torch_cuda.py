@@ -1,4 +1,5 @@
-"""The CUDA megakernel against its torch twin, and serving, on the card.
+"""The CUDA megakernel against its torch twin, serving, and the LM
+stack's serving path (P12a), on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 a fixture, never at import).  On the card:
@@ -16,7 +17,11 @@ A served tenant is held to its solo call: top-k values and indices
 bit-equal, full rows rel 1e-6.  Four shards on one card
 (``BatchMesh([cuda:0] * 4)``) are held to the port's 4-shard CPU mesh
 (top-k indices exact, values rel 1e-6) and to the card's one-device
-run (top-k bit for bit), with K1 and K4 launched once a shard.
+run (top-k bit for bit), with K1 and K4 launched once a shard.  The LM
+stack's ten reduced configs (f32, TF32 off) are held to the same weights
+on the CPU (every call's logits and the final cache within 1e-4
+max|cpu|, greedy tokens equal), and their prefill and decode steps run
+under the sync debug mode "error".
 """
 import json
 
@@ -437,3 +442,99 @@ def test_service_on_cuda0_from_a_fresh_thread(cuda):
     assert [u.seq for u in updates] == list(range(len(updates)))
     assert [u.done for u in updates] == sorted(u.done for u in updates)
     assert got["staged"].engine == "staged"
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (P12a) on the card: plain torch ops, no port kernel
+# ---------------------------------------------------------------------------
+LM_ARCHS = ["llava_next_34b", "whisper_medium", "olmo_1b", "qwen2_5_32b",
+            "qwen2_7b", "qwen3_4b", "falcon_mamba_7b", "granite_moe_1b_a400m",
+            "mixtral_8x7b", "zamba2_1p2b"]
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _lm_batch(cfg, n, device):
+    rng = np.random.default_rng(0)
+    out = {}
+    if cfg.family == "vlm":
+        out["embeds"] = rng.standard_normal((2, n, cfg.d_model),
+                                            dtype=np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (2, n))
+    if cfg.family == "encdec":
+        out["audio_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _lm_serve(cfg, params, device, s=48, steps=3):
+    """prefill(s) and ``steps`` greedy decode steps on ``device``: every
+    call's logits, the greedy tokens and the final cache."""
+    from repro_torch.models import model as M
+    p = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(device))
+         for k, v in params.items()}
+    with torch.inference_mode():
+        logits, cache = M.prefill(p, _lm_batch(cfg, s, device),
+                                  M.init_cache(cfg, 2, s + steps,
+                                               device=device), cfg)
+        outs, toks = [logits], []
+        for _ in range(steps):
+            toks.append(torch.argmax(logits[:, -1], -1)[:, None])
+            logits, cache = M.decode_step(p, toks[-1], cache, cfg)
+            outs.append(logits)
+    return outs, torch.cat(toks, 1), cache
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_arch_on_cuda_matches_cpu(cuda, no_tf32, arch):
+    """The reduced config in f32 (TF32 off), the same weights on both:
+    every call's logits and the final cache within 1e-4 max|cpu|, the
+    greedy tokens equal (S = 48 rolls mixtral's and zamba2's ring)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, device="cpu")
+    c_out, c_tok, c_cache = _lm_serve(cfg, params, "cpu")
+    g_out, g_tok, g_cache = _lm_serve(cfg, params, cuda)
+    assert torch.equal(g_tok.cpu(), c_tok)
+    assert int(g_cache["pos"]) == int(c_cache["pos"]) == 51
+    pairs = list(zip(c_out, g_out)) + [(c_cache[k], g_cache[k])
+                                       for k in c_cache if k != "pos"]
+    for c, g in pairs:
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        c, g = c.double(), g.cpu().double()
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_make_no_host_sync(cuda, arch):
+    """After a warm-up (cuBLAS handles), prefill and two decode steps run
+    under the sync debug mode "error": a host sync would raise."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16")
+    params = M.init_params(cfg, 0, device=cuda)
+    batch = _lm_batch(cfg, 40, cuda)
+    nxt = (batch.get("embeds", batch.get("tokens")))[:, :1]
+    with torch.inference_mode():
+        _, cache = M.prefill(params, batch, M.init_cache(cfg, 2, 48), cfg)
+        M.decode_step(params, nxt, cache, cfg)
+        cache = M.init_cache(cfg, 2, 48)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = M.prefill(params, batch, cache, cfg)
+            for _ in range(2):
+                logits, cache = M.decode_step(params, nxt, cache, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()) and int(cache["pos"]) == 42

@@ -9,11 +9,15 @@
   and a staged one on the CPU, and neither has
   one that imports ``repro_torch.functional`` and runs ``fig5_pipeline``
   and ``edgaze_frontend`` on CPU tensors, then
-  ``repro_torch.kernels.ops.flash_attention`` on CPU tensors;
+  ``repro_torch.kernels.ops.flash_attention`` on CPU tensors, nor one
+  that imports ``repro_torch.models`` and serves a reduced model through
+  ``repro_torch.launch.serve_lm`` on the CPU;
 * an AST scan of every ``src/repro_torch/**/*.py`` and of
   ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
   ``from repro ...``;
-* without CUDA, ``explore(space)`` on the default device raises;
+* without CUDA, ``explore(space)`` on the default device raises, and so
+  do the LM stack's ``init_params``, ``init_cache``,
+  ``params_from_numpy`` and ``serve_lm``;
 * the sweep-backend policy mirrors the reference's
   (``tests/test_kernels.py``): ``auto`` follows the device, the
   environment overrides ``auto``, an explicit argument beats the
@@ -158,6 +162,56 @@ def test_functional_on_cpu_loads_no_jax_and_no_repro():
     assert "LOADED []" in proc.stdout
 
 
+_CHILD_LM = r"""
+import sys
+import repro_torch.models
+from repro_torch.launch import serve_lm
+from repro_torch.models import model as M
+from repro_torch.train import build_prefill
+assert serve_lm.main(["--arch", "zamba2_1p2b", "--device", "cpu",
+                      "--batch", "1", "--prompt-len", "40",
+                      "--new-tokens", "3"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
+    """``repro_torch.models`` and the serving entry point
+    ``repro_torch.launch.serve_lm``, serving a reduced zamba2 (mamba2
+    blocks, the shared attention block, a ring past its window)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_LM], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+    assert "arch=zamba2_1p2b family=hybrid" in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache",
+                                   "params_from_numpy", "serve_lm"])
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                              entry):
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("qwen2_7b"))
+    calls = {
+        "init_params": lambda: M.init_params(cfg, 0),
+        "init_cache": lambda: M.init_cache(cfg, 1, 8),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"embed": np.zeros((2, 2), np.float32)}),
+        "serve_lm": lambda: serve_lm.main(["--arch", "qwen2_7b"]),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -177,6 +231,10 @@ def test_port_sources_import_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20, files
     assert PORT / "launch" / "mesh.py" in files
+    for module in ("models/model.py", "models/config.py",
+                   "configs/qwen2_7b.py", "train/steps.py",
+                   "launch/serve_lm.py"):
+        assert PORT / module in files, module
     offenders = _offenders(files)
     assert not offenders, offenders
 
