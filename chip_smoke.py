@@ -100,7 +100,29 @@ read just after:
   of 4 tokens (busy share, kernels a token); then the ten reduced
   configs and qwen2-7b at full width with 2 layers, f32, on the card
   against the port on the CPU (1e-4 max|cpu|, greedy tokens equal); the
-  ``lm_path`` line.
+  ``lm_path`` line;
+* LM training (P12b, ``repro_torch.train``; autograd over the same
+  plain torch ops, no kernel of the port, every launch counter checked
+  still 0) — olmo-1b at its published width and depth (bf16 parameters,
+  f32 moments, remat ``full``, 8 sequences of 1,024 tokens of the
+  structured stream, ``build_train_step(warmup_steps=2,
+  total_steps=8)``): a warm-up step and 5 timed steps each under the
+  sync debug mode "error", loss and grad_norm finite, the last loss below
+  the first, step ms, tokens/s and peak memory beside the 6NT (and 8NT,
+  with the recomputed forward) bound, the gradients and AdamW timed
+  apart, a profiled step (busy share, kernels a step, device ms by kernel
+  class); the loop drill at olmo-1b's width with 2 layers (``TrainLoop``
+  for 6 steps with checkpoints every 2, keep 1, under
+  ``build/train_ckpt_drill/``, removed after; the restored state bit-equal
+  to the saved; a second loop resumed from step 6 to 8 within 1e-2 of an
+  uninterrupted run; a synchronous and an async save timed); the nine
+  other architectures at full width with 2 layers, one bf16 step each
+  under the sync debug mode "error" (every leaf took a gradient, every
+  leaf but those still all ones moved); the ten reduced configs and
+  olmo-1b at full width with 2 layers, f32, one step on the card against
+  the CPU (loss rel 1e-5, grad_norm rel 1e-4, moments 1e-4 max|leaf|,
+  parameters within ``2 lr + 1e-6 |p|``, ``1e-3 lr`` where the gradient
+  is not near zero); the ``train_path`` line.
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
@@ -300,6 +322,14 @@ LM_LONG = {"mixtral_8x7b": (1, 4608)}
 LM_CONT_RULE = 2e-2   # decode vs forward: 2e-2 * max(scale, 1), as the
 #                       reference's tests/test_archs.py:85
 LM_F32_REL = 1e-4     # card vs CPU in f32: 1e-4 * max|cpu|
+# the LM training path (P12b): olmo-1b at its published width and depth,
+# (batch, seq, timed steps); the loop drill at full width with 2 layers,
+# (batch, seq, steps, resumed to); the nine others at full width with 2
+# layers, (batch, seq); the card against the CPU in f32
+TRAIN_MAIN = (8, 1024, 5)
+TRAIN_DRILL = (4, 512, 6, 8)
+TRAIN_OTHERS = (2, 512)
+TRAIN_F32 = {"loss": 1e-5, "grad_norm": 1e-4, "moments": 1e-4}
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit):
 # FP32 outside the tensor cores, dense f16/bf16 on the tensor cores (f32
@@ -307,6 +337,14 @@ LM_F32_REL = 1e-4     # card vs CPU in f32: 1e-4 * max|cpu|
 # whose products all have half operands is bounded at this rate), HBM3
 # bandwidth, and the special-function units (16 per SM x 132 SMs at the
 # 1.98 GHz boost clock).
+# profiled device time by kernel name: the first class whose keys the
+# name holds (cuBLAS's GEMMs, torch's elementwise and reduction kernels)
+KERNEL_CLASSES = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                  ("softmax", ("softmax",)),
+                  ("reduce", ("reduce_kernel",)),
+                  ("elementwise", ("elementwise_kernel",)),
+                  ("copy_cat_index", ("copy", "Cat", "index", "scatter",
+                                      "gather")))
 PEAK_FP32 = 67e12
 PEAK_HALF = 989e12
 PEAK_BYTES = 3.35e12
@@ -1693,10 +1731,16 @@ def profile_path(name, run) -> dict:
             busy += end - reach
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_class = {}
+    for kname, us in by_name.items():
+        cls = next((c for c, keys in KERNEL_CLASSES if any(
+            k in kname for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us * 1e-6
     rec = {"wall_s": wall, "eval_s": getattr(res, "eval_s", None),
            "device_kernels": len(spans), "device_busy_s": busy * 1e-6,
            "device_busy_share_of_wall": busy * 1e-6 / wall,
-           "device_s_by_kernel": {k[:80]: us * 1e-6 for k, us in top}}
+           "device_s_by_kernel": {k[:80]: us * 1e-6 for k, us in top},
+           "device_s_by_class": by_class}
     emit({f"profile_{name}": rec})
     return rec
 
@@ -3172,6 +3216,417 @@ def lm_path(smi, kernel_mods=()) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training on one device (P12b): plain torch ops and autograd, no kernel
+# of the port
+# ---------------------------------------------------------------------------
+def train_batch(cfg, b, s, step, device):
+    """One training batch on the device: the structured token stream of
+    ``repro_torch.data`` at ``step`` (vlm: embeddings from a numpy seed
+    and the stream as labels; encdec: its stub audio frames too)."""
+    from repro_torch.data import SyntheticTextDataset, batch_for_shape
+    if cfg.family in ("vlm", "encdec"):
+        out = batch_for_shape(cfg, b, s, step)
+    else:
+        ds = SyntheticTextDataset(cfg.vocab, s, b, seed=0, mode="structured")
+        out = {"tokens": ds.batch_at(step)}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def n_params(M, cfg) -> int:
+    return sum(int(np.prod(shape)) for shape, _ in
+               M.param_shapes(cfg).values())
+
+
+def leaf_list(tree):
+    from repro_torch.tree import leaves
+    return leaves(tree)
+
+
+def tree_map(fn, tree):
+    from repro_torch.tree import tree_map as tmap
+    return tmap(fn, tree)
+
+
+def sorted_paths(tree):
+    from repro_torch.tree import paths
+    return list(paths(tree))
+
+
+def guarded(fn):
+    """``fn()`` with the sync debug mode at "error": a host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def train_main(M, smi) -> dict:
+    """olmo-1b at its published width and depth, bf16 parameters, f32
+    moments, ``remat`` full: one warm-up step and 5 timed steps (CUDA
+    events, each under the sync debug mode "error"), then a profiled
+    step; loss and grad_norm finite, the last step's loss below the
+    first's; step ms, tokens/s and peak memory beside the 6NT bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    cfg = get_config("olmo_1b")
+    b, s, timed = TRAIN_MAIN
+    n = n_params(M, cfg)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = tree_bytes(params) * 2 + tree_bytes(opt)
+    step_fn = build_train_step(cfg, warmup_steps=2, total_steps=8)
+    batches = [train_batch(cfg, b, s, i, "cuda") for i in range(timed + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    params, opt, m = step_fn(params, opt, batches[0], 0)      # warm-up
+    metrics.append(m)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(1, timed + 1):
+        params, opt, m = guarded(
+            lambda: step_fn(params, opt, batches[i], i))
+        ev[i].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, timed + 1)]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(map(math.isfinite, losses + norms)),
+          f"olmo-1b: loss {losses} grad_norm {norms}")
+    check(losses[-1] < losses[0], f"olmo-1b: loss did not fall {losses}")
+    state = {"p": params, "o": opt}
+
+    def one_step():
+        state["p"], state["o"], _ = step_fn(state["p"], state["o"],
+                                            batches[timed + 1], timed + 1)
+    prof = profile_path("train_step_olmo_1b", one_step)
+    # the step's two halves, each timed alone: the gradients, then AdamW
+    from repro_torch.optim import adamw_update
+    from repro_torch.train.steps import value_and_grad
+    ev2 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev2[0].record()
+    _, grads = value_and_grad(state["p"], batches[timed + 1], cfg)
+    ev2[1].record()
+    adamw_update(grads, state["o"], state["p"], metrics[-1]["lr"])
+    ev2[2].record()
+    torch.cuda.synchronize()
+    del grads
+    tokens = b * s
+    ops6 = 6 * n * tokens
+    med = float(np.median(step_ms))
+    rec = {
+        "arch": "olmo_1b", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "params": n, "dtype": cfg.dtype,
+        "remat_policy": cfg.remat_policy, "batch": b, "seq": s,
+        "tokens_per_step": tokens, "init_s": init_s,
+        "state_gb": state_bytes / 1e9, "losses": losses,
+        "grad_norms": norms, "lrs": [float(m["lr"]) for m in metrics],
+        "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / (med * 1e-3), "wall_s_timed": wall,
+        "peak_memory_gb": peak / 1e9, "host_syncs": 0,
+        "flops_6nt": ops6, "bound_ms": ops6 / PEAK_HALF * 1e3,
+        "bound_by": "operations",
+        "flops_8nt_remat": 8 * n * tokens,
+        "bound_ms_remat": 8 * n * tokens / PEAK_HALF * 1e3,
+        "grads_ms": ev2[0].elapsed_time(ev2[1]),
+        "adamw_ms": ev2[1].elapsed_time(ev2[2]),
+        "profiled_step_ms": prof["wall_s"] * 1e3,
+        "device_ms_by_class": {k: v * 1e3 for k, v in
+                               prof["device_s_by_class"].items()},
+        "kernels_per_step": prof["device_kernels"],
+        "device_busy_ms": prof["device_busy_s"] * 1e3,
+        "busy_share": prof["device_busy_s"] * 1e3 / med,
+        "busy_share_profiled": prof["device_busy_share_of_wall"],
+        "power_limit": smi}
+    del params, opt, state, batches, metrics
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def train_loop_drill(M) -> dict:
+    """The loop, its checkpoints and resume, at olmo-1b's full width with
+    its depth cut to 2 layers: ``TrainLoop`` for 6 steps
+    (``checkpoint_every=2``, ``keep=1``), the restored state bit-equal to
+    the loop's, a second loop that resumes from step 6 to step 8, its loss
+    within 1e-2 rel of an uninterrupted 8-step run; a synchronous save
+    and an async one timed beside a step."""
+    import shutil
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoop, build_train_step
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=2)
+    b, s, steps, resume_to = TRAIN_DRILL
+    root = Path(__file__).resolve().parent / "build" / "train_ckpt_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n = n_params(M, cfg)
+    ckpt_bytes = n * 2 + n * 8
+    free = shutil.disk_usage(root).free
+    print(json.dumps({"train_drill_disk": {"free_gb": free / 1e9,
+                                           "checkpoint_gb": ckpt_bytes / 1e9}}),
+          flush=True)
+    # keep=1: a published checkpoint, the one being written, and the
+    # async save's and the timing probe's
+    check(free > 4 * ckpt_bytes, f"{free} bytes free, a checkpoint takes "
+          f"{ckpt_bytes}: the drill would not fit")
+    ds = SyntheticTextDataset(cfg.vocab, s, b, seed=0, mode="structured")
+    step_fn = build_train_step(cfg, warmup_steps=2, total_steps=resume_to)
+
+    def make_batch(step):
+        return {"tokens": torch.from_numpy(ds.batch_at(step)).to("cuda")}
+
+    def fresh():
+        params = M.init_params(cfg, 0)
+        return params, adamw_init(params)
+
+    try:
+        mgr = CheckpointManager(str(root / "run"), keep=1)
+        p, o = fresh()
+        t0 = time.perf_counter()
+        out1 = TrainLoop(step_fn, ds, mgr, checkpoint_every=2).run(
+            p, o, num_steps=steps, make_batch=make_batch, log_every=1)
+        loop_s = time.perf_counter() - t0
+        check(out1["step"] == steps and mgr.list_steps() == [steps],
+              f"drill: step {out1['step']}, checkpoints {mgr.list_steps()}")
+        sk_p, sk_o = fresh()
+        rp, ro, manifest = mgr.restore(sk_p, sk_o)
+        check(manifest["step"] == steps, f"drill: manifest {manifest}")
+        for name, a, r in (("params", out1["params"], rp),
+                           ("opt_state", out1["opt_state"], ro)):
+            for x, y in zip(leaf_list(a), leaf_list(r)):
+                check(x.dtype == y.dtype and x.device == y.device
+                      and torch.equal(x, y), f"drill: restored {name} "
+                      f"differ from the saved")
+        del rp, ro, out1
+        t0 = time.perf_counter()
+        out2 = TrainLoop(step_fn, ds, mgr, checkpoint_every=2).run(
+            sk_p, sk_o, num_steps=resume_to, make_batch=make_batch,
+            log_every=1)
+        resume_s = time.perf_counter() - t0
+        check(out2["step"] == resume_to and [h["step"] for h in
+                                             out2["history"]]
+              == list(range(steps + 1, resume_to + 1)),
+              f"drill: resumed run {out2['step']} {out2['history']}")
+        del out2["params"], out2["opt_state"]
+        torch.cuda.empty_cache()
+        p, o = fresh()
+        straight = CheckpointManager(str(root / "straight"), keep=1)
+        out3 = TrainLoop(step_fn, ds, straight,
+                         checkpoint_every=resume_to + 1).run(
+            p, o, num_steps=resume_to, make_batch=make_batch, log_every=1)
+        resumed, uninterrupted = (out2["history"][-1]["loss"],
+                                  out3["history"][-1]["loss"])
+        rel = abs(resumed - uninterrupted) / abs(uninterrupted)
+        check(math.isfinite(resumed) and rel <= 1e-2,
+              f"drill: resumed loss {resumed}, uninterrupted "
+              f"{uninterrupted}")
+        # a synchronous save, then an async one with a step behind it
+        params, opt = out3["params"], out3["opt_state"]
+        probe = CheckpointManager(str(root / "probe"), keep=1)
+        t0 = time.perf_counter()
+        probe.save(100, params, opt)
+        save_s = time.perf_counter() - t0
+        written = dir_bytes(root / "probe" / "step_00000100")
+        t0 = time.perf_counter()
+        probe.async_save(101, params, opt)
+        snapshot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, make_batch(resume_to),
+                                 resume_to)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        probe.wait()
+        wait_s = time.perf_counter() - t0
+        rec = {
+            "arch": "olmo_1b", "n_layers": 2, "d_model": cfg.d_model,
+            "params": n, "batch": b, "seq": s, "steps": steps,
+            "resumed_to": resume_to, "checkpoint_every": 2, "keep": 1,
+            "checkpoint_bytes": written, "free_bytes": free,
+            "loop_s": loop_s, "resume_s": resume_s,
+            "restored_bit_equal": True,
+            "history": [h["loss"] for h in out3["history"]],
+            "resumed_loss": resumed, "uninterrupted_loss": uninterrupted,
+            "resumed_rel": rel, "save_ms": save_s * 1e3,
+            "save_gb_per_s": written / save_s / 1e9,
+            "async_snapshot_ms": snapshot_s * 1e3,
+            "step_behind_async_ms": step_s * 1e3,
+            "wait_after_step_ms": wait_s * 1e3,
+            # the share of the async write's wall time (from the call's
+            # return to the end of its wait) that a training step filled
+            "async_overlap": step_s / (step_s + wait_s)}
+        del params, opt, out3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sample_leaves(tree, k=65536):
+    """A strided sample of each leaf (at most ``k`` elements), cloned."""
+    out = []
+    for t in leaf_list(tree):
+        flat = t.reshape(-1)
+        out.append(flat[::max(flat.numel() // k, 1)].clone())
+    return out
+
+
+def train_other(M, arch) -> dict:
+    """One architecture at full width cut to 2 layers (``lm_cut``), bf16:
+    a warm-up step, then one step under the sync debug mode "error";
+    loss and grad_norm finite, every leaf's first moment nonzero (every
+    leaf took a gradient), every leaf moved but those still all ones
+    (norm scales, mamba's ``d_skip``: in bf16 a step of lr = 3e-4 is
+    under half their ulp, 2^-8, as in the reference)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    cfg, cuts = lm_cut(arch)
+    b, s = TRAIN_OTHERS
+    params = M.init_params(cfg, 0)
+    opt = adamw_init(params)
+    step_fn = build_train_step(cfg, warmup_steps=2, total_steps=8)
+    batches = [train_batch(cfg, b, s, i, "cuda") for i in range(2)]
+    params, opt, _ = step_fn(params, opt, batches[0], 0)     # warm-up
+    before = sample_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    # step 2: the end of the warm-up, the peak rate
+    params, opt, m = guarded(lambda: step_fn(params, opt, batches[1], 2))
+    ev[1].record()
+    torch.cuda.synchronize()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"{arch}: loss {loss} grad_norm {gnorm}")
+    leaves = leaf_list(params)
+    moved = [not torch.equal(x, y) for x, y in
+             zip(before, sample_leaves(params))]
+    with_grad = [bool((v != 0).any()) for v in leaf_list(opt["m"])]
+    check(all(with_grad), f"{arch}: a leaf took no gradient")
+    names = [k for k, _ in sorted_paths(params)]
+    still = [k for k, mv in zip(names, moved) if not mv]
+    check(all(bool((x == 1).all()) for x, mv in zip(before, moved)
+              if not mv), f"{arch}: leaves did not move: {still}")
+    rec = {"cuts": cuts, "params": n_params(M, cfg), "batch": b, "seq": s,
+           "loss": loss, "grad_norm": gnorm,
+           "step_ms": ev[0].elapsed_time(ev[1]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "leaves": len(leaves), "leaves_moved": sum(moved),
+           "ones_below_an_ulp": still,
+           "leaves_with_grad": sum(with_grad), "host_syncs": 0}
+    del params, opt, batches, before
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_card_vs_cpu(M, cfg, b, s) -> dict:
+    """One f32 train step on carried weights and one batch, on the CPU
+    and on the card: loss within rel 1e-5, grad_norm within rel 1e-4, the
+    moments within 1e-4 max|leaf|, the parameters within ``1e-3 lr +
+    1e-6 |p|`` where the CPU's first moment is above 1e-3 of its leaf's
+    largest, ``2 lr + 1e-6 |p|`` elsewhere (Adam's first step is
+    ``lr sign(g)``: a near-zero gradient may flip)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    params = M.init_params(cfg, 0, device="cpu")
+    batch = train_batch(cfg, b, s, 0, "cpu")
+    step_fn = build_train_step(cfg, warmup_steps=2, total_steps=8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        # a copy on each device: the step writes its params in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        runs[dev] = step_fn(p, adamw_init(p), tree_to(batch, dev), 1)
+    (cp, co, cm), (gp, go, gm) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(float(gm["loss"]) - float(cm["loss"])) / abs(
+        float(cm["loss"]))
+    norm_rel = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / abs(
+        float(cm["grad_norm"]))
+    check(loss_rel <= TRAIN_F32["loss"], f"{cfg.arch_id}: loss rel "
+          f"{loss_rel}")
+    check(norm_rel <= TRAIN_F32["grad_norm"], f"{cfg.arch_id}: grad_norm "
+          f"rel {norm_rel}")
+    lr = float(cm["lr"])
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0}
+    for key in ("m", "v"):
+        for c, g in zip(leaf_list(co[key]), leaf_list(go[key])):
+            c, g = c.double(), g.cpu().double()
+            err = float((g - c).abs().max()) / max(float(c.abs().max()),
+                                                   1e-30)
+            check(err <= TRAIN_F32["moments"], f"{cfg.arch_id}: {key} "
+                  f"err {err}")
+            worst[key] = max(worst[key], err)
+    for c, g, m in zip(leaf_list(cp), leaf_list(gp), leaf_list(co["m"])):
+        c, g, m = c.double(), g.cpu().double(), m.double()
+        strong = m.abs() > 1e-3 * m.abs().max()
+        bound = torch.where(strong, 1e-3 * lr, 2 * lr) + 1e-6 * c.abs()
+        err = (g - c).abs()
+        check(bool((err <= bound).all()), f"{cfg.arch_id}: parameters "
+              f"off by {float((err - bound).max())} past the bound")
+        worst["params"] = max(worst["params"], float((err / bound).max()))
+    return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+            "moments_rel": max(worst["m"], worst["v"]),
+            "params_err_over_bound": worst["params"], "lr": lr}
+
+
+def train_path(smi, kernel_mods=()) -> dict:
+    """The LM stack's training path (P12b) on the card: olmo-1b at its
+    published width and depth (``train_main``), the loop drill
+    (``train_loop_drill``), the nine other architectures at full width
+    with 2 layers (``train_other``), the card against the CPU in f32
+    (the ten reduced configs; olmo-1b at full width with 2 layers).  No
+    kernel of ``repro_torch.kernels`` is on the path: their launch
+    counters stay at 0."""
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.models import model as M
+    t_start = time.perf_counter()
+    reset_all(kernel_mods)
+    out = {"power_limit": smi}
+    out["olmo_1b"] = train_main(M, smi)
+    emit({"train_main": out["olmo_1b"]})
+    out["loop_drill"] = train_loop_drill(M)
+    emit({"train_loop_drill": out["loop_drill"]})
+    others = {}
+    for arch in ARCH_IDS:
+        if arch != "olmo_1b":
+            others[arch] = train_other(M, arch)
+            emit({f"train_step_{arch}": others[arch]})
+    out["full_width_2_layers"] = others
+    versus = {}
+    for arch in ARCH_IDS:
+        versus[arch] = train_card_vs_cpu(M, reduced(get_config(arch)),
+                                         2, 48)
+    versus["olmo_1b_full_width_2_layers"] = train_card_vs_cpu(
+        M, dataclasses.replace(get_config("olmo_1b"), n_layers=2,
+                               dtype="float32"), 1, 128)
+    out["card_vs_cpu_f32"] = versus
+    torch.cuda.empty_cache()
+    launched = {m.__name__.rsplit(".", 1)[-1]: m.COUNTS["kernel_launches"]
+                for m in kernel_mods if m.COUNTS["kernel_launches"]}
+    check(not launched, f"training path launched port kernels {launched}")
+    out["kernel_launches"] = 0
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"train_path": out})
+    return out
+
+
 def ptxas_by_entry(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
     spills"}``, the kernel names demangled by ``c++filt`` where it runs."""
@@ -3768,6 +4223,8 @@ def main() -> int:
         power_limit=power, **f32_by_shape[0], by_shape=f32_by_shape))
     # ----- 10. the LM stack's serving path (P12a): no port kernel ----------
     lm_path(power, kernel_mods)
+    # ----- 11. the LM stack's training path (P12b): no port kernel ---------
+    train_path(power, kernel_mods)
 
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,37 @@
-# Copy of the JSON helpers of src/repro/ckpt/manager.py (lines 25-70); that
-# module imports jax, so its helpers are copied and the rest is left out.
-"""Atomic small-record JSON I/O (shared with the campaign shard stores)."""
+# The JSON helpers are copies of src/repro/ckpt/manager.py (lines 25-70);
+# the checkpoint manager is its torch counterpart (that module imports jax).
+"""Checkpoint manager: atomic, async, keep-K, resume; and atomic
+small-record JSON I/O (shared with the campaign shard stores).
+
+Format, the reference's: one ``step_<N:08d>/`` directory per checkpoint
+holding ``params.npz`` (and ``opt_state.npz``) with flattened ``a/b/c``
+path -> array entries, keys in ``jax.tree_util`` order, plus a JSON
+manifest (step, metadata).  Writes go to ``step_<N>.tmp`` and are
+renamed only when complete, so a preempted writer never corrupts the
+latest checkpoint.  ``async_save`` snapshots to host memory at once and
+writes on a background thread; an error of the write is raised by the
+next ``wait`` (or ``save``/``async_save``).
+
+A bf16 tensor is written as the reference writes an ``ml_dtypes``
+bfloat16 array: 2-byte ``|V2`` records holding its bits, read back by
+the skeleton's dtype, so a checkpoint crosses between the two packages.
+``restore`` returns tensors on each skeleton leaf's device and dtype.
+The reference's ``restore_resharded`` (placing a checkpoint under new
+shardings) comes with the LM mesh.
+"""
 from __future__ import annotations
 
 import hashlib
 import json
 import os
-from typing import Any, Optional
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..tree import paths, unflatten
 
 
 def canonical_json(obj: Any) -> str:
@@ -53,3 +78,145 @@ def atomic_write_json(path: str, obj: Any, *,
 def read_json(path: str) -> Any:
     with open(path) as f:
         return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# The checkpoint manager
+# ---------------------------------------------------------------------------
+_BF16_RECORD = np.dtype("V2")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` (never a view: the train step writes its
+    tensors in place); bf16 as ``|V2`` records of its bits."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_RECORD)
+    return t.numpy()
+
+
+def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+    return {key: _to_numpy(leaf) for key, leaf in paths(tree)}
+
+
+def _tensor_like(arr: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
+    if arr.dtype == _BF16_RECORD:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=leaf.device, dtype=leaf.dtype)
+
+
+def _unflatten_into(skeleton: Any, flat: Dict[str, np.ndarray]) -> Any:
+    """``skeleton``'s tree with each leaf read from ``flat`` (checked for
+    presence and shape) as a tensor on the leaf's device and dtype."""
+    def one(key, leaf):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing parameter {key!r}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key!r}: checkpoint "
+                             f"{arr.shape} vs model {tuple(leaf.shape)}")
+        return _tensor_like(arr, leaf)
+    return unflatten({key: one(key, leaf) for key, leaf in paths(skeleton)})
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, params: Any, opt_state: Any = None,
+             metadata: Optional[Dict] = None) -> str:
+        self.wait()
+        return self._write(step, params, opt_state, metadata or {})
+
+    def async_save(self, step: int, params: Any, opt_state: Any = None,
+                   metadata: Optional[Dict] = None) -> None:
+        """Snapshot to host now; write on a background thread."""
+        self.wait()
+        flat = _flatten(params)
+        flat_opt = _flatten(opt_state) if opt_state is not None else None
+        md = dict(metadata or {})
+
+        def work():
+            try:
+                self._write_flat(step, flat, flat_opt, md)
+            except BaseException as e:  # noqa: BLE001 - raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    # ------------------------------------------------------------------
+    def _write(self, step, params, opt_state, metadata) -> str:
+        return self._write_flat(step, _flatten(params),
+                                _flatten(opt_state) if opt_state is not None
+                                else None, metadata)
+
+    def _write_flat(self, step, flat, flat_opt, metadata) -> str:
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "params.npz"), **flat)
+        if flat_opt is not None:
+            np.savez(os.path.join(tmp, "opt_state.npz"), **flat_opt)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "metadata": metadata}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # atomic publish
+        self._gc()
+        return final
+
+    def _gc(self) -> None:
+        steps = self.list_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # ------------------------------------------------------------------
+    def list_steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.list_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, skeleton_params: Any, skeleton_opt: Any = None,
+                step: Optional[int] = None) -> Tuple[Any, Any, Dict]:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:08d}")
+        with np.load(os.path.join(d, "params.npz")) as z:
+            params = _unflatten_into(skeleton_params, dict(z))
+        opt = None
+        if skeleton_opt is not None:
+            with np.load(os.path.join(d, "opt_state.npz")) as z:
+                opt = _unflatten_into(skeleton_opt, dict(z))
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        return params, opt, manifest

@@ -7,10 +7,15 @@ attention block), encdec (whisper, stub audio frontend).
 
 Conventions, as the reference's:
   * params are nested dicts of tensors; per-layer params are *stacked*
-    on a leading L axis, and the layer stack is a Python loop over the
-    views ``w[i]`` (``remat`` and ``unroll`` are accepted and change no
-    value: serving runs under ``torch.inference_mode()``, with no
-    autograd to rematerialise for);
+    on a leading L axis.  ``forward``'s layer stack is a Python loop over
+    one ``unbind(0)`` of each stacked leaf (indexing ``w[i]`` per layer
+    would make autograd build a zero ``[L, ...]`` gradient per layer and
+    sum all L of them); under autograd ``remat`` wraps each layer in
+    ``torch.utils.checkpoint`` (``cfg.remat_policy``: ``full``
+    recomputes the layer, ``dots`` saves its 2-D products), as the
+    reference's ``jax.remat``.  Neither ``remat`` nor ``unroll`` changes
+    a value, and under ``torch.inference_mode()`` (serving) nothing is
+    checkpointed;
   * attention projections are fused 2-D matrices;
   * caches are dicts of stacked buffers: fused ``[L, B, Sc, KV*hd]``
     K/V, a ring of ``window`` slots under a sliding window, f32 SSM
@@ -26,12 +31,16 @@ host: the cache slot is computed on the device from ``cache["pos"]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from ..kernels.runtime import resolve_device
+from ..tree import unflatten
 from .common import apply_rope, chunked_attention, decode_attention, \
     dense_init, norm, rmsnorm, silu
 from .config import ModelConfig
@@ -142,21 +151,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
     return out
 
 
-def _unflatten(flat: Dict[str, Any]) -> Params:
-    tree: Params = {}
-    for path, leaf in flat.items():
-        node = tree
-        parts = path.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = leaf
-    return tree
-
-
 def abstract_params(cfg: ModelConfig) -> Params:
     """The parameter tree as ``meta`` tensors (shapes and dtypes, no
     storage)."""
-    return _unflatten({p: torch.empty(s, dtype=d, device="meta")
+    return unflatten({p: torch.empty(s, dtype=d, device="meta")
                        for p, (s, d) in param_shapes(cfg).items()})
 
 
@@ -202,7 +200,7 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
                 flat[path] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             flat[path] = dense_init(gen, shape, dtype)
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def _layer(stacked: Params, i) -> Params:
@@ -319,13 +317,52 @@ def _n_layers(stacked: Params) -> int:
     return next(iter(stacked.values())).shape[0]
 
 
-def _scan_layers(layer_fn, x, stacked_w, remat=True, unroll=False):
-    """The layer stack: ``layer_fn(w[i], x)`` for each layer in turn.
-    ``remat`` and ``unroll`` (the reference's ``jax.remat`` and its
-    python-unrolled ``lax.scan``) change no value here."""
-    del remat, unroll
-    for i in range(_n_layers(stacked_w)):
-        out = layer_fn(_layer(stacked_w, i), x)
+def _unstack(stacked: Params) -> List[Params]:
+    """Each layer's weights, from one ``unbind(0)`` of each stacked leaf
+    (its backward stacks the L gradients once)."""
+    cols = {k: v.unbind(0) for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()}
+            for i in range(_n_layers(stacked))]
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: save the products with no
+    batch dimension (the projections), recompute the rest.
+    ``torch.einsum`` lowers every product to ``aten.bmm``; one with no
+    batch dimension has a batch of 1."""
+    if func is torch.ops.aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: Optional[ModelConfig] = None):
+    """``fn`` rematerialised in the backward pass (the reference's
+    ``jax.remat``): ``full`` recomputes the whole call, ``dots`` keeps
+    the outputs of its 2-D products."""
+    kw = {}
+    if cfg is not None and cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return wrapped
+
+
+def _scan_layers(layer_fn, x, layers, remat=True, unroll=False, cfg=None):
+    """The layer stack: ``layer_fn(w, x)`` for each layer's weights in
+    turn (``layers`` a stacked tree or :func:`_unstack`'s list).  With
+    ``remat`` each layer is rematerialised when autograd records;
+    ``unroll`` (the reference's python-unrolled ``lax.scan``) changes
+    nothing here."""
+    del unroll
+    if isinstance(layers, dict):
+        layers = _unstack(layers)
+    fn = _remat(layer_fn, cfg) if remat and torch.is_grad_enabled() \
+        else layer_fn
+    for w in layers:
+        out = fn(w, x)
         x = out[0] if isinstance(out, tuple) else out
     return x
 
@@ -341,11 +378,11 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig,
     if fam in ("dense", "vlm", "moe"):
         def layer(w, h):
             return attn_mlp_layer(w, h, cfg, positions)
-        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll, cfg)
     elif fam == "ssm":
         def layer(w, h):
             return mamba_layer(w, h, cfg)
-        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll, cfg)
     elif fam == "hybrid":
         x = _hybrid_forward(params, x, cfg, positions, remat, unroll)
     elif fam == "encdec":
@@ -353,7 +390,7 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig,
 
         def layer(w, h):
             return attn_mlp_layer_with_cross(w, h, memory, cfg, positions)
-        x = _scan_layers(layer, x, params["layers"], remat, unroll)
+        x = _scan_layers(layer, x, params["layers"], remat, unroll, cfg)
     else:
         raise ValueError(fam)
     return _logits_out(params, x, cfg)
@@ -367,7 +404,7 @@ def _encode(params, audio_embeds, cfg: ModelConfig, remat=True,
 
     def layer(w, h):
         return attn_mlp_layer(w, h, ecfg, positions, causal=False)
-    x = _scan_layers(layer, x, params["enc_layers"], remat, unroll)
+    x = _scan_layers(layer, x, params["enc_layers"], remat, unroll, cfg)
     return norm(cfg, x, params.get("enc_final_norm"))
 
 
@@ -384,12 +421,13 @@ def _hybrid_forward(params, x, cfg: ModelConfig, positions, remat=True,
     applied after each group (the shared block's params are reused)."""
     shared = params["shared"]
     acfg = dataclasses.replace(cfg, family="dense")
+    layers = _unstack(params["layers"])
+
+    def layer(w, h):
+        return mamba_layer(w, h, cfg)
     for start, g in _groups(cfg):
-        def layer(w, h):
-            return mamba_layer(w, h, cfg)
-        x = _scan_layers(layer, x, _layer(params["layers"],
-                                          slice(start, start + g)),
-                         remat, unroll)
+        x = _scan_layers(layer, x, layers[start:start + g], remat, unroll,
+                         cfg)
         x, _ = attn_mlp_layer(shared, x, acfg, positions)
     return x
 

@@ -8,7 +8,10 @@ reference's ``lax.associative_scan`` does (another rounding order, the
 same products: ``a`` in (0, 1) underflows to 0, never overflows).
 
 Mamba-2 uses the SSD form: a scalar decay per head turns the
-within-chunk recurrence into ``(C B^T * decay-mask) @ x``.
+within-chunk recurrence into ``(C B^T * decay-mask) @ x``.  The decay
+mask is taken as ``exp`` of the masked exponents, not masked after the
+``exp`` as the reference does: the same values, but a finite gradient
+where the masked exponents overflow (ROADMAP R7).
 """
 from __future__ import annotations
 
@@ -195,9 +198,11 @@ def mamba2_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
         n = xc.shape[1]
         mask = torch.tril(torch.ones((n, n), dtype=torch.bool,
                                      device=x.device))
-        # exp before the mask: the upper triangle may be inf, then zeroed
+        # the mask before the exp: the upper triangle may overflow to inf,
+        # and the reference's exp-then-mask gives the same values but a
+        # NaN gradient there (0 * inf; ROADMAP R7); exp(-inf) = 0
         G = torch.einsum("bqn,bkn->bqk", Ccc, Bcc)[..., None] * \
-            torch.where(mask[None, ..., None], torch.exp(L), 0.0)
+            torch.exp(torch.where(mask[None, ..., None], L, -torch.inf))
         y_intra = torch.einsum("bqkh,bkhp->bqhp",
                                G * dt[:, c][:, None, :, :], xc)
         # inter-chunk: contribution of carried state h

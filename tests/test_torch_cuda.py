@@ -1,5 +1,5 @@
 """The CUDA megakernel against its torch twin, serving, and the LM
-stack's serving path (P12a), on the card.
+stack's serving (P12a) and training (P12b) paths, on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 a fixture, never at import).  On the card:
@@ -21,7 +21,11 @@ run (top-k bit for bit), with K1 and K4 launched once a shard.  The LM
 stack's ten reduced configs (f32, TF32 off) are held to the same weights
 on the CPU (every call's logits and the final cache within 1e-4
 max|cpu|, greedy tokens equal), and their prefill and decode steps run
-under the sync debug mode "error".
+under the sync debug mode "error"; so does a train step (bf16, remat
+``full`` and ``dots``), and one f32 train step is held to the CPU's
+(loss rel 1e-5, grad_norm rel 1e-4, moments 1e-4 max|cpu|, parameters
+within ``2 lr + 1e-6 |p|``, ``1e-3 lr`` where the gradient is not near
+zero).
 """
 import json
 
@@ -538,3 +542,83 @@ def test_lm_prefill_and_decode_make_no_host_sync(cuda, arch):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all()) and int(cache["pos"]) == 42
+
+
+def _train_batch(cfg, n, device):
+    rng = np.random.default_rng(1)
+    out = {"tokens": rng.integers(0, cfg.vocab, (2, n))}
+    if cfg.family == "vlm":
+        out = {"embeds": rng.standard_normal((2, n, cfg.d_model),
+                                             dtype=np.float32),
+               "labels": out["tokens"]}
+    elif cfg.family == "encdec":
+        out["audio_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_cuda_matches_cpu(cuda, no_tf32, arch):
+    """One f32 train step (reduced config, TF32 off) on the same weights
+    and batch: loss within rel 1e-5, grad_norm within rel 1e-4, the
+    moments within 1e-4 max|cpu leaf|, the parameters within ``2 lr +
+    1e-6 |p|`` (``1e-3 lr`` where the first moment is above 1e-3 of its
+    leaf's largest)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves as tree_leaves
+    from repro_torch.tree import tree_map
+    from repro_torch.train import build_train_step
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, device="cpu")
+    step = build_train_step(cfg, warmup_steps=2, total_steps=8)
+    runs = {}
+    for dev in ("cpu", cuda):
+        # a copy on each device: the step writes its params in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        runs[str(dev)] = step(p, adamw_init(p), _train_batch(cfg, 40, dev),
+                              1)
+    (cp, co, cm), (gp, go, gm) = runs["cpu"], runs[str(cuda)]
+    assert all(t.device.type == "cuda" for t in gm.values())
+    for key, rel in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(float(gm[key]) - float(cm[key])) <= rel * abs(
+            float(cm[key])), key
+    lr = float(cm["lr"])
+    for key in ("m", "v"):
+        for c, g in zip(tree_leaves(co[key]), tree_leaves(go[key])):
+            c, g = c.double(), g.cpu().double()
+            assert float((g - c).abs().max()) <= 1e-4 * float(
+                c.abs().max())
+    for c, g, m in zip(tree_leaves(cp), tree_leaves(gp),
+                       tree_leaves(co["m"])):
+        c, g, m = c.double(), g.cpu().double(), m.double()
+        strong = m.abs() > 1e-3 * m.abs().max()
+        bound = torch.where(strong, 1e-3 * lr, 2 * lr) + 1e-6 * c.abs()
+        assert bool(((g - c).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_makes_no_host_sync(cuda, arch):
+    """After a warm-up step, a bf16 train step under each remat policy
+    runs under the sync debug mode "error": a host sync would raise."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  dtype="bfloat16", remat_policy=policy)
+        params = M.init_params(cfg, 0, device=cuda)
+        opt = adamw_init(params)
+        batch = _train_batch(cfg, 40, cuda)
+        step = build_train_step(cfg, warmup_steps=2, total_steps=8)
+        params, opt, _ = step(params, opt, batch, 0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt, m = step(params, opt, batch, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bool(torch.isfinite(m["loss"])) and int(opt["count"]) == 2

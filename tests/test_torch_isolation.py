@@ -11,13 +11,14 @@
   and ``edgaze_frontend`` on CPU tensors, then
   ``repro_torch.kernels.ops.flash_attention`` on CPU tensors, nor one
   that imports ``repro_torch.models`` and serves a reduced model through
-  ``repro_torch.launch.serve_lm`` on the CPU;
+  ``repro_torch.launch.serve_lm`` on the CPU, then trains it a step and
+  runs ``repro_torch.launch.train`` for two;
 * an AST scan of every ``src/repro_torch/**/*.py`` and of
   ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
   ``from repro ...``;
 * without CUDA, ``explore(space)`` on the default device raises, and so
   do the LM stack's ``init_params``, ``init_cache``,
-  ``params_from_numpy`` and ``serve_lm``;
+  ``params_from_numpy``, ``serve_lm`` and ``launch.train``;
 * the sweep-backend policy mirrors the reference's
   (``tests/test_kernels.py``): ``auto`` follows the device, the
   environment overrides ``auto``, an explicit argument beats the
@@ -171,6 +172,22 @@ from repro_torch.train import build_prefill
 assert serve_lm.main(["--arch", "zamba2_1p2b", "--device", "cpu",
                       "--batch", "1", "--prompt-len", "40",
                       "--new-tokens", "3"]) == 0
+import tempfile
+import repro_torch.ckpt, repro_torch.data, repro_torch.optim
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import SyntheticTextDataset
+from repro_torch.launch import train
+from repro_torch.train import TrainLoop, build_train_step
+cfg = reduced(get_config("zamba2_1p2b"))
+params = M.init_params(cfg, 0, device="cpu")
+opt = repro_torch.optim.adamw_init(params)
+ds = SyntheticTextDataset(cfg.vocab, 16, 2, mode="structured")
+params, opt, m = build_train_step(cfg)(params, opt,
+                                       {"tokens": ds.batch_at(0)}, 0)
+assert m["loss"].isfinite()
+with tempfile.TemporaryDirectory() as d:
+    assert train.main(["--arch", "qwen3_4b", "--reduced", "--device", "cpu",
+                       "--steps", "2", "--seq", "16", "--ckpt-dir", d]) == 0
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
@@ -181,7 +198,9 @@ sys.exit(1 if bad else 0)
 def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
     """``repro_torch.models`` and the serving entry point
     ``repro_torch.launch.serve_lm``, serving a reduced zamba2 (mamba2
-    blocks, the shared attention block, a ring past its window)."""
+    blocks, the shared attention block, a ring past its window); then a
+    CPU train step of the same model and two steps of the training entry
+    point ``repro_torch.launch.train`` (optim, data, ckpt, the loop)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _CHILD_LM], env=env,
                           capture_output=True, text=True, timeout=300)
@@ -191,12 +210,13 @@ def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache",
-                                   "params_from_numpy", "serve_lm"])
+                                   "params_from_numpy", "serve_lm",
+                                   "launch_train"])
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                               entry):
     import numpy as np
     from repro_torch.configs import get_config, reduced
-    from repro_torch.launch import serve_lm
+    from repro_torch.launch import serve_lm, train
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_from_numpy
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -207,6 +227,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "params_from_numpy": lambda: params_from_numpy(
             {"embed": np.zeros((2, 2), np.float32)}),
         "serve_lm": lambda: serve_lm.main(["--arch", "qwen2_7b"]),
+        "launch_train": lambda: train.main(["--arch", "qwen2_7b",
+                                            "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -233,7 +255,9 @@ def test_port_sources_import_no_jax_and_no_repro():
     assert PORT / "launch" / "mesh.py" in files
     for module in ("models/model.py", "models/config.py",
                    "configs/qwen2_7b.py", "train/steps.py",
-                   "launch/serve_lm.py"):
+                   "launch/serve_lm.py", "train/loop.py", "optim/adamw.py",
+                   "optim/schedule.py", "data/synthetic.py",
+                   "ckpt/manager.py", "launch/train.py"):
         assert PORT / module in files, module
     offenders = _offenders(files)
     assert not offenders, offenders

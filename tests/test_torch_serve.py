@@ -86,6 +86,13 @@ def _solo(i, **kw):
     return explore(_space(i), engine="fused", device="cpu", **kw)
 
 
+#: the coalesce window of a service whose test needs all of ``n``
+#: concurrent clients in one group: it is given ``max_batch=n``, so the
+#: group closes the moment the n-th request arrives, and the window only
+#: bounds how long a loaded host may take to enqueue them all
+GATHER_S = 60.0
+
+
 @pytest.fixture
 def svc():
     service = ExploreService(coalesce_window_s=0.2, device="cpu")
@@ -93,8 +100,26 @@ def svc():
     service.close()
 
 
+@pytest.fixture
+def gather8():
+    """A service that groups 8 concurrent clients whatever the host's
+    load (``GATHER_S``)."""
+    service = ExploreService(coalesce_window_s=GATHER_S, max_batch=8,
+                             device="cpu")
+    yield service
+    service.close()
+
+
 def _concurrently(fn, n):
-    threads = [threading.Thread(target=fn, args=(i,)) for i in range(n)]
+    """``fn(i)`` for ``i < n`` on n threads released together by a
+    barrier."""
+    barrier = threading.Barrier(n)
+
+    def run(i):
+        barrier.wait(timeout=120)
+        fn(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
     for t in threads:
@@ -106,10 +131,11 @@ def _concurrently(fn, n):
 # the tentpole: coalesced one-step serving (tests/test_serve.py)
 # ---------------------------------------------------------------------------
 
-def test_eight_clients_one_step_parity_and_cache(svc):
+def test_eight_clients_one_step_parity_and_cache(gather8):
     """The acceptance gauntlet: 8 concurrent distinct clients -> one
     coalesce group, ONE step build, parity with solo, and a repeat wave
     served entirely from the result cache."""
+    svc = gather8
     stream_cache_clear()
     results = {}
 
@@ -307,7 +333,8 @@ def test_mesh_tenants_equal_their_solo_calls():
     kw = dict(k=5, engine="fused", chunk_size=8, superchunk=2)
     stream_cache_clear()
     results = {}
-    with ExploreService(coalesce_window_s=0.2, mesh=mesh) as svc:
+    with ExploreService(coalesce_window_s=GATHER_S, max_batch=8,
+                        mesh=mesh) as svc:
         def client(i):
             results[i] = explore(_space(i), service=svc, **kw)
         _concurrently(client, 8)
@@ -633,10 +660,11 @@ def test_gauntlet_matches_reference_served():
     from repro.explore import DesignSpace as RefSpace
     from repro.explore import explore as ref_explore
     from repro.serve import ExploreService as RefService
-    with RefService(coalesce_window_s=0.2) as ref_svc:
+    with RefService(coalesce_window_s=GATHER_S, max_batch=8) as ref_svc:
         ref = _gauntlet(ref_svc, ref_explore,
                         lambda i: RefSpace("edgaze", _grids(i)))
-    with ExploreService(coalesce_window_s=0.2, device="cpu") as svc:
+    with ExploreService(coalesce_window_s=GATHER_S, max_batch=8,
+                        device="cpu") as svc:
         ours = _gauntlet(svc, explore, _space)
     for i in range(8):
         assert ref[i].backend == "xla" and ours[i].backend == "torch"
@@ -660,10 +688,11 @@ def test_partial_stream_matches_reference(tenants):
         return [(list(h.partials()), h.result(timeout=300))
                 for h in handles]
 
-    with RefService(coalesce_window_s=0.2, partial_interval_s=0) as rs:
+    with RefService(coalesce_window_s=GATHER_S, max_batch=tenants,
+                    partial_interval_s=0) as rs:
         ref = run(rs, lambda i: RefSpace("edgaze", _grids(i)))
-    with ExploreService(coalesce_window_s=0.2, partial_interval_s=0,
-                        device="cpu") as svc:
+    with ExploreService(coalesce_window_s=GATHER_S, max_batch=tenants,
+                        partial_interval_s=0, device="cpu") as svc:
         ours = run(svc, _space)
     for (o_ups, o_res), (r_ups, r_res) in zip(ours, ref):
         assert o_res.serve["coalesce_group"] == tenants
