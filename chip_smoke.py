@@ -122,7 +122,27 @@ read just after:
   olmo-1b at full width with 2 layers, f32, one step on the card against
   the CPU (loss rel 1e-5, grad_norm rel 1e-4, moments 1e-4 max|leaf|,
   parameters within ``2 lr + 1e-6 |p|``, ``1e-3 lr`` where the gradient
-  is not near zero); the ``train_path`` line.
+  is not near zero); the ``train_path`` line;
+* LM mesh (P12c-1 and P12c-2, ``repro_torch.distributed``; DTensor over
+  the same plain ops, no kernel of the port, every launch counter
+  checked still 0), in ranks spawned for the phase: a one-rank NCCL
+  mesh (``make_host_mesh()``, 1 x 1) on GPU 0, olmo-1b at its published
+  width and depth (bf16, 8 x 1,024 tokens) under ``tp`` and ``fsdp``:
+  parameters and moments as ``param_shardings`` places them, one step
+  under the sync debug mode "error" held to the same step without the
+  mesh from the same parameters (bit-equal, or the loss within rel
+  1e-6 and the sampled parameters within the card bound above), both
+  steps timed in turns (CUDA-event ms and host ms to return), peak
+  memory, a profiled mesh step; ``restore_resharded`` of a checkpoint
+  of the parameters under both profiles, bit-equal;
+  ``cross_pod_grad_reduce`` of the step's gradient tree on a 1 x 1 x 1
+  ``pod`` mesh (each leaf within one LSB, the errors the residual); the
+  prefill of 8 x 1,024 tokens on the mesh against the one without;
+  ``python -m repro_torch.launch.train --devices 1`` (reduced olmo, 3
+  steps) under both profiles, and ``--production-mesh`` raising the
+  reference's ``RuntimeError``; with several GPUs visible, the step on
+  ``(count / 2, 2)`` NCCL ranks, the loss within 2e-2 of one device's;
+  the ``lm_mesh_path`` line.
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
@@ -330,6 +350,9 @@ TRAIN_MAIN = (8, 1024, 5)
 TRAIN_DRILL = (4, 512, 6, 8)
 TRAIN_OTHERS = (2, 512)
 TRAIN_F32 = {"loss": 1e-5, "grad_norm": 1e-4, "moments": 1e-4}
+# the LM mesh (P12c): the step on several GPUs against one, the loss
+# within the reference's bound (tests/test_multidevice.py, bf16 here)
+LM_MESH_REL = 2e-2
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit):
 # FP32 outside the tensor cores, dense f16/bf16 on the tensor cores (f32
@@ -3627,6 +3650,421 @@ def train_path(smi, kernel_mods=()) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM mesh (P12c-1, P12c-2): DTensor over NCCL, in spawned ranks
+# ---------------------------------------------------------------------------
+def local_tree(tree):
+    """Each DTensor leaf's local tensor (on a one-rank mesh, all of it)."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def timed_call(fn) -> tuple:
+    """(result, host ms to return, device ms by CUDA events)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    t0 = time.perf_counter()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, host, ev[0].elapsed_time(ev[1])
+
+
+def lm_mesh_step(M, cfg, mesh, profile, batches) -> dict:
+    """One olmo-1b train step on the mesh against the same step without
+    it, from the same parameters on the card: the mesh step under the
+    sync debug mode "error", then both timed in turns (plain, mesh, mesh,
+    plain; host ms to return and CUDA-event ms), peak memory of the
+    mesh's first step, a profiled mesh step."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import param_shardings, use_mesh
+    from repro_torch.distributed.sharding import (NamedSharding, batch_spec,
+                                                  distribute, distribute_tree)
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    b = batches[0]["tokens"].shape[0]
+    params = M.init_params(cfg, 0)
+    psh = param_shardings(params, mesh, profile=profile)
+    mparams = distribute_tree(clone_tree(params), psh)
+    placed = all(isinstance(t, DTensor) and tuple(t.placements)
+                 == tuple(sh.placements) for (_, t), (_, sh) in
+                 zip(sorted_paths(mparams), sorted_paths(psh)))
+    check(placed, f"mesh {profile}: parameters not placed as "
+          f"param_shardings says")
+    opt, mopt = adamw_init(params), adamw_init(mparams)
+    check(all(isinstance(t, DTensor) for t in leaf_list(mopt["m"])),
+          f"mesh {profile}: moments are not DTensors")
+    tok_sh = NamedSharding(mesh, batch_spec(mesh, b, profile=profile))
+    mbatches = [{"tokens": distribute(x["tokens"], tok_sh,
+                                      src_data_rank=None)}
+                for x in batches]
+    step_fn = build_train_step(cfg, warmup_steps=2, total_steps=8)
+    state = {"plain": [params, opt], "mesh": [mparams, mopt]}
+
+    def run(which, i):
+        p, o = state[which]
+        if which == "plain":
+            p, o, m = step_fn(p, o, batches[i], i)
+        else:
+            with use_mesh(mesh, profile=profile):
+                p, o, m = step_fn(p, o, mbatches[i], i)
+        state[which] = [p, o]
+        return m
+
+    pm = run("plain", 1)
+    plain_p, plain_m = sample_leaves(params), sample_leaves(opt["m"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mm = guarded(lambda: run("mesh", 1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(not isinstance(v, DTensor) and v.shape == ()
+              for v in mm.values()), f"mesh {profile}: metrics {mm}")
+    mesh_p = sample_leaves(local_tree(mparams))
+    loss, mloss = float(pm["loss"]), float(mm["loss"])
+    gnorm, mgnorm = float(pm["grad_norm"]), float(mm["grad_norm"])
+    check(all(map(math.isfinite, (loss, mloss, gnorm, mgnorm))),
+          f"mesh {profile}: loss {loss} {mloss} grad_norm {gnorm} {mgnorm}")
+    equal = [torch.equal(a, c) for a, c in zip(plain_p, mesh_p)]
+    lr = float(pm["lr"])
+    worst = 0.0
+    for a, c, m in zip(plain_p, mesh_p, plain_m):
+        a, c, m = a.double(), c.double(), m.double()
+        strong = m.abs() > 1e-3 * m.abs().max()
+        bound = torch.where(strong, 1e-3 * lr, 2 * lr) + 1e-6 * a.abs()
+        worst = max(worst, float(((c - a).abs() / bound).max()))
+    loss_rel = abs(mloss - loss) / abs(loss)
+    bit_equal = loss == mloss and gnorm == mgnorm and all(equal)
+    check(bit_equal or (loss_rel <= REL and worst <= 1.0),
+          f"mesh {profile}: loss rel {loss_rel}, parameters at {worst} of "
+          f"their bound")
+    times = {"plain": [], "mesh": []}
+    host = {"plain": [], "mesh": []}
+    for k, which in enumerate(("plain", "mesh", "mesh", "plain")):
+        _, h, ms = timed_call(lambda: run(which, 2 + k % 2))
+        times[which].append(ms)
+        host[which].append(h)
+    prof = profile_path(f"lm_mesh_step_{profile}",
+                        lambda: run("mesh", 3))
+    med = float(np.median(times["mesh"]))
+    rec = {"profile": profile, "mesh": dict(mesh.shape),
+           "loss": loss, "mesh_loss": mloss, "loss_rel": loss_rel,
+           "grad_norm": gnorm, "mesh_grad_norm": mgnorm,
+           "bit_equal": bit_equal,
+           "leaves_bit_equal": f"{sum(equal)}/{len(equal)}",
+           "params_err_over_bound": worst, "host_syncs": 0,
+           "plain_step_ms": times["plain"], "mesh_step_ms": times["mesh"],
+           "plain_host_ms": host["plain"], "mesh_host_ms": host["mesh"],
+           "mesh_over_plain": med / float(np.median(times["plain"])),
+           "peak_memory_gb_both_states": peak / 1e9,
+           "profiled_mesh_step_ms": prof["wall_s"] * 1e3,
+           "kernels_per_step": prof["device_kernels"],
+           "device_busy_ms": prof["device_busy_s"] * 1e3,
+           "busy_share": prof["device_busy_s"] * 1e3 / med,
+           "busy_share_profiled": prof["device_busy_share_of_wall"]}
+    del state, params, opt, mparams, mopt, mbatches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_restore(M, cfg, mesh, root: Path) -> dict:
+    """A checkpoint of olmo-1b's parameters, restored onto the mesh by
+    ``restore_resharded`` under both profiles: bit-equal, placed as
+    ``param_shardings`` says."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import CheckpointManager, restore_resharded
+    from repro_torch.distributed import param_shardings
+    params = M.init_params(cfg, 1)
+    mgr = CheckpointManager(str(root / "ckpt"), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(1, params)
+    save_s = time.perf_counter() - t0
+    rec = {"save_s": save_s, "checkpoint_gb": dir_bytes(root / "ckpt")
+           / 1e9}
+    skeleton = M.abstract_params(cfg)
+    for profile in ("tp", "fsdp"):
+        sh = param_shardings(skeleton, mesh, profile=profile)
+        t0 = time.perf_counter()
+        got = restore_resharded(mgr, skeleton, sh, step=1)
+        torch.cuda.synchronize()
+        rec[f"{profile}_restore_s"] = time.perf_counter() - t0
+        for (k, a), (_, g), (_, s) in zip(sorted_paths(params),
+                                          sorted_paths(got),
+                                          sorted_paths(sh)):
+            check(isinstance(g, DTensor) and g.dtype == a.dtype
+                  and tuple(g.placements) == tuple(s.placements)
+                  and g.to_local().device == a.device
+                  and torch.equal(g.to_local(), a),
+                  f"restore_resharded {profile}: {k} differs")
+        del got
+    rec["bit_equal"] = True
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_cross_pod(M, cfg, batch) -> dict:
+    """``cross_pod_grad_reduce`` of olmo-1b's real gradient tree on a
+    ``pod`` x ``data`` x ``model`` mesh of 1 x 1 x 1: each leaf within one
+    LSB (``max|g| / 127``) of its gradient, the errors equal to the
+    residual ``g - dequantize(quantize(g))``."""
+    from repro_torch.distributed import cross_pod_grad_reduce, quantize_int8
+    from repro_torch.launch import make_mesh
+    from repro_torch.train.steps import value_and_grad
+    pod = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    params = M.init_params(cfg, 0)
+    _, grads = value_and_grad(params, batch, cfg)
+    errors = tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32),
+                      grads)
+    (red, err), _, ms = timed_call(
+        lambda: cross_pod_grad_reduce(grads, pod, errors))
+    worst = 0.0
+    for (k, g), (_, r), (_, e) in zip(sorted_paths(grads), sorted_paths(red),
+                                      sorted_paths(err)):
+        lsb = float(g.float().abs().max()) / 127
+        dev = float((r.float() - g.float()).abs().max())
+        q, scale = quantize_int8(g)
+        check(r.dtype == g.dtype and dev <= lsb, f"cross_pod {k}: "
+              f"{dev} past one LSB {lsb}")
+        check(torch.equal(e, g.float() - q.float() * scale),
+              f"cross_pod {k}: errors are not the residual")
+        worst = max(worst, dev / lsb if lsb else 0.0)
+    rec = {"mesh": dict(pod.shape), "leaves": len(leaf_list(grads)),
+           "grad_dtype": str(leaf_list(grads)[0].dtype),
+           "worst_over_lsb": worst, "errors_equal_residual": True,
+           "reduce_ms": ms, "bytes_payload": sum(
+               g.numel() for g in leaf_list(grads))}
+    del params, grads, errors, red, err
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_prefill(M, cfg, mesh, tokens) -> dict:
+    """olmo-1b's prefill of B prompts on the mesh (``cache_shardings``,
+    ``input_shardings``) against the same prefill without it."""
+    from repro_torch.distributed import (cache_shardings, input_shardings,
+                                         param_shardings, use_mesh)
+    from repro_torch.distributed.sharding import distribute, distribute_tree
+    from repro_torch.train import build_prefill
+    b, s = tokens.shape
+    params = M.init_params(cfg, 0)
+    prefill = build_prefill(cfg)
+    (logits, cache), _, plain_ms = timed_call(lambda: prefill(
+        params, {"tokens": tokens}, M.init_cache(cfg, b, s)))
+    mparams = distribute_tree(clone_tree(params),
+                              param_shardings(params, mesh))
+    mcache = M.init_cache(cfg, b, s)
+    mcache = distribute_tree(mcache, cache_shardings(mesh, mcache, b))
+    mtok = distribute(tokens, input_shardings(mesh, b)["tokens"],
+                      src_data_rank=None)
+
+    def on_mesh():
+        with use_mesh(mesh):
+            return prefill(mparams, {"tokens": mtok}, mcache)
+    on_mesh()                                        # warm-up
+    (mlogits, mcache2), host, mesh_ms = timed_call(lambda: guarded(on_mesh))
+    # one rank: the mesh runs the plain prefill's ops on whole tensors,
+    # so logits and every cache leaf must be bit-equal
+    mlogits = local_tree({"x": mlogits})["x"]
+    dev = float((mlogits.float() - logits.float()).abs().max())
+    check(tuple(mlogits.shape) == (b, 1, cfg.vocab)
+          and torch.equal(mlogits, logits),
+          f"mesh prefill: logits {dev} from the plain prefill's")
+    leaves = 0
+    for (k, a), (_, c) in zip(sorted_paths(cache),
+                              sorted_paths(local_tree(mcache2))):
+        check(c.dtype == a.dtype and torch.equal(a, c),
+              f"mesh prefill: cache {k} differs from the plain prefill's")
+        leaves += 1
+    rec = {"batch": b, "prompt": s, "logits_bit_equal": True,
+           "logits_max_abs_dev": dev, "cache_bit_equal": True,
+           "cache_leaves": leaves,
+           "plain_ms": plain_ms, "mesh_ms": mesh_ms, "mesh_host_ms": host,
+           "host_syncs": 0}
+    del params, mparams, cache, mcache, mcache2, logits, mlogits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_rank(rank, root, smi) -> None:
+    """The one-rank NCCL mesh on GPU 0 (``make_host_mesh()``: 1 x 1):
+    olmo-1b at its published width and depth; writes
+    ``root/one_rank.json``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    mesh = make_host_mesh()
+    check(mesh.shape == {"data": 1, "model": 1}
+          and mesh.device_mesh is not None
+          and mesh.device_mesh.device_type == "cuda",
+          f"host mesh {mesh}")
+    cfg = get_config("olmo_1b")
+    b, s, _ = TRAIN_MAIN
+    batches = [train_batch(cfg, b, s, i, "cuda") for i in range(4)]
+    rec = {"arch": "olmo_1b", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "params": n_params(M, cfg), "dtype": cfg.dtype, "batch": b,
+           "seq": s, "backend": "nccl", "ranks": 1, "power_limit": smi}
+    # the rank's own counters: the path runs in this process
+    mods = kernel_modules()
+    reset_all(mods)
+    for profile in ("tp", "fsdp"):
+        rec[profile] = lm_mesh_step(M, cfg, mesh, profile, batches)
+    rec["restore_resharded"] = lm_mesh_restore(M, cfg, mesh, root)
+    rec["cross_pod"] = lm_mesh_cross_pod(M, cfg, batches[0])
+    rec["prefill"] = lm_mesh_prefill(M, cfg, mesh, batches[0]["tokens"])
+    rec["kernel_launches"] = launch_counts(mods)
+    (root / "one_rank.json").write_text(json.dumps(rec))
+
+
+def lm_mesh_rank_many(rank, root, n, one_loss) -> None:
+    """olmo-1b's step on ``n`` NCCL ranks, one GPU each, a
+    ``(n / 2, 2)`` mesh, under ``tp`` and ``fsdp``: the loss within
+    ``LM_MESH_REL`` of the one-device step's; rank 0 writes
+    ``root/several.json``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import param_shardings, use_mesh
+    from repro_torch.distributed.sharding import (NamedSharding, batch_spec,
+                                                  distribute, distribute_tree)
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(model=2)
+    cfg = get_config("olmo_1b")
+    b, s, _ = TRAIN_MAIN
+    batch = train_batch(cfg, b, s, 1, "cuda")
+    rec = {"ranks": n, "mesh": dict(mesh.shape)}
+    mods = kernel_modules()
+    reset_all(mods)
+    for profile in ("tp", "fsdp"):
+        params = M.init_params(cfg, 0)
+        params = distribute_tree(params, param_shardings(params, mesh,
+                                                         profile=profile))
+        opt = adamw_init(params)
+        tokens = distribute(batch["tokens"], NamedSharding(
+            mesh, batch_spec(mesh, b, profile=profile)), src_data_rank=None)
+        step_fn = build_train_step(cfg, warmup_steps=2, total_steps=8)
+
+        def run():
+            with use_mesh(mesh, profile=profile):
+                return step_fn(params, opt, {"tokens": tokens}, 1)[2]
+        m = guarded(run)
+        m2, _, ms = timed_call(run)
+        loss = float(m["loss"])
+        rel = abs(loss - one_loss) / abs(one_loss)
+        check(math.isfinite(loss) and rel <= LM_MESH_REL,
+              f"{n} ranks {profile}: loss {loss} against {one_loss}")
+        rec[profile] = {"loss": loss, "one_device_loss": one_loss,
+                        "loss_rel": rel, "step_ms": ms,
+                        "peak_memory_gb": torch.cuda.max_memory_allocated()
+                        / 1e9}
+        del params, opt, tokens
+        torch.cuda.empty_cache()
+    rec["kernel_launches"] = launch_counts(mods)
+    (Path(root) / f"several{rank}.json").write_text(json.dumps(rec))
+
+
+def lm_mesh_launch(root: Path) -> dict:
+    """``python -m repro_torch.launch.train --devices 1`` (one NCCL rank,
+    reduced olmo, 3 steps) under ``tp`` and ``fsdp``: exit 0, the host
+    mesh printed, a finite loss; ``--production-mesh`` exits with the
+    reference's ``RuntimeError``."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(source_dir()))
+    rec = {}
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--reduced"]
+    for profile in ("tp", "fsdp"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            base + ["--devices", "1", "--steps", "3", "--profile", profile,
+                    "--ckpt-dir", str(root / f"launch_{profile}")],
+            env=env, capture_output=True, text=True, timeout=600)
+        out = proc.stdout
+        check(proc.returncode == 0, f"launch.train --devices 1 {profile}: "
+              f"exit {proc.returncode}\n{out[-2000:]}\n{proc.stderr[-4000:]}")
+        check(f"mesh: {{'data': 1, 'model': 1}}  profile: {profile}" in out
+              and "finished at step 3" in out, f"launch.train: {out}")
+        last = [ln for ln in out.splitlines() if ln.startswith("step ")][-1]
+        loss = float(last.split("loss")[1].split()[0])
+        check(math.isfinite(loss), f"launch.train: loss {loss}")
+        rec[profile] = {"exit": 0, "loss": loss,
+                        "wall_s": time.perf_counter() - t0}
+    proc = subprocess.run(base + ["--production-mesh", "--ckpt-dir",
+                                  str(root / "launch_prod")],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode != 0 and "RuntimeError: mesh (16, 16) needs 256 "
+          "devices" in proc.stderr, f"--production-mesh: exit "
+          f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    rec["production_mesh"] = proc.stderr.strip().splitlines()[-1][:200]
+    return rec
+
+
+def lm_mesh_path(smi, kernel_mods=()) -> dict:
+    """The LM mesh (P12c-1) and the int8 cross-pod reduction (P12c-2) on
+    the card, in ranks spawned for the phase (their process group ends
+    with it): a one-rank NCCL mesh on GPU 0 (``lm_mesh_rank``), the
+    training entry point's mesh flags (``lm_mesh_launch``), and, where
+    several GPUs are visible, the step on ``(count / 2, 2)`` ranks
+    (``lm_mesh_rank_many``).  No kernel of the port is on the path: each
+    rank resets its launch counters before its run and reads them after
+    it, and every count must be 0."""
+    import shutil
+    from repro_torch.launch import spawn
+    t_start = time.perf_counter()
+    reset_all(kernel_mods)
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent / "build" / "lm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        spawn(lm_mesh_rank, 1, (str(root), smi), device="cuda",
+              store_dir=str(root))
+        rec = json.loads((root / "one_rank.json").read_text())
+        emit({"lm_mesh_one_rank": rec})
+        launched = {"rank 0": rec["kernel_launches"]}
+        rec["launch_train"] = lm_mesh_launch(root)
+        count = torch.cuda.device_count()
+        if count >= 2:
+            n = count // 2 * 2
+            spawn(lm_mesh_rank_many, n, (str(root), n,
+                                         rec["tp"]["loss"]),
+                  device="cuda", store_dir=str(root / "many"))
+            many = [json.loads((root / f"several{r}.json").read_text())
+                    for r in range(n)]
+            rec["several_gpus"] = many[0]
+            launched.update({f"{n} ranks, rank {r}": m["kernel_launches"]
+                             for r, m in enumerate(many)})
+        else:
+            rec["several_gpus"] = ("one GPU visible: the LM mesh ran one "
+                                   "rank; the split across ranks is held "
+                                   "on the CPU over gloo")
+            print("lm_mesh_path: one GPU visible, the mesh ran one rank",
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the ranks' own counters, read in each rank after its run; the
+    # launch.train subprocesses' are not read (their own processes)
+    launched["parent"] = launch_counts(kernel_mods)
+    check(not any(n for c in launched.values() for n in c.values()),
+          f"LM mesh path launched port kernels {launched}")
+    rec["kernel_launches"] = launched
+    rec["seconds"] = time.perf_counter() - t_start
+    emit({"lm_mesh_path": rec})
+    return rec
+
+
 def ptxas_by_entry(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
     spills"}``, the kernel names demangled by ``c++filt`` where it runs."""
@@ -3654,6 +4092,21 @@ def reset_all(mods) -> None:
         mod.reset_counts()
 
 
+def kernel_modules() -> tuple:
+    """The port's kernel wrappers, each with its launch ``COUNTS``: K1,
+    K2, K3, K4, the functional path's (``FUNC_KERNELS``), K9."""
+    names = ("fused_sweep", "grid_decode", "stream_reduce",
+             "category_reduce", *FUNC_KERNELS, "flash_attention")
+    return tuple(importlib.import_module(f"repro_torch.kernels.{n}")
+                 for n in names)
+
+
+def launch_counts(mods) -> dict:
+    """``{kernel module: launches}`` since the last ``reset_all``."""
+    return {m.__name__.rsplit(".", 1)[-1]: m.COUNTS["kernel_launches"]
+            for m in mods}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3664,14 +4117,10 @@ def main() -> int:
     from repro_torch.core.sweep import scalar_point
     from repro_torch.explore import DesignSpace, explore
     from repro_torch.kernels import cuda_build
-    fs = importlib.import_module("repro_torch.kernels.fused_sweep")
-    gd = importlib.import_module("repro_torch.kernels.grid_decode")
-    sr = importlib.import_module("repro_torch.kernels.stream_reduce")
-    cr = importlib.import_module("repro_torch.kernels.category_reduce")
-    fmods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
-             for name in FUNC_KERNELS}
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    kernel_mods = (fs, gd, sr, cr, *fmods.values(), fa)
+    kernel_mods = kernel_modules()
+    fs, gd, sr, cr = kernel_mods[:4]
+    fmods = dict(zip(FUNC_KERNELS, kernel_mods[4:-1]))
+    fa = kernel_mods[-1]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4225,6 +4674,8 @@ def main() -> int:
     lm_path(power, kernel_mods)
     # ----- 11. the LM stack's training path (P12b): no port kernel ---------
     train_path(power, kernel_mods)
+    # ----- 12. the LM mesh (P12c-1, P12c-2): no port kernel ----------------
+    lm_mesh_path(power, kernel_mods)
 
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,17 @@ next ``wait`` (or ``save``/``async_save``).
 A bf16 tensor is written as the reference writes an ``ml_dtypes``
 bfloat16 array: 2-byte ``|V2`` records holding its bits, read back by
 the skeleton's dtype, so a checkpoint crosses between the two packages.
-``restore`` returns tensors on each skeleton leaf's device and dtype.
-The reference's ``restore_resharded`` (placing a checkpoint under new
-shardings) comes with the LM mesh.
+``restore`` returns tensors on each skeleton leaf's device and dtype (a
+``meta`` leaf: on the CPU), DTensors with its placements for a DTensor
+leaf; :func:`restore_resharded` places a checkpoint under new shardings.
+
+On a mesh (a process group of several ranks) the format stays the
+reference's, one file of full arrays: a DTensor leaf's snapshot gathers
+it (a collective, so every rank calls ``save`` / ``async_save``, and the
+gather runs on the caller's thread, never on the writer's), rank 0
+alone writes, a synchronous ``save`` returns on every rank once the
+checkpoint is published, and ``latest_step`` (so ``restore`` and the
+loop's resume) is rank 0's answer on every rank.
 """
 from __future__ import annotations
 
@@ -86,25 +94,50 @@ def read_json(path: str) -> Any:
 _BF16_RECORD = np.dtype("V2")
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _ranks() -> Tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _to_numpy(t: torch.Tensor, keep: bool = True) -> Optional[np.ndarray]:
     """A host copy of ``t`` (never a view: the train step writes its
-    tensors in place); bf16 as ``|V2`` records of its bits."""
+    tensors in place; a DTensor gathered whole); bf16 as ``|V2`` records
+    of its bits.  With ``keep`` false (a rank that does not write) only
+    a DTensor's gather, a collective every rank takes part in, and
+    ``None``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    if not keep:
+        return None
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_RECORD)
     return t.numpy()
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in paths(tree)}
+def _flatten(tree: Any, keep: bool = True) -> Optional[Dict[str, Any]]:
+    if tree is None:
+        return None
+    return {key: _to_numpy(leaf, keep) for key, leaf in paths(tree)}
 
 
 def _tensor_like(arr: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, distribute_tensor
     if arr.dtype == _BF16_RECORD:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device=leaf.device, dtype=leaf.dtype)
+    if isinstance(leaf, DTensor):
+        # every rank read the same file: each keeps its own shard
+        return distribute_tensor(t.to(leaf.dtype), leaf.device_mesh,
+                                 leaf.placements, src_data_rank=None)
+    device = "cpu" if leaf.device.type == "meta" else leaf.device
+    return t.to(device=device, dtype=leaf.dtype)
 
 
 def _unflatten_into(skeleton: Any, flat: Dict[str, np.ndarray]) -> Any:
@@ -133,15 +166,27 @@ class CheckpointManager:
     def save(self, step: int, params: Any, opt_state: Any = None,
              metadata: Optional[Dict] = None) -> str:
         self.wait()
-        return self._write(step, params, opt_state, metadata or {})
+        rank, world = _ranks()
+        flat = _flatten(params, keep=rank == 0)
+        flat_opt = _flatten(opt_state, keep=rank == 0)
+        final = self._path(step)
+        if rank == 0:
+            self._write_flat(step, flat, flat_opt, metadata or {})
+        if world > 1:
+            import torch.distributed as dist
+            dist.barrier()
+        return final
 
     def async_save(self, step: int, params: Any, opt_state: Any = None,
                    metadata: Optional[Dict] = None) -> None:
         """Snapshot to host now; write on a background thread."""
         self.wait()
-        flat = _flatten(params)
-        flat_opt = _flatten(opt_state) if opt_state is not None else None
+        rank = _ranks()[0]
+        flat = _flatten(params, keep=rank == 0)
+        flat_opt = _flatten(opt_state, keep=rank == 0)
         md = dict(metadata or {})
+        if rank != 0:
+            return
 
         def work():
             try:
@@ -161,13 +206,11 @@ class CheckpointManager:
             raise err
 
     # ------------------------------------------------------------------
-    def _write(self, step, params, opt_state, metadata) -> str:
-        return self._write_flat(step, _flatten(params),
-                                _flatten(opt_state) if opt_state is not None
-                                else None, metadata)
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}")
 
     def _write_flat(self, step, flat, flat_opt, metadata) -> str:
-        final = os.path.join(self.directory, f"step_{step:08d}")
+        final = self._path(step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -201,8 +244,16 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The newest published step; with several ranks rank 0's (every
+        rank calls it)."""
         steps = self.list_steps()
-        return steps[-1] if steps else None
+        latest = steps[-1] if steps else None
+        if _ranks()[1] > 1:
+            import torch.distributed as dist
+            box = [latest]
+            dist.broadcast_object_list(box, src=0)
+            latest = box[0]
+        return latest
 
     def restore(self, skeleton_params: Any, skeleton_opt: Any = None,
                 step: Optional[int] = None) -> Tuple[Any, Any, Dict]:
@@ -210,7 +261,7 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        d = os.path.join(self.directory, f"step_{step:08d}")
+        d = self._path(step)
         with np.load(os.path.join(d, "params.npz")) as z:
             params = _unflatten_into(skeleton_params, dict(z))
         opt = None
@@ -220,3 +271,16 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         return params, opt, manifest
+
+
+def restore_resharded(manager: CheckpointManager, skeleton: Any,
+                      shardings: Any, step: Optional[int] = None) -> Any:
+    """Elastic restore: the checkpointed parameters placed under NEW
+    shardings (a tree of :class:`repro_torch.distributed.sharding.
+    NamedSharding`, as ``param_shardings`` gives; ``skeleton`` gives
+    paths, shapes and dtypes, its leaves may be ``meta``).  Every rank
+    reads the file and keeps its own shards: no collective moves the
+    values."""
+    from ..distributed.sharding import distribute_tree
+    params, _, _ = manager.restore(skeleton, None, step)
+    return distribute_tree(params, shardings, src_data_rank=None)

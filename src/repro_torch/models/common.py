@@ -6,10 +6,9 @@ order of operations and casts, so a reduced f32 model agrees with the
 reference to ~1e-6 relative.  Attention is query-chunked in plain torch
 ops, as the reference's is in plain ``jnp`` (no S x S score tensor when
 ``q_chunk < S``); no kernel of ``repro_torch.kernels`` is on this path,
-as none of ``repro.kernels`` is on the reference's.
-
-The reference's ``constrain(...)`` sharding hints are the identity
-outside a mesh, so the port has none.
+as none of ``repro.kernels`` is on the reference's.  The sharding hints
+(``constrain``) sit where the reference's do, with its axes; outside a
+mesh they are the identity.
 """
 from __future__ import annotations
 
@@ -17,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..distributed.ops import einsum
+from ..distributed.shardctx import constrain
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -140,7 +141,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kc, vc = k, v
         kc = _repeat_kv(kc, groups)
         vc = _repeat_kv(vc, groups)
-        scores = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+        scores = einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+        # scores always shard over heads ('model'), as the reference's
+        scores = constrain(scores, "data", "model", None, None)
         if causal:
             qpos = start + torch.arange(q_chunk, device=q.device)[:, None]
             kpos = kv_start + torch.arange(kc.shape[1],
@@ -150,7 +153,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask &= (qpos - kpos) < window
             scores = torch.where(mask[None, None], scores, NEG_INF)
         probs = _softmax_f32(scores, q.dtype)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, vc))
+        o = einsum("bhqk,bkhd->bqhd", probs, vc)
+        outs.append(constrain(o, "data", None, "model", None))
     return torch.cat(outs, dim=1)
 
 

@@ -39,14 +39,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
+from ..distributed.ops import lookup, roll
+from ..distributed.shardctx import constrain
 from ..kernels.runtime import resolve_device
 from ..tree import unflatten
 from .common import apply_rope, chunked_attention, decode_attention, \
     dense_init, norm, rmsnorm, silu
 from .config import ModelConfig
 from .moe import moe_ffn
-from .ssm import _mamba1_scan, mamba1_decode, mamba1_forward, \
-    mamba2_decode, mamba2_forward
+from .ssm import mamba1_decode, mamba1_forward, mamba2_decode, \
+    mamba2_forward
 
 Params = Dict[str, Any]
 
@@ -225,8 +227,9 @@ def _proj_qkv(w, x, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, w["q_norm"])
         k = rmsnorm(k, w["k_norm"])
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    q = constrain(apply_rope(q, positions, cfg.rope_theta),
+                  "data", None, "model", None)
+    return q, apply_rope(k, positions, cfg.rope_theta), v
 
 
 def _attend(w, q, k, v, cfg: ModelConfig, causal=True, window=0):
@@ -259,6 +262,7 @@ def cross_attention(w, x, memory, cfg: ModelConfig) -> torch.Tensor:
 def mlp_ffn(w, x, cfg: ModelConfig) -> torch.Tensor:
     h = torch.einsum("bsd,df->bsf", x, w["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, w["w_up"])
+    h = constrain(h, "data", None, "model")
     h = silu(h.float()).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, w["w_down"])
 
@@ -274,9 +278,10 @@ def attn_mlp_layer(w, x, cfg: ModelConfig, positions, causal=True) -> Tuple:
     h = norm(cfg, x, w.get("attn_norm"))
     x = x + self_attention(w, h, cfg, positions, causal=causal,
                            window=cfg.sliding_window)
+    x = constrain(x, "data", None, "model")
     h = norm(cfg, x, w.get("mlp_norm"))
     y, aux = _ffn(w, h, cfg)
-    return x + y, aux
+    return constrain(x + y, "data", None, "model"), aux
 
 
 def attn_mlp_layer_with_cross(w, x, memory, cfg, positions):
@@ -285,7 +290,7 @@ def attn_mlp_layer_with_cross(w, x, memory, cfg, positions):
     h = norm(cfg, x, w.get("cross_norm"))
     x = x + cross_attention(w, h, memory, cfg)
     h = norm(cfg, x, w.get("mlp_norm"))
-    return x + mlp_ffn(w, h, cfg), {}
+    return constrain(x + mlp_ffn(w, h, cfg), "data", None, "model"), {}
 
 
 def mamba_layer(w, x, cfg: ModelConfig) -> torch.Tensor:
@@ -294,7 +299,7 @@ def mamba_layer(w, x, cfg: ModelConfig) -> torch.Tensor:
         y = mamba1_forward(w, h, cfg)
     else:
         y = mamba2_forward(w, h, cfg)
-    return x + y
+    return constrain(x + y, "data", None, "model")
 
 
 # ===========================================================================
@@ -304,13 +309,14 @@ def _embed_in(params, batch, cfg: ModelConfig):
     if "embeds" in batch:                       # vlm stub frontend
         x = batch["embeds"]
     else:
-        x = F.embedding(batch["tokens"], params["embed"])
-    return x.to(_dtype(cfg))
+        x = lookup(params["embed"], batch["tokens"])
+    return constrain(x.to(_dtype(cfg)), "data", None, "model")
 
 
 def _logits_out(params, x, cfg: ModelConfig):
     x = norm(cfg, x, params.get("final_norm"))
-    return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return constrain(logits, "data", None, "model")
 
 
 def _n_layers(stacked: Params) -> int:
@@ -398,7 +404,7 @@ def forward(params: Params, batch: Dict, cfg: ModelConfig,
 
 def _encode(params, audio_embeds, cfg: ModelConfig, remat=True,
             unroll=False):
-    x = audio_embeds.to(_dtype(cfg))
+    x = constrain(audio_embeds.to(_dtype(cfg)), "data", None, "model")
     positions = torch.arange(x.shape[1], device=x.device)
     ecfg = dataclasses.replace(cfg, family="dense", sliding_window=0)
 
@@ -516,9 +522,10 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict,
     fam = cfg.family
     pos = cache["pos"]
     if tokens.ndim == 3:
-        x = tokens.to(_dtype(cfg))
+        x = constrain(tokens.to(_dtype(cfg)), "data", None, "model")
     else:
-        x = F.embedding(tokens, params["embed"]).to(_dtype(cfg))
+        x = constrain(lookup(params["embed"], tokens).to(_dtype(cfg)),
+                      "data", None, "model")
 
     if fam in ("dense", "vlm", "moe", "encdec"):
         for i in range(cfg.n_layers):
@@ -600,11 +607,14 @@ def prefill(params: Params, batch: Dict, cache: Dict,
             kf, vf = kf[:, S - Sc:], vf[:, S - Sc:]
             shift = (S - Sc) % Sc
             if shift:
-                kf = torch.roll(kf, shift, dims=1)
-                vf = torch.roll(vf, shift, dims=1)
+                kf = roll(kf, shift, 1)
+                vf = roll(vf, shift, 1)
             return kf, vf
-        pad = (0, 0, 0, Sc - S)
-        return F.pad(kf, pad), F.pad(vf, pad)
+        # zeros after the prompt (a cat, not F.pad: torch 2.11's DTensor
+        # fails to place F.pad's output)
+        zeros = torch.zeros((B, Sc - S, KVhd), dtype=kf.dtype,
+                            device=kf.device)
+        return torch.cat([kf, zeros], dim=1), torch.cat([vf, zeros], dim=1)
 
     if fam in ("dense", "vlm", "moe", "encdec"):
         memory = None
@@ -648,7 +658,8 @@ def _ssm_prefill(params, x, cfg: ModelConfig):
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         w = _layer(params["layers"], i)
-        y, conv_tail, h_last = _mamba1_scan(w, norm(cfg, x, w["norm"]), cfg)
+        y, conv_tail, h_last = mamba1_forward(w, norm(cfg, x, w["norm"]),
+                                              cfg, return_state=True)
         x = x + y
         convs.append(conv_tail)
         ssms.append(h_last)

@@ -17,6 +17,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ops import gather_rows, index_add_rows
+from ..distributed.shardctx import axis_size, constrain
 from .common import silu
 from .config import ModelConfig
 
@@ -71,18 +73,22 @@ def moe_ffn(w: Dict, x: torch.Tensor,
     # ---- scatter tokens into expert buffers ---------------------------
     src = xt[:, None].expand(T, K, D).reshape(T * K, D)       # [T*K,D]
     src = torch.where(keep[:, None], src, 0.0)
-    buffers = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
-    buffers = buffers.index_add_(0, flat_expert * C + slot,
-                                 src).view(E, C, D)
+    buffers = index_add_rows(E * C, flat_expert * C + slot, src).view(E, C, D)
+    # EP when the expert count divides TP (granite: 32/16); otherwise TP
+    # inside the expert matmuls (mixtral: 8 experts on 16-way model axis)
+    ep = E % max(axis_size("model"), 1) == 0
+    buffers = constrain(buffers, "model" if ep else None, None,
+                        None if ep else "model")
 
     # ---- expert FFN (silu gate) ----------------------------------------
     h = torch.einsum("ecd,edf->ecf", buffers, w["we_gate"])
     u = torch.einsum("ecd,edf->ecf", buffers, w["we_up"])
     h = silu(h.float()).to(x.dtype) * u
+    h = constrain(h, "model" if ep else None, None, None if ep else "model")
     out = torch.einsum("ecf,efd->ecd", h, w["we_down"])
 
     # ---- gather back + weighted combine --------------------------------
-    gathered = out[flat_expert, slot]                         # [T*K,D]
+    gathered = gather_rows(out, flat_expert, slot)               # [T*K,D]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     y = (gathered.reshape(T, K, D)
          * gate_vals.to(x.dtype)[..., None]).sum(dim=1)

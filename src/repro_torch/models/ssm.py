@@ -18,8 +18,9 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..distributed.ops import einsum
+from ..distributed.shardctx import constrain
 from .common import silu
 from .config import ModelConfig
 
@@ -83,13 +84,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Mamba-1 (falcon-mamba)
 # ---------------------------------------------------------------------------
-def _mamba1_scan(w: Dict, x: torch.Tensor, cfg: ModelConfig):
-    """The full-sequence mamba1 block: (y [B,S,D], conv tail [B,dI,K-1]
-    taken before the conv, final state [B,dI,N] f32)."""
+def mamba1_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
+                   return_state: bool = False):
+    """Full-sequence mamba1 block. x: [B,S,D] -> [B,S,D]; with
+    ``return_state`` also the conv tail [B,dI,K-1] taken before the conv
+    and the final state [B,dI,N] f32 (prefill's; the reference inlines
+    this block there, without its two sharding hints)."""
     B, S, D = x.shape
     dI, N = cfg.d_inner, cfg.ssm_state
     xz = torch.einsum("bsd,de->bse", x, w["in_proj"])    # [B,S,2dI]
     xs, z = torch.chunk(xz, 2, dim=-1)
+    xs = constrain(xs, "data", None, "model")
     conv_tail = xs[:, -(cfg.ssm_conv - 1):].transpose(1, 2)
 
     xs = _causal_conv(xs, w["conv_w"], w["conv_b"], cfg.ssm_conv)
@@ -98,7 +103,7 @@ def _mamba1_scan(w: Dict, x: torch.Tensor, cfg: ModelConfig):
     proj = torch.einsum("bse,er->bsr", xs, w["x_proj"])  # [B,S,R+2N]
     dt_rank = w["dt_proj"].shape[0]
     dt, Bc, Cc = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = _softplus(torch.einsum("bsr,re->bse", dt, w["dt_proj"])
+    dt = _softplus(einsum("bsr,re->bse", dt, w["dt_proj"])
                    + w["dt_bias"].float())               # [B,S,dI] f32
     A = -torch.exp(w["a_log"].float())                   # [dI,N] negative
     log_a = dt[..., None] * A                            # [B,S,dI,N]
@@ -106,17 +111,14 @@ def _mamba1_scan(w: Dict, x: torch.Tensor, cfg: ModelConfig):
             * xs.float()[..., None])                     # [B,S,dI,N]
     h0 = torch.zeros((B, dI, N), dtype=torch.float32, device=x.device)
     h_all, h_last = chunked_diag_scan(log_a, b_in, h0)   # [B,S,dI,N]
-    y = torch.einsum("bsen,bsn->bse", h_all.float(), Cc.float())
+    y = einsum("bsen,bsn->bse", h_all.float(), Cc.float())
     y = y + w["d_skip"].float() * xs.float()
     y = (y * silu(z.float())).to(x.dtype)
-    return (torch.einsum("bse,ed->bsd", y, w["out_proj"]), conv_tail,
-            h_last.float())
-
-
-def mamba1_forward(w: Dict, x: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence mamba1 block. x: [B,S,D] -> [B,S,D]."""
-    return _mamba1_scan(w, x, cfg)[0]
+    y = constrain(y, "data", None, "model")
+    out = torch.einsum("bse,ed->bsd", y, w["out_proj"])
+    if return_state:
+        return out, conv_tail, h_last.float()
+    return out
 
 
 def mamba1_decode(w: Dict, x: torch.Tensor, conv_state: torch.Tensor,
@@ -151,8 +153,11 @@ def mamba1_decode(w: Dict, x: torch.Tensor, conv_state: torch.Tensor,
 
 def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
                  conv_b: torch.Tensor, k: int) -> torch.Tensor:
-    """Depthwise causal conv along S. x: [B,S,dI], conv_w: [dI,K]."""
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    """Depthwise causal conv along S. x: [B,S,dI], conv_w: [dI,K].  The
+    ``k - 1`` leading zeros are a cat, not ``F.pad`` (torch 2.11's
+    DTensor fails to place its output)."""
+    pad = torch.cat([torch.zeros((x.shape[0], k - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device), x], dim=1)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     S = x.shape[1]
     for i in range(k):
@@ -174,6 +179,7 @@ def mamba2_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
     conv_tail = xs[:, -(cfg.ssm_conv - 1):].transpose(1, 2)  # [B,dI,K-1]
     xs = _causal_conv(xs, w["conv_w"], w["conv_b"], cfg.ssm_conv)
     xs = silu(xs)
+    xs = constrain(xs, "data", None, "model")
 
     bc = torch.einsum("bsd,dn->bsn", x, w["bc_proj"])    # [B,S,2N]
     Bc, Cc = torch.chunk(bc, 2, dim=-1)
@@ -201,23 +207,24 @@ def mamba2_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
         # the mask before the exp: the upper triangle may overflow to inf,
         # and the reference's exp-then-mask gives the same values but a
         # NaN gradient there (0 * inf; ROADMAP R7); exp(-inf) = 0
-        G = torch.einsum("bqn,bkn->bqk", Ccc, Bcc)[..., None] * \
+        G = einsum("bqn,bkn->bqk", Ccc, Bcc)[..., None] * \
             torch.exp(torch.where(mask[None, ..., None], L, -torch.inf))
-        y_intra = torch.einsum("bqkh,bkhp->bqhp",
-                               G * dt[:, c][:, None, :, :], xc)
+        y_intra = einsum("bqkh,bkhp->bqhp", G * dt[:, c][:, None, :, :],
+                         xc)
         # inter-chunk: contribution of carried state h
-        y_inter = torch.einsum("bqn,bhpn->bqhp",
-                               Ccc, h) * torch.exp(lacc)[..., None]
+        y_inter = einsum("bqn,bhpn->bqhp", Ccc, h) * \
+            torch.exp(lacc)[..., None]
         ys.append((y_intra + y_inter).to(x.dtype))
         # update carried state
         tail = torch.exp(lacc[:, -1:] - lacc)            # [B,c,nh]
         dB = (dt[:, c] * tail)[..., None] * Bcc[:, :, None, :]  # [B,c,nh,N]
         h = h * torch.exp(lacc[:, -1])[..., None, None] + \
-            torch.einsum("bchn,bchp->bhpn", dB, xc)
+            einsum("bchn,bchp->bhpn", dB, xc)
     y = torch.cat(ys, dim=1)                             # [B,S,nh,p]
     y = y.float() + w["d_skip"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, dI)
     y = (y * silu(z.float())).to(x.dtype)
+    y = constrain(y, "data", None, "model")
     out = torch.einsum("bse,ed->bsd", y, w["out_proj"])
     if return_state:
         return out, conv_tail, h

@@ -11,6 +11,10 @@ moments and the step are f32, decay applies to leaves with
 the reference), and a leaf with no gradient (``None``) takes zeros, so
 its moments still decay and its weight decay still applies.
 
+On a mesh the leaves are DTensors: the global norm's squares sum over
+the whole mesh (one all-reduce), and the 0-d ``lr``, ``count`` and bias
+corrections meet them as replicated values.
+
 One difference, on purpose: :func:`adamw_update` writes the new
 parameters and moments into the caller's tensors in place (under
 ``torch.no_grad()``) and returns the same dicts; the reference's
@@ -30,10 +34,11 @@ OptState = Dict[str, Any]
 
 
 def adamw_init(params: Any) -> OptState:
-    """f32 zeros like each leaf (``m``, ``v``) and ``count``, a 0-d
-    int32, all on the parameters' device."""
+    """f32 zeros like each leaf (``m``, ``v``; a DTensor leaf's are
+    DTensors with its placements) and ``count``, a 0-d int32, all on the
+    parameters' device."""
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     return {"m": tree_map(f32, params), "v": tree_map(f32, params),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=tree_leaves(params)[0].device)}
@@ -95,7 +100,7 @@ def adamw_update(grads: Any, state: OptState, params: Any, lr,
     bc1 = 1.0 - b1 ** c
     bc2 = 1.0 - b2 ** c
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g32 = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        g32 = (torch.zeros_like(p, dtype=torch.float32)
                if g is None else _scaled(g, scale))
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))

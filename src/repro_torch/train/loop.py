@@ -14,6 +14,10 @@
 A step's time ends when its device has finished it (where the reference
 calls ``jax.block_until_ready``); the loss is read on the host only at
 log and checkpoint steps.
+
+On a mesh every rank runs the loop with the same arguments: the step's
+metrics are replicated, the checkpoint manager gathers on every rank and
+writes on rank 0, and the resumed step is rank 0's on every rank.
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ class TrainLoop:
         """Run (or resume) training.  Returns final state + history."""
         resume = self.ckpt.latest_step()
         if resume is not None and resume > start_step:
-            params, opt_state, manifest = self.ckpt.restore(params, opt_state)
+            params, opt_state, manifest = self.ckpt.restore(
+                params, opt_state, resume)
             start_step = manifest["step"]
         history = []
         step = start_step

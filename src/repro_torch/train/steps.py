@@ -11,8 +11,18 @@ crosses no copy.  It updates ``params`` and ``opt_state`` in place and
 returns them (:func:`repro_torch.optim.adamw_update`), as the
 reference's callers donate theirs to its jitted step.
 
+On a mesh (under :func:`repro_torch.distributed.use_mesh`) the same
+step takes DTensor parameters, moments and batch (``param_shardings``,
+``batch_spec``; a plain batch counts as replicated, so it must be the
+same on every rank): the forward's sharding hints redistribute
+activations, the
+gradients come back as DTensors, AdamW's global norm spans the whole
+mesh, and ``metrics`` come back replicated, as plain 0-d tensors equal
+on every rank.
+
 ``build_prefill`` and ``build_decode_step`` return plain functions that
-run under ``torch.inference_mode()``; there is nothing to jit.
+run under ``torch.inference_mode()`` (``torch.no_grad()`` on a mesh);
+there is nothing to jit.
 """
 from __future__ import annotations
 
@@ -21,6 +31,9 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..distributed.ops import is_distributed, replicated, roll, \
+    target_logits
+from ..distributed.shardctx import current_mesh
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw_update, linear_warmup_cosine
@@ -51,8 +64,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         lse = m + torch.log(s)
     else:
         lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0].float()
-    return torch.mean(lse - tgt)
+    return torch.mean(lse - target_logits(logits, labels))
 
 
 def _loss_fn(params, batch: Dict, cfg: ModelConfig, vocab_chunk: int = 0,
@@ -61,7 +73,7 @@ def _loss_fn(params, batch: Dict, cfg: ModelConfig, vocab_chunk: int = 0,
     labels = batch.get("labels")
     if labels is None:
         # next-token objective on the input stream
-        labels = torch.roll(batch["tokens"], -1, dims=1)
+        labels = roll(batch["tokens"], -1, 1)
     loss = cross_entropy_loss(logits, labels, vocab_chunk)
     aux = {"loss": loss}
     return loss, aux
@@ -69,12 +81,12 @@ def _loss_fn(params, batch: Dict, cfg: ModelConfig, vocab_chunk: int = 0,
 
 def _on_device(batch: Dict, device: torch.device) -> Dict:
     """The batch's arrays as tensors on ``device`` (no copy for a tensor
-    already there)."""
+    already there; a DTensor as it is)."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = v.to(device)
+        out[k] = v if is_distributed(v) else v.to(device)
     return out
 
 
@@ -107,21 +119,29 @@ def build_train_step(cfg: ModelConfig, base_lr: float = 3e-4,
         lr = linear_warmup_cosine(step, base_lr, warmup_steps, total_steps,
                                   device=device)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr)
-        metrics = {"loss": loss, "lr": lr, **om}
+        metrics = {k: replicated(v) for k, v in
+                   {"loss": loss, "lr": lr, **om}.items()}
         return params, opt_state, metrics
 
     return train_step
 
 
+def _no_autograd():
+    """``torch.inference_mode()``; on a mesh ``torch.no_grad()`` (a
+    DTensor's views cannot be made in inference mode)."""
+    return torch.no_grad() if current_mesh() is not None \
+        else torch.inference_mode()
+
+
 def build_prefill(cfg: ModelConfig) -> Callable:
-    @torch.inference_mode()
     def prefill_step(params, batch, cache):
-        return M.prefill(params, batch, cache, cfg)
+        with _no_autograd():
+            return M.prefill(params, batch, cache, cfg)
     return prefill_step
 
 
 def build_decode_step(cfg: ModelConfig) -> Callable:
-    @torch.inference_mode()
     def decode_step(params, tokens, cache):
-        return M.decode_step(params, tokens, cache, cfg)
+        with _no_autograd():
+            return M.decode_step(params, tokens, cache, cfg)
     return decode_step

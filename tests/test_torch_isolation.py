@@ -188,6 +188,15 @@ assert m["loss"].isfinite()
 with tempfile.TemporaryDirectory() as d:
     assert train.main(["--arch", "qwen3_4b", "--reduced", "--device", "cpu",
                        "--steps", "2", "--seq", "16", "--ckpt-dir", d]) == 0
+import repro_torch.distributed as D
+from repro_torch.launch import LMMesh
+mesh = LMMesh((2, 16, 16), ("pod", "data", "model"))
+for profile in ("tp", "fsdp"):
+    D.param_shardings(M.abstract_params(get_config("mixtral_8x7b")), mesh,
+                      profile=profile)
+D.cache_shardings(mesh, M.abstract_cache(cfg, 32, 64), 32)
+q, s = D.quantize_int8(params["embed"])
+assert q.dtype.itemsize == 1
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
@@ -200,7 +209,9 @@ def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
     ``repro_torch.launch.serve_lm``, serving a reduced zamba2 (mamba2
     blocks, the shared attention block, a ring past its window); then a
     CPU train step of the same model and two steps of the training entry
-    point ``repro_torch.launch.train`` (optim, data, ckpt, the loop)."""
+    point ``repro_torch.launch.train`` (optim, data, ckpt, the loop),
+    and the mesh's rules and int8 compression (``repro_torch.
+    distributed``) at the production mesh's sizes."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _CHILD_LM], env=env,
                           capture_output=True, text=True, timeout=300)

@@ -15,8 +15,10 @@
   ``batch_for_shape``'s numpy part equal the reference's; the dataset's
   draws (Philox, not threefry) keep its contract;
 * ``python -m repro_torch.launch.train --reduced --device cpu`` for a
-  dense, an MoE and an SSM architecture, and its refusals (the mesh
-  flags name P12c; vlm).
+  dense, an MoE and an SSM architecture; with ``--devices 2`` on a
+  ``(2, 1)`` gloo mesh under ``tp`` and ``fsdp``; ``--multi-pod`` alone
+  on the host mesh; and its refusals (``--production-mesh`` below 256 or
+  512 ranks raises the reference's ``RuntimeError``; vlm).
 """
 import dataclasses
 import json
@@ -479,11 +481,50 @@ def test_launch_train_runs_on_the_cpu(arch, tmp_path):
                                             "preempted": False}
 
 
-@pytest.mark.parametrize("flag", [["--devices", "8"], ["--production-mesh"],
-                                  ["--multi-pod"], ["--profile", "fsdp"]])
-def test_launch_train_refuses_the_mesh_flags(flag):
-    with pytest.raises(NotImplementedError, match="P12c"):
-        launch_train.main(["--reduced", "--device", "cpu", *flag])
+def _launch(args, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--device", "cpu", "--seq", "32", "--global-batch", "4",
+         "--ckpt-dir", str(tmp_path), *args],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-6000:]
+    return proc.stdout
+
+
+def _final_loss(stdout):
+    line = [ln for ln in stdout.splitlines() if ln.startswith("step ")][-1]
+    return float(line.split("loss")[1].split()[0])
+
+
+@pytest.mark.parametrize("profile", ["tp", "fsdp"])
+def test_launch_train_on_a_two_rank_cpu_mesh(profile, tmp_path):
+    """``--devices 2``: two gloo ranks on the host mesh; rank 0 alone
+    prints and publishes the checkpoint."""
+    out = _launch(["--devices", "2", "--steps", "2", "--profile", profile],
+                  tmp_path)
+    assert f"mesh: {{'data': 2, 'model': 1}}  profile: {profile}" in out
+    assert out.count("finished at step 2") == 1
+    assert np.isfinite(_final_loss(out))
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002"]
+
+
+@pytest.mark.parametrize("flags,need", [(["--production-mesh"], 256),
+                                        (["--production-mesh",
+                                          "--multi-pod"], 512)])
+def test_launch_train_production_mesh_needs_its_ranks(flags, need,
+                                                      tmp_path):
+    with pytest.raises(RuntimeError, match=f"needs {need} devices"):
+        launch_train.main(["--reduced", "--device", "cpu",
+                           "--ckpt-dir", str(tmp_path), *flags])
+
+
+def test_launch_train_multi_pod_alone_runs_on_the_host_mesh(tmp_path):
+    """As in the reference, ``--multi-pod`` without ``--production-mesh``
+    keeps the host mesh: one device here, the step on plain tensors."""
+    out = _launch(["--multi-pod", "--steps", "2"], tmp_path)
+    assert "mesh: {'data': 1, 'model': 1}  profile: tp" in out
+    assert "finished at step 2" in out and np.isfinite(_final_loss(out))
 
 
 def test_launch_train_refuses_vlm(tmp_path):
