@@ -142,7 +142,23 @@ read just after:
   steps) under both profiles, and ``--production-mesh`` raising the
   reference's ``RuntimeError``; with several GPUs visible, the step on
   ``(count / 2, 2)`` NCCL ranks, the loss within 2e-2 of one device's;
-  the ``lm_mesh_path`` line.
+  the ``lm_mesh_path`` line;
+* the dry run and the energy model (P12c-3, ``repro_torch.launch.
+  dryrun``, ``repro_torch.energy``; no kernel of the port, the launch
+  counters of its processes checked still 0), once the mesh phase has
+  ended, in fresh processes started together, one for each cell and
+  one for the estimates (their fake process groups of 512 ranks never
+  meet the LM mesh's NCCL group; they trace on the host):
+  olmo-1b's four cells, mixtral-8x7b's ``long_500k`` and zamba2-1.2b's
+  ``train_4k`` on the 16 x 16 mesh with costs, olmo-1b's ``decode_32k``
+  on 2 x 16 x 16, each ``ok`` or the reference's ``skipped``; then the
+  estimator against the card on a 1 x 1 mesh: the training phase's
+  olmo-1b step (its FLOPs within [0.85, 1.2] x 8NT, its predicted peak
+  within [0.5, 2] x the measured ``max_memory_allocated``, its H100
+  bound beside the measured step ms), qwen2-7b's decode at the serving
+  phase's B = 4 (printed), and NVML's joules a step around the timed
+  olmo-1b steps beside the energy model's (printed); the
+  ``dryrun_path`` line.
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
@@ -3285,6 +3301,38 @@ def guarded(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def nvml_energy_mj():
+    """GPU 0's cumulative energy counter in mJ (NVML's
+    ``nvmlDeviceGetTotalEnergyConsumption`` through the driver's
+    ``libnvidia-ml.so.1``), or None where NVML cannot read it."""
+    import ctypes
+    try:
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    lib.nvmlInit_v2.restype = ctypes.c_int
+    lib.nvmlInit_v2.argtypes = []
+    lib.nvmlShutdown.restype = ctypes.c_int
+    lib.nvmlShutdown.argtypes = []
+    lib.nvmlDeviceGetHandleByIndex_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
+        ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+    lib.nvmlDeviceGetTotalEnergyConsumption.restype = ctypes.c_int
+    lib.nvmlDeviceGetTotalEnergyConsumption.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    if lib.nvmlInit_v2() != 0:
+        return None
+    try:
+        handle, mj = ctypes.c_void_p(), ctypes.c_ulonglong()
+        if lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle)) or \
+                lib.nvmlDeviceGetTotalEnergyConsumption(handle,
+                                                        ctypes.byref(mj)):
+            return None
+        return mj.value
+    finally:
+        lib.nvmlShutdown()
+
+
 def train_main(M, smi) -> dict:
     """olmo-1b at its published width and depth, bf16 parameters, f32
     moments, ``remat`` full: one warm-up step and 5 timed steps (CUDA
@@ -3312,6 +3360,7 @@ def train_main(M, smi) -> dict:
     metrics.append(m)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
     torch.cuda.synchronize()
+    mj0 = nvml_energy_mj()
     t0 = time.perf_counter()
     ev[0].record()
     for i in range(1, timed + 1):
@@ -3321,6 +3370,7 @@ def train_main(M, smi) -> dict:
         metrics.append(m)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    mj1 = nvml_energy_mj()
     peak = torch.cuda.max_memory_allocated()
     step_ms = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, timed + 1)]
     losses = [float(m["loss"]) for m in metrics]
@@ -3357,7 +3407,12 @@ def train_main(M, smi) -> dict:
         "grad_norms": norms, "lrs": [float(m["lr"]) for m in metrics],
         "step_ms": step_ms, "step_ms_median": med,
         "tokens_per_s": tokens / (med * 1e-3), "wall_s_timed": wall,
-        "peak_memory_gb": peak / 1e9, "host_syncs": 0,
+        "peak_memory_gb": peak / 1e9, "peak_memory_bytes": peak,
+        "host_syncs": 0,
+        "nvml_j_per_step": (None if mj0 is None or mj1 is None
+                            else (mj1 - mj0) / 1e3 / timed),
+        "nvml_w_timed": (None if mj0 is None or mj1 is None
+                         else (mj1 - mj0) / 1e3 / wall),
         "flops_6nt": ops6, "bound_ms": ops6 / PEAK_HALF * 1e3,
         "bound_by": "operations",
         "flops_8nt_remat": 8 * n * tokens,
@@ -4064,6 +4119,180 @@ def lm_mesh_path(smi, kernel_mods=()) -> dict:
     emit({"lm_mesh_path": rec})
     return rec
 
+# ---------------------------------------------------------------------------
+# The dry run and the energy model (P12c-3): a fake process group of 512
+# ranks in a process of its own, no kernel of the port
+# ---------------------------------------------------------------------------
+# (arch, shape, multi-pod): olmo-1b's four cells, an MoE and the hybrid
+# with costs on 16 x 16, olmo-1b's decode on 2 x 16 x 16
+DRYRUN_CELLS = (("olmo_1b", "train_4k", False),
+                ("olmo_1b", "prefill_32k", False),
+                ("olmo_1b", "decode_32k", False),
+                ("olmo_1b", "long_500k", False),
+                ("mixtral_8x7b", "long_500k", False),
+                ("zamba2_1p2b", "train_4k", False),
+                ("olmo_1b", "decode_32k", True))
+DRYRUN_FLOPS_8NT = (0.85, 1.2)    # the traced olmo-1b step over 8NT
+DRYRUN_PEAK = (0.5, 2.0)          # predicted peak over the measured one
+DRYRUN_DECODE_HAND_BOUND_MS = 4.29   # PERF.md: qwen2-7b decode, B = 4
+
+
+def dryrun_estimate(D, cfg, shape, mesh) -> dict:
+    """One cell's step traced on a 1 x 1 mesh: the reference's keys, the
+    H100 roofline terms and bound, and the energy model's joules."""
+    from repro_torch.energy import (H100, model_flops, roofline_terms,
+                                    tpu_energy_report)
+    rec = D._compile(cfg, shape, mesh, True)
+    terms = roofline_terms(rec["flops_dev"], rec["bytes_dev"],
+                           rec["coll_bytes_dev"], 1,
+                           model_flops(cfg, shape.kind, shape.global_batch,
+                                       shape.seq_len), hw=H100)
+    rec.update(roofline=terms.as_dict(), bound_ms=terms.bound_time * 1e3,
+               energy=tpu_energy_report(rec["flops_dev"], rec["bytes_dev"],
+                                        rec["coll_bytes_dev"], 1, hw=H100))
+    return rec
+
+
+def dryrun_child(out: str, part: int) -> None:
+    """One of phase 13's processes: ``DRYRUN_CELLS[part]`` through
+    ``run_cell`` (fake tensors on ``cuda``), or, at ``part ==
+    len(DRYRUN_CELLS)``, the estimates on a 1 x 1 mesh of the training
+    phase's olmo-1b step and the serving phase's qwen2-7b decode; its own
+    kernel launch counters, zeroed first; all written to ``out`` as
+    JSON."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    mods = kernel_modules()
+    reset_all(mods)
+    t0 = time.perf_counter()
+    rec = {"cells": {}}
+    if part < len(DRYRUN_CELLS):
+        arch, shape, multi = DRYRUN_CELLS[part]
+        cell = D.run_cell(arch, SHAPES[shape], multi_pod=multi)
+        cell["seconds"] = time.perf_counter() - t0
+        rec["cells"][f"{arch}|{shape}|{'multi' if multi else 'single'}"] = \
+            cell
+    else:
+        D.fake_group()
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        b, s, _ = TRAIN_MAIN
+        rec["olmo_1b_train"] = dryrun_estimate(
+            D, get_config("olmo_1b"),
+            ShapeSpec("train_path", "train", s, b), mesh)
+        b, _, max_seq, _ = LM_MAIN
+        rec["qwen2_7b_decode"] = dryrun_estimate(
+            D, get_config("qwen2_7b"),
+            ShapeSpec("lm_path", "decode", max_seq, b), mesh)
+        rec["estimates_s"] = time.perf_counter() - t0
+    rec["kernel_launches"] = launch_counts(mods)
+    rec["seconds"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(rec))
+
+
+def dryrun_start():
+    """Start phase 13's processes (``dryrun_child``), one for each
+    production cell and one for the estimates, together: they trace on
+    the host once every phase on the card has ended."""
+    root = Path(__file__).resolve().parent
+    env = dict(__import__("os").environ, PYTHONPATH=str(source_dir()),
+               OMP_NUM_THREADS="1")
+    started = []
+    for part in range(len(DRYRUN_CELLS) + 1):
+        out = root / "build" / f"dryrun_smoke_{part}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        if out.exists():
+            out.unlink()
+        started.append((subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.dryrun_child({str(out)!r}, {part})"], cwd=str(root),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), out))
+    return started, time.perf_counter()
+
+
+def dryrun_path(smi, started, train, lm) -> dict:
+    """The dry run and the energy model (P12c-3): the production cells
+    ``ok`` or ``skipped``; the traced olmo-1b step against the training
+    phase's measured one (FLOPs within ``DRYRUN_FLOPS_8NT`` x 8NT, the
+    predicted peak within ``DRYRUN_PEAK`` x ``max_memory_allocated``;
+    its H100 bound beside the step ms, NVML's joules a step beside the
+    model's, printed), qwen2-7b's decode beside the serving phase's ms a
+    token (printed); the process's kernel launch counters all 0."""
+    procs, t_start = started
+    rec = {"cells": {}, "kernel_launches": {}, "seconds": {}}
+    try:
+        for part, (proc, out) in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=900)
+            check(proc.returncode == 0 and out.exists(),
+                  f"dry run process {part}: exit {proc.returncode}\n"
+                  f"{stdout[-2000:]}\n{stderr[-4000:]}")
+            one = json.loads(out.read_text())
+            rec["cells"].update(one.pop("cells"))
+            counts = rec["kernel_launches"]
+            for k, v in one.pop("kernel_launches").items():
+                counts[k] = counts.get(k, 0) + v
+            rec["seconds"][part] = one.pop("seconds")
+            rec.update(one)
+    finally:
+        for proc, _ in procs:
+            proc.kill()
+            proc.communicate()
+    for key, cell in rec["cells"].items():
+        check(cell["status"] in ("ok", "skipped"),
+              f"dry run {key}: {cell.get('error')}\n"
+              f"{cell.get('traceback', '')}")
+        if cell["status"] == "skipped":
+            print(f"dryrun {key}: skipped ({cell['reason'][:40]})",
+                  flush=True)
+            continue
+        r = cell.get("roofline", {})
+        print(f"dryrun {key}: dominant={r.get('dominant', 'n/a')} "
+              f"roofline_fraction={r.get('roofline_fraction', 'n/a')} "
+              f"scan_peak_gb_dev={cell['scan_peak_gb_dev']:.3f} "
+              f"fits_hbm={cell['fits_hbm']} ({cell['seconds']:.1f} s)",
+              flush=True)
+    olmo, qwen = rec["olmo_1b_train"], rec["qwen2_7b_decode"]
+    n, tokens = train["params"], train["tokens_per_step"]
+    ratio = olmo["flops_dev"] / (8 * n * tokens)
+    peak = olmo["peak_gb_dev"] * 1e9 / train["peak_memory_bytes"]
+    print(f"dryrun olmo_1b step: flops_dev={olmo['flops_dev']:.4e} "
+          f"({ratio:.4f} x 8NT) bound={olmo['bound_ms']:.2f} ms "
+          f"({olmo['roofline']['dominant']}) vs measured "
+          f"{train['step_ms_median']:.2f} ms; peak "
+          f"{olmo['peak_gb_dev']:.3f} GB predicted vs "
+          f"{train['peak_memory_gb']:.3f} GB measured ({peak:.3f} x)",
+          flush=True)
+    print(f"dryrun energy: NVML {train['nvml_j_per_step']} J a step vs "
+          f"model {olmo['energy']['e_total_j']:.3f} J "
+          f"({olmo['energy']['dominant']}-dominated)", flush=True)
+    q = lm["qwen2_7b"]
+    print(f"dryrun qwen2_7b decode (B = {LM_MAIN[0]}): bound "
+          f"{qwen['bound_ms']:.3f} ms ({qwen['roofline']['dominant']}), "
+          f"hand bound {DRYRUN_DECODE_HAND_BOUND_MS} ms, measured "
+          f"{q['decode_ms_per_token']:.2f} ms a token; peak "
+          f"{qwen['peak_gb_dev']:.3f} GB", flush=True)
+    check(DRYRUN_FLOPS_8NT[0] <= ratio <= DRYRUN_FLOPS_8NT[1],
+          f"dry run olmo-1b FLOPs {ratio} x 8NT")
+    check(DRYRUN_PEAK[0] <= peak <= DRYRUN_PEAK[1],
+          f"dry run olmo-1b peak {peak} x the measured one")
+    check(not any(rec["kernel_launches"].values()),
+          f"dry run launched port kernels {rec['kernel_launches']}")
+    rec.update(
+        power_limit=smi, flops_over_8nt=ratio, peak_over_measured=peak,
+        measured_step_ms=train["step_ms_median"],
+        measured_peak_gb=train["peak_memory_gb"],
+        nvml_j_per_step=train["nvml_j_per_step"],
+        nvml_w_timed=train["nvml_w_timed"],
+        model_j_per_step=olmo["energy"]["e_total_j"],
+        measured_decode_ms_per_token=q["decode_ms_per_token"],
+        hand_decode_bound_ms=DRYRUN_DECODE_HAND_BOUND_MS,
+        wall_s=time.perf_counter() - t_start)
+    emit({"dryrun_path": rec})
+    return rec
+
 
 def ptxas_by_entry(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
@@ -4671,11 +4900,13 @@ def main() -> int:
                         if r["route"] == "simt"),
         power_limit=power, **f32_by_shape[0], by_shape=f32_by_shape))
     # ----- 10. the LM stack's serving path (P12a): no port kernel ----------
-    lm_path(power, kernel_mods)
+    lm = lm_path(power, kernel_mods)
     # ----- 11. the LM stack's training path (P12b): no port kernel ---------
-    train_path(power, kernel_mods)
+    train = train_path(power, kernel_mods)
     # ----- 12. the LM mesh (P12c-1, P12c-2): no port kernel ----------------
     lm_mesh_path(power, kernel_mods)
+    # ----- 13. the dry run and the energy model (P12c-3): no port kernel ---
+    dryrun_path(power, dryrun_start(), train["olmo_1b"], lm)
 
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

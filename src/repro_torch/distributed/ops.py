@@ -8,13 +8,16 @@ this module alone knows DTensor's placements.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-__all__ = ["einsum", "from_shards", "gather_rows", "index_add_rows",
-           "is_distributed", "lookup", "replicated", "roll",
-           "target_logits"]
+__all__ = ["add_bias", "cumsum", "einsum", "from_shards", "gather_rows",
+           "index_add_rows", "index_copy_", "is_distributed", "lookup",
+           "merge_dims", "repeat_heads", "replicated", "roll", "shard_span",
+           "split_dim", "target_logits", "tied_logits"]
 
 
 def is_distributed(t) -> bool:
@@ -36,6 +39,24 @@ def from_shards(local: torch.Tensor, mesh, placements,
                               run_check=False, shape=shape,
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+def shard_span(n: int, mesh, placements, dim: int = 0):
+    """``(offset, size)`` of this rank's shard of tensor dimension
+    ``dim`` (of global size ``n``) under ``placements``, by
+    ``torch.chunk``'s rule (shards of ``ceil(size / k)``, nested in mesh
+    order), in plain integers: what ``compute_local_shape_and_global_
+    offset`` gives, which makes tensors (and so fails under
+    ``FakeTensorMode``, as the dry run traces)."""
+    coord = mesh.get_coordinate()
+    size, off = n, 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            start = min(chunk * coord[i], size)
+            size = max(min(chunk, size - start), 0)
+            off += start
+    return off, size
 
 
 def _replicate_all(mesh):
@@ -86,6 +107,172 @@ def einsum(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                        mesh, o_to, shape)
 
 
+def _reshard(x: DTensor, axes, dim: int, build, again: bool = True
+             ) -> DTensor:
+    """``build(x)`` with ``x`` first gathered over the mesh ``axes``, then
+    (``again``) sharded over them again on ``dim`` of the result (by
+    ``torch.chunk``'s rule: unevenly where they do not divide it)."""
+    mesh = x.device_mesh
+    whole = [Replicate() if i in axes else p
+             for i, p in enumerate(x.placements)]
+    y = build(x.redistribute(mesh, whole))
+    if not again:
+        return y
+    return y.redistribute(mesh, [Shard(dim) if i in axes else p
+                                 for i, p in enumerate(y.placements)])
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)`` (heads out of a fused projection).  On
+    a DTensor whose ``dim`` is sharded over mesh axes that do not divide
+    ``sizes[0]`` (28 heads of a ``28 * 128`` projection over 16 ranks),
+    the dimension is gathered over those axes and split: DTensor's view
+    rule refuses to split an unevenly sharded dimension.  The first new
+    dimension is then sharded over them again, unevenly, as GSPMD pads
+    it, unless it is smaller than their ranks (4 KV heads over 16: it
+    stays whole)."""
+    if isinstance(x, DTensor):
+        dim = dim % x.ndim
+        axes = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+        k = math.prod(x.device_mesh.size(i) for i in axes)
+        if axes and sizes[0] % k:
+            return _reshard(x, axes, dim, lambda t: t.unflatten(dim, sizes),
+                            again=sizes[0] >= k)
+    return x.unflatten(dim, sizes)
+
+
+def repeat_heads(k: torch.Tensor, groups: int,
+                 like: torch.Tensor = None) -> torch.Tensor:
+    """``jnp.repeat(k, groups, axis=2)``: [B, S, KV, D] -> [B, S, KV *
+    groups, D], query head h reading kv head ``h // groups``.  On a
+    DTensor, where ``like`` (the queries, [B, S, H, D]) shards its heads,
+    ``k`` is gathered over those mesh axes (where it shards its KV heads)
+    and each rank makes only its share of the repeated heads (sharded as
+    ``like``'s, by ``torch.chunk``'s rule): no rank holds all of them."""
+    b, s, kv, d = k.shape
+    if isinstance(k, DTensor) and isinstance(like, DTensor):
+        axes = [i for i, p in enumerate(like.placements) if p.is_shard(2)]
+    else:
+        axes = []
+    if not axes:
+        return merge_dims(k[:, :, :, None].expand(b, s, kv, groups, d), 2)
+    mesh = k.device_mesh
+    whole = k.redistribute(mesh, [Replicate() if i in axes else p
+                                  for i, p in enumerate(k.placements)])
+    out = [Shard(2) if i in axes else p
+           for i, p in enumerate(whole.placements)]
+    lo, n = shard_span(kv * groups, mesh, out, dim=2)
+    local = whole.to_local(grad_placements=[
+        Partial() if i in axes else p
+        for i, p in enumerate(whole.placements)])
+    idx = torch.arange(lo, lo + n, device=local.device) // groups
+    return from_shards(local.index_select(2, idx), mesh, out,
+                       (b, s, kv * groups, d))
+
+
+def merge_dims(x: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
+    """``x.flatten(dim, dim + n - 1)`` (heads back into one dimension).
+    On a DTensor with one of those dimensions sharded unevenly, or any
+    but the first sharded, they are gathered over those mesh axes,
+    flattened, and the result sharded over them again on ``dim`` (evenly
+    where they divide it): DTensor's view rule refuses those flattens."""
+    if isinstance(x, DTensor):
+        dim = dim % x.ndim
+        mesh = x.device_mesh
+        axes = [i for i, p in enumerate(x.placements)
+                if p.is_shard() and dim <= p.dim < dim + n]
+        if any(x.placements[i].dim != dim
+               or x.shape[dim] % mesh.size(i) for i in axes):
+            return _reshard(x, axes, dim,
+                            lambda t: t.flatten(dim, dim + n - 1))
+    return x.flatten(dim, dim + n - 1)
+
+
+def index_copy_(t: torch.Tensor, dim: int, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """``t.index_copy_(dim, index, src)`` for one position (``index`` a
+    1-element tensor, read on the device).  On a DTensor each rank
+    writes into its own shard, ``src`` placed as ``t`` on the other
+    dimensions; where ``t`` is sharded along ``dim`` (a long-context
+    cache's sequence over ``data``) a rank writes the position if it
+    falls in its shard and rewrites its old row otherwise.  DTensor has
+    no rule for ``index_copy_`` (torch 2.11), or takes a shard of ``dim``
+    for the whole of it (2.13)."""
+    if not isinstance(t, DTensor):
+        return t.index_copy_(dim, index, src)
+    mesh = t.device_mesh
+    lo, n = shard_span(t.shape[dim], mesh, t.placements, dim)
+    if n == 0:
+        return t
+    want = [Replicate() if p.is_shard(dim) else p for p in t.placements]
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, _replicate_all(mesh),
+                                 run_check=False)
+    src = src.redistribute(mesh, want).to_local()
+    if isinstance(index, DTensor):
+        index = index.redistribute(mesh, _replicate_all(mesh)).to_local()
+    local = t.to_local()
+    if n == t.shape[dim]:
+        local.index_copy_(dim, index, src)
+        return t
+    rel = index - lo
+    inside = (rel >= 0) & (rel < n)
+    rel = rel.clamp(0, n - 1)
+    local.index_copy_(dim, rel, torch.where(
+        inside, src, local.index_select(dim, rel)))
+    return t
+
+
+def add_bias(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x + b``, ``b`` a bias of ``x``'s last dimension.  On a DTensor
+    ``x`` holding partial sums (a projection whose contraction is
+    sharded), they are reduced first: onto ``b``'s shards of the last
+    dimension where ``b`` is sharded, else whole.  torch 2.11's DTensor
+    would move ``b`` to a partial placement instead, which it cannot do
+    from a shard."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        bp = (b.placements if isinstance(b, DTensor)
+              else _replicate_all(x.device_mesh))
+        x = x.redistribute(x.device_mesh, [
+            (Shard(x.ndim - 1) if q.is_shard(0) else Replicate())
+            if p.is_partial() else p for p, q in zip(x.placements, bp)])
+    return x + b
+
+
+def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum("bsd,vd->bsv", x, table)``: the logits of the tied
+    embedding table [V, D].  On DTensors, where the table's vocabulary is
+    sharded on no mesh axis (a vocabulary that the axes do not divide:
+    the rules shard its D instead), the table is first placed explicitly
+    as ``x``'s D is (sharded where ``x``'s is, else whole), so that the
+    gradient comes back through that redistribute in the table's own
+    placements, those of :func:`lookup`'s gradient: torch 2.11 cannot
+    add the two otherwise (it would move a shard to a partial sum)."""
+    if isinstance(table, DTensor) and isinstance(x, DTensor) and \
+            not any(p.is_shard(0) for p in table.placements):
+        d = x.ndim - 1
+        table = table.redistribute(table.device_mesh, [
+            Shard(1) if px.is_shard(d) else Replicate()
+            for px in x.placements])
+    return torch.einsum("bsd,vd->bsv", x, table)
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)``.  On a DTensor, taken on each rank's
+    shard with ``dim`` whole (gathered over the mesh axes that shard it,
+    partial sums reduced): torch 2.11's DTensor has no rule for the
+    ``flip`` of cumsum's backward."""
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim)
+    dim %= x.ndim
+    mesh = x.device_mesh
+    placements = [Replicate() if p.is_shard(dim) or p.is_partial() else p
+                  for p in x.placements]
+    x = x.redistribute(mesh, placements)
+    return from_shards(torch.cumsum(x.to_local(), dim), mesh, placements,
+                       x.shape)
+
+
 def roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
     """``torch.roll(x, shift, dim)`` as two slices and a concatenation
     (the same values): DTensor (torch 2.11) has no sharding rule for
@@ -113,8 +300,6 @@ def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     redistributes the tokens, indexing's ``index_put`` backward."""
     if not isinstance(table, DTensor):
         return F.embedding(tokens, table)
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = table.device_mesh
     rows = (tokens.placements if isinstance(tokens, DTensor)
             else _replicate_all(mesh))
@@ -133,9 +318,7 @@ def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
            if isinstance(tokens, DTensor) else tokens)
     local = table.to_local(grad_placements=grad)
     if any(p.is_shard(0) for p in table.placements):
-        _, offset = compute_local_shape_and_global_offset(
-            table.shape, mesh, table.placements)
-        ids = ids - offset[0]
+        ids = ids - shard_span(table.shape[0], mesh, table.placements)[0]
         inside = (ids >= 0) & (ids < local.shape[0])
         got = F.embedding(torch.where(inside, ids, 0), local)
         got = torch.where(inside[..., None], got, 0.0)

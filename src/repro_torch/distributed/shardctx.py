@@ -13,27 +13,35 @@ masks, RoPE tables, MoE buffers, the schedule's 0-d ``lr``) count as
 replicated (``torch.distributed.tensor.experimental.
 implicit_replication``): everything a step makes without reading a
 sharded input is the same on every rank.  The batch, the parameters and
-the optimizer state must enter as DTensors.  The flag is the process's,
-so one thread at a time runs on a mesh.
+the optimizer state must enter as DTensors.  The flag and the active
+mesh are the process's (the autograd engine's device threads, which
+recompute rematerialised layers, must see them), so one thread at a time
+runs on a mesh.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
 
 import torch
 
 from .sharding import NamedSharding, P, to_placements
 
-_state = threading.local()
+
+class _State:
+    """The active mesh and profile (the process's: see above)."""
+    mesh = None
+    profile = "tp"
+
+
+_state = _State()
 
 
 def current_mesh():
-    return getattr(_state, "mesh", None)
+    return _state.mesh
 
 
 def current_profile() -> str:
-    return getattr(_state, "profile", "tp")
+    return _state.profile
 
 
 @contextlib.contextmanager

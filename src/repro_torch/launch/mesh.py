@@ -191,25 +191,29 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_mesh(shape: Sequence[int], names: Sequence[str]) -> LMMesh:
+def make_mesh(shape: Sequence[int], names: Sequence[str],
+              device_type: Optional[str] = None) -> LMMesh:
     """An :class:`LMMesh` of any axes over the first ``prod(shape)``
     ranks (every rank of the group calls it: the ``DeviceMesh``'s groups
     are made collectively); with no process group it has no
-    ``DeviceMesh``."""
+    ``DeviceMesh``.  ``device_type`` defaults to ``cuda`` under NCCL,
+    else ``cpu`` (the dry run's fake group names its own)."""
     shape, names = tuple(shape), tuple(names)
     import torch.distributed as dist
     if not dist.is_initialized():
         return LMMesh(shape, names)
     from torch.distributed.device_mesh import DeviceMesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     ranks = torch.arange(math.prod(shape)).reshape(shape)
     return LMMesh(shape, names, DeviceMesh(device_type, ranks,
                                            mesh_dim_names=names))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
-    """16 x 16 ``data`` x ``model``, or 2 x 16 x 16 with ``pod``; raises
-    ``RuntimeError`` below 256 (512) ranks."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> LMMesh:
+    """16 x 16 ``data`` x ``model``, or 2 x 16 x 16 with ``pod``, over
+    the first 256 (512) ranks; raises ``RuntimeError`` below that."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need = math.prod(shape)
@@ -219,7 +223,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
             f"mesh {shape} needs {need} devices but only {have} visible "
             f"(ranks of the process group) — launch {need} ranks "
             f"(torchrun --nproc-per-node, or --devices {need})")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(data: Optional[int] = None, model: int = 1) -> LMMesh:

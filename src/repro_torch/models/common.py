@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..distributed.ops import einsum
+from ..distributed.ops import einsum, merge_dims, repeat_heads, split_dim
 from ..distributed.shardctx import constrain
 from .config import ModelConfig
 
@@ -97,14 +97,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Blockwise causal attention (training / prefill)
 # ---------------------------------------------------------------------------
-def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+def _repeat_kv(k: torch.Tensor, groups: int, q: torch.Tensor = None
+               ) -> torch.Tensor:
     """``jnp.repeat(k, groups, axis=2)``: query head h reads kv head
-    ``h // groups``."""
+    ``h // groups`` (on a mesh each rank makes the heads of its share of
+    ``q``)."""
     if groups == 1:
         return k
-    b, s, kv, d = k.shape
-    return k[:, :, :, None].expand(b, s, kv, groups, d).reshape(
-        b, s, kv * groups, d)
+    return repeat_heads(k, groups, like=q)
 
 
 def _softmax_f32(scores: torch.Tensor, dtype) -> torch.Tensor:
@@ -139,8 +139,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             kv_start, kv_end = 0, skv
             kc, vc = k, v
-        kc = _repeat_kv(kc, groups)
-        vc = _repeat_kv(vc, groups)
+        kc = _repeat_kv(kc, groups, qc)
+        vc = _repeat_kv(vc, groups, qc)
         scores = einsum("bqhd,bkhd->bhqk", qc, kc) * scale
         # scores always shard over heads ('model'), as the reference's
         scores = constrain(scores, "data", "model", None, None)
@@ -172,7 +172,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``no_repeat=True``: a grouped einsum keeps K/V at KV heads, with no
     repeated (B,Smax,H,D) copy of the cache.
     """
-    b, smax, kv, d = k_cache.shape
+    smax, kv, d = k_cache.shape[1:]
     h = q.shape[2]
     groups = h // kv
     scale = 1.0 / (d ** 0.5)
@@ -183,20 +183,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = positions < cache_len
 
     if no_repeat:
-        qg = q.reshape(b, 1, kv, groups, d)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache) * scale
+        qg = split_dim(q, 2, (kv, groups))
+        scores = einsum("bqkgd,bskd->bkgqs", qg, k_cache) * scale
         scores = torch.where(valid[None, None, None, None, :], scores,
                              NEG_INF)
         probs = _softmax_f32(scores, q.dtype)
-        o = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
-        return o.reshape(b, 1, h, d)
+        o = einsum("bkgqs,bskd->bqkgd", probs, v_cache)
+        return merge_dims(o, 2)
 
-    kc = _repeat_kv(k_cache, groups)
-    vc = _repeat_kv(v_cache, groups)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kc) * scale  # [B,H,1,Smax]
+    kc = _repeat_kv(k_cache, groups, q)
+    vc = _repeat_kv(v_cache, groups, q)
+    scores = einsum("bqhd,bkhd->bhqk", q, kc) * scale  # [B,H,1,Smax]
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = _softmax_f32(scores, q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vc)
+    return einsum("bhqk,bkhd->bqhd", probs, vc)
 
 
 # ---------------------------------------------------------------------------

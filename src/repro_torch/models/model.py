@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
-from ..distributed.ops import lookup, roll
+from ..distributed.ops import add_bias, index_copy_, lookup, merge_dims, \
+    roll, split_dim, tied_logits
 from ..distributed.shardctx import constrain
 from ..kernels.runtime import resolve_device
 from ..tree import unflatten
@@ -214,16 +215,16 @@ def _layer(stacked: Params, i) -> Params:
 # Blocks
 # ===========================================================================
 def _proj_qkv(w, x, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = torch.einsum("bsd,dq->bsq", x, w["wq"])
     k = torch.einsum("bsd,dq->bsq", x, w["wk"])
     v = torch.einsum("bsd,dq->bsq", x, w["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+        q, k, v = (add_bias(q, w["bq"]), add_bias(k, w["bk"]),
+                   add_bias(v, w["bv"]))
+    q = split_dim(q, 2, (H, hd))
+    k = split_dim(k, 2, (KV, hd))
+    v = split_dim(v, 2, (KV, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, w["q_norm"])
         k = rmsnorm(k, w["k_norm"])
@@ -233,10 +234,9 @@ def _proj_qkv(w, x, cfg: ModelConfig, positions):
 
 
 def _attend(w, q, k, v, cfg: ModelConfig, causal=True, window=0):
-    B, S = q.shape[:2]
     o = chunked_attention(q, k, v, causal=causal, window=window,
                           q_chunk=cfg.attn_q_chunk)
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    o = merge_dims(o, 2)
     return torch.einsum("bsq,qd->bsd", o, w["wo"])
 
 
@@ -247,16 +247,14 @@ def self_attention(w, x, cfg: ModelConfig, positions, causal=True,
 
 
 def cross_attention(w, x, memory, cfg: ModelConfig) -> torch.Tensor:
-    B, S, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = torch.einsum("bsd,dq->bsq", x, w["cross_wq"]).reshape(B, S, H, hd)
-    k = torch.einsum("bsd,dq->bsq", memory, w["cross_wk"]).reshape(
-        B, memory.shape[1], KV, hd)
-    v = torch.einsum("bsd,dq->bsq", memory, w["cross_wv"]).reshape(
-        B, memory.shape[1], KV, hd)
+    q = split_dim(torch.einsum("bsd,dq->bsq", x, w["cross_wq"]), 2, (H, hd))
+    k = split_dim(torch.einsum("bsd,dq->bsq", memory, w["cross_wk"]), 2,
+                  (KV, hd))
+    v = split_dim(torch.einsum("bsd,dq->bsq", memory, w["cross_wv"]), 2,
+                  (KV, hd))
     o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk)
-    return torch.einsum("bsq,qd->bsd", o.reshape(B, S, H * hd),
-                        w["cross_wo"])
+    return torch.einsum("bsq,qd->bsd", merge_dims(o, 2), w["cross_wo"])
 
 
 def mlp_ffn(w, x, cfg: ModelConfig) -> torch.Tensor:
@@ -315,7 +313,7 @@ def _embed_in(params, batch, cfg: ModelConfig):
 
 def _logits_out(params, x, cfg: ModelConfig):
     x = norm(cfg, x, params.get("final_norm"))
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    logits = tied_logits(x, params["embed"])
     return constrain(logits, "data", None, "model")
 
 
@@ -499,17 +497,17 @@ def _attn_decode_one(w, x, k_cache, v_cache, pos, cfg: ModelConfig,
     Sc - 1)`` (the reference's ``dynamic_update_slice`` clamps, so a
     full cache that overflows rewrites its last slot)."""
     B = x.shape[0]
-    hd, KV, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    hd, KV = cfg.head_dim, cfg.n_kv_heads
     q, k, v = _proj_qkv(w, x, cfg, pos.expand(B, 1))
     Sc = k_cache.shape[1]
     slot = pos % Sc if window > 0 else torch.clamp(pos, max=Sc - 1)
     slot = slot.long().reshape(1)
-    k_cache.index_copy_(1, slot, k.reshape(B, 1, KV * hd))
-    v_cache.index_copy_(1, slot, v.reshape(B, 1, KV * hd))
-    o = decode_attention(q, k_cache.reshape(B, Sc, KV, hd),
-                         v_cache.reshape(B, Sc, KV, hd), cache_len=pos + 1,
+    index_copy_(k_cache, 1, slot, merge_dims(k, 2))
+    index_copy_(v_cache, 1, slot, merge_dims(v, 2))
+    o = decode_attention(q, split_dim(k_cache, 2, (KV, hd)),
+                         split_dim(v_cache, 2, (KV, hd)), cache_len=pos + 1,
                          window=window, no_repeat=cfg.decode_no_repeat)
-    return torch.einsum("bsq,qd->bsd", o.reshape(B, 1, H * hd), w["wo"])
+    return torch.einsum("bsq,qd->bsd", merge_dims(o, 2), w["wo"])
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Dict,
@@ -601,8 +599,8 @@ def prefill(params: Params, batch: Dict, cache: Dict,
         writes (slot = pos % Sc) evict exactly the token that falls out
         of the window."""
         KVhd = cfg.n_kv_heads * cfg.head_dim
-        kf = k.reshape(B, S, KVhd)
-        vf = v.reshape(B, S, KVhd)
+        kf = merge_dims(k, 2)
+        vf = merge_dims(v, 2)
         if S >= Sc:
             kf, vf = kf[:, S - Sc:], vf[:, S - Sc:]
             shift = (S - Sc) % Sc

@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..distributed.ops import einsum
+from ..distributed.ops import add_bias, cumsum, einsum
 from ..distributed.shardctx import constrain
 from .common import silu
 from .config import ModelConfig
@@ -103,8 +103,8 @@ def mamba1_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
     proj = torch.einsum("bse,er->bsr", xs, w["x_proj"])  # [B,S,R+2N]
     dt_rank = w["dt_proj"].shape[0]
     dt, Bc, Cc = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = _softplus(einsum("bsr,re->bse", dt, w["dt_proj"])
-                   + w["dt_bias"].float())               # [B,S,dI] f32
+    dt = _softplus(add_bias(einsum("bsr,re->bse", dt, w["dt_proj"]),
+                            w["dt_bias"].float()))    # [B,S,dI] f32
     A = -torch.exp(w["a_log"].float())                   # [dI,N] negative
     log_a = dt[..., None] * A                            # [B,S,dI,N]
     b_in = (dt[..., None] * Bc.float()[:, :, None, :]
@@ -162,7 +162,7 @@ def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
     S = x.shape[1]
     for i in range(k):
         out = out + pad[:, i:i + S].float() * conv_w[:, i].float()
-    return (out + conv_b.float()).to(x.dtype)
+    return add_bias(out, conv_b.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +183,8 @@ def mamba2_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     bc = torch.einsum("bsd,dn->bsn", x, w["bc_proj"])    # [B,S,2N]
     Bc, Cc = torch.chunk(bc, 2, dim=-1)
-    dt = _softplus(torch.einsum("bsd,dh->bsh", x, w["dt_proj"])
-                   + w["dt_bias"].float())               # [B,S,nh]
+    dt = _softplus(add_bias(torch.einsum("bsd,dh->bsh", x, w["dt_proj"]),
+                            w["dt_bias"].float()))    # [B,S,nh]
     A = -torch.exp(w["a_log"].float())                   # [nh]
     log_a = dt * A                                       # [B,S,nh]
 
@@ -197,7 +197,7 @@ def mamba2_forward(w: Dict, x: torch.Tensor, cfg: ModelConfig,
     h = torch.zeros((B, nh, p, N), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, CHUNK):
         c = slice(s0, s0 + CHUNK)
-        lacc = torch.cumsum(log_a[:, c], dim=1)          # [B,c,nh]
+        lacc = cumsum(log_a[:, c], 1)                    # [B,c,nh]
         xc = xh[:, c]                                    # [B,c,nh,p]
         Bcc, Ccc = Bf[:, c], Cf[:, c]                    # [B,c,N]
         L = lacc[:, :, None, :] - lacc[:, None, :, :]    # [B,q,k,nh]

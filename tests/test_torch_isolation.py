@@ -12,13 +12,16 @@
   ``repro_torch.kernels.ops.flash_attention`` on CPU tensors, nor one
   that imports ``repro_torch.models`` and serves a reduced model through
   ``repro_torch.launch.serve_lm`` on the CPU, then trains it a step and
-  runs ``repro_torch.launch.train`` for two;
+  runs ``repro_torch.launch.train`` for two, nor one that imports
+  ``repro_torch.launch.dryrun`` (no process group yet) and traces a
+  cell on the CPU (its fake group of 512 ranks started by ``run_cell``);
 * an AST scan of every ``src/repro_torch/**/*.py`` and of
   ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
   ``from repro ...``;
 * without CUDA, ``explore(space)`` on the default device raises, and so
   do the LM stack's ``init_params``, ``init_cache``,
-  ``params_from_numpy``, ``serve_lm`` and ``launch.train``;
+  ``params_from_numpy``, ``serve_lm``, ``launch.train``,
+  ``launch.dryrun`` and ``dryrun.run_cell``;
 * the sweep-backend policy mirrors the reference's
   (``tests/test_kernels.py``): ``auto`` follows the device, the
   environment overrides ``auto``, an explicit argument beats the
@@ -204,6 +207,35 @@ sys.exit(1 if bad else 0)
 """
 
 
+_CHILD_DRYRUN = r"""
+import sys
+import torch.distributed as dist
+import repro_torch.launch.dryrun as dryrun
+import repro_torch.energy
+assert not dist.is_initialized()      # the fake group starts in run_cell
+from repro_torch.launch.shapes import SHAPES
+rec = dryrun.run_cell("olmo_1b", SHAPES["decode_32k"], with_costs=False,
+                      device="cpu")
+assert rec["status"] == "ok" and rec["chips"] == 256, rec
+assert not dist.is_initialized()      # ... and ends with the cell
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_dryrun_on_cpu_loads_no_jax_and_no_repro_and_no_group():
+    """``import repro_torch.launch.dryrun`` (and ``repro_torch.energy``)
+    starts no process group; a cell traced on the CPU starts the fake
+    group of 512 ranks and loads no ``jax*`` and no ``repro`` module."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_DRYRUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
 def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
     """``repro_torch.models`` and the serving entry point
     ``repro_torch.launch.serve_lm``, serving a reduced zamba2 (mamba2
@@ -222,12 +254,14 @@ def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache",
                                    "params_from_numpy", "serve_lm",
-                                   "launch_train"])
+                                   "launch_train", "launch_dryrun",
+                                   "run_cell"])
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                               entry):
     import numpy as np
     from repro_torch.configs import get_config, reduced
-    from repro_torch.launch import serve_lm, train
+    from repro_torch.launch import dryrun, serve_lm, train
+    from repro_torch.launch.shapes import SHAPES
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_from_numpy
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -240,6 +274,9 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "serve_lm": lambda: serve_lm.main(["--arch", "qwen2_7b"]),
         "launch_train": lambda: train.main(["--arch", "qwen2_7b",
                                             "--reduced"]),
+        "launch_dryrun": lambda: dryrun.main(["--arch", "olmo_1b",
+                                              "--no-costs"]),
+        "run_cell": lambda: dryrun.run_cell("olmo_1b", SHAPES["decode_32k"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -268,7 +305,11 @@ def test_port_sources_import_no_jax_and_no_repro():
                    "configs/qwen2_7b.py", "train/steps.py",
                    "launch/serve_lm.py", "train/loop.py", "optim/adamw.py",
                    "optim/schedule.py", "data/synthetic.py",
-                   "ckpt/manager.py", "launch/train.py"):
+                   "ckpt/manager.py", "launch/train.py",
+                   "launch/shapes.py", "launch/dryrun.py", "energy/hlo.py",
+                   "energy/roofline.py", "energy/tpu_energy.py",
+                   "energy/collectives.py", "energy/trace.py",
+                   "energy/__init__.py"):
         assert PORT / module in files, module
     offenders = _offenders(files)
     assert not offenders, offenders
