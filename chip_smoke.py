@@ -158,7 +158,20 @@ read just after:
   bound beside the measured step ms), qwen2-7b's decode at the serving
   phase's B = 4 (printed), and NVML's joules a step around the timed
   olmo-1b steps beside the energy model's (printed); the
-  ``dryrun_path`` line.
+  ``dryrun_path`` line;
+* the examples (P15, ``repro_torch.examples``), once the dry run has
+  ended, in this process: ``quickstart`` (K5 once, K6 twice; its lines
+  equal the CPU's), ``explore_design_space`` with ``MEGA_SWEEP=1`` (the
+  Sec. 6 studies and the hook axes on K4, the registry demo, the
+  mega-sweep of 43,545,600 points at chunk 2^17, the campaigns and the
+  two-tenant service on K1; its tables equal the CPU's, the mega-sweep's
+  top-k and per-variant summaries bit-equal to the staged engine on the
+  same space) and ``train_lm`` at its defaults (``LEARNED``, no
+  port kernel); the ``examples_path`` line, its launches added to the
+  ``kernels`` line;
+* the static checks (P13): ``python -m repro_torch.analysis`` over the
+  port's default scope exits 0 with 0 findings; the ``static_checks``
+  line.
 
 It times every kernel (K1 at ``kk`` 3 and 16 beside its bound and the
 bound of the work its hoisting leaves, with a probe of K1's and K3a's
@@ -4294,6 +4307,236 @@ def dryrun_path(smi, started, train, lm) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The examples (P15) and the static checks (P13)
+# ---------------------------------------------------------------------------
+MEGA_EXAMPLE_POINTS = 8 * 18 * 3 * 8 * 6 * 5 * 3 * 5 * 7 * 4   # MEGA_SWEEP=1
+#: a printed number of the examples: 27,648 / 0.423 / 3.034e-05
+EXAMPLE_NUM = r"-?\d[\d,]*(?:\.\d+)?(?:e[+-]?\d+)?"
+
+
+def same_printed(got: str, want: str) -> bool:
+    """Two printed lines equal to their printed digits, within one unit
+    of each number's last digit."""
+    import re
+    num = re.compile(EXAMPLE_NUM)
+    if num.sub("#", got) != num.sub("#", want):
+        return False
+    for g, w in zip(num.findall(got), num.findall(want)):
+        mant, _, exp = w.replace(",", "").partition("e")
+        unit = 10.0 ** (-(len(mant.split(".")[1]) if "." in mant else 0)
+                        + int(exp or 0))
+        if abs(float(g.replace(",", "")) - float(w.replace(",", ""))) \
+                > 1.0000001 * unit:
+            return False
+    return True
+
+
+def captured(fn, log: Path):
+    """``fn()`` with its standard output written to ``log``; returns
+    ``(result, text)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text(buf.getvalue())
+    return result, buf.getvalue()
+
+
+def examples_path(smi, kernel_mods) -> dict:
+    """Phase 14: the three examples (``repro_torch.examples``) in this
+    process on the card, each with the launch counters zeroed just before
+    it and read just after, their output under ``build/examples/``.
+
+    * ``quickstart``: K5 ``binning`` once and K6 ``stencil_conv`` twice;
+      its lines equal the same script's on the CPU (within one unit of
+      the last printed digit);
+    * ``explore_design_space`` with ``MEGA_SWEEP=1``: the Sec. 6 studies
+      and the hook-axis ``explore()`` on K4, the registry demo, the
+      mega-sweep of 43,545,600 points over 8 variants at chunk 2^17 and
+      the campaigns and the two-tenant service on K1 (its own verdicts
+      assert inside); the lines of its first three sections equal those
+      sections on the CPU; the mega-sweep's top-k rows, flat indices and
+      per-variant summaries (counts, argmins, minima, means) bit-equal to
+      ``engine="staged"`` on the same space (K2, K3a);
+    * ``train_lm`` at its defaults (200 steps of reduced qwen3-4b, 8 x 64
+      tokens): ``LEARNED``, no port kernel (every counter 0), ms a step.
+    """
+    import os
+    from repro_torch.examples import explore_design_space as eds
+    from repro_torch.examples import quickstart, train_lm
+    from repro_torch.explore import explore
+    root = Path(__file__).resolve().parent / "build" / "examples"
+    t_start = time.perf_counter()
+    rec = {"power_limit": smi}
+
+    # ----- quickstart: K5, K6 ----------------------------------------------
+    reset_all(kernel_mods)
+    t0 = time.perf_counter()
+    rc, card = captured(lambda: quickstart.main(["--device", "cuda"]),
+                        root / "quickstart_cuda.log")
+    qs_counts = launch_counts(kernel_mods)
+    qs_s = time.perf_counter() - t0
+    _, cpu = captured(lambda: quickstart.main(["--device", "cpu"]),
+                      root / "quickstart_cpu.log")
+    check(rc == 0 and qs_counts["binning"] >= 1
+          and qs_counts["stencil_conv"] >= 2,
+          f"quickstart: rc {rc}, launches {qs_counts}")
+    lines = list(zip(card.splitlines(), cpu.splitlines()))
+    check(len(card.splitlines()) == len(cpu.splitlines()) and all(
+        same_printed(a, b) for a, b in lines),
+        f"quickstart on the card differs from the CPU:\n{card}\n{cpu}")
+    rec["quickstart"] = {"seconds": qs_s, "launches": {
+        k: v for k, v in qs_counts.items() if v},
+        "functional_line": card.splitlines()[-1]}
+
+    # ----- explore_design_space, MEGA_SWEEP=1: K1, K4 ------------------------
+    prev = os.environ.get("MEGA_SWEEP")
+    os.environ["MEGA_SWEEP"] = "1"
+    try:
+        reset_all(kernel_mods)
+        t0 = time.perf_counter()
+        out, text = captured(lambda: eds.run(["--device", "cuda"]),
+                             root / "explore_design_space_cuda.log")
+        ex_s = time.perf_counter() - t0
+        ex_counts = launch_counts(kernel_mods)
+    finally:
+        if prev is None:
+            os.environ.pop("MEGA_SWEEP")
+        else:
+            os.environ["MEGA_SWEEP"] = prev
+    mega = out["mega"]
+    par = out["campaigns"][2].campaign
+    worker_k1 = sum(c["kernel_launches"]
+                    for c in par["worker_counters"].values())
+    check(ex_counts["fused_sweep"] > 0 and ex_counts["category_reduce"] > 0,
+          f"explore_design_space: launches {ex_counts}")
+    check(mega.n_points == MEGA_EXAMPLE_POINTS and mega.n_variants == 8
+          and mega.chunk_size == 1 << 17 and mega.backend == "cuda",
+          f"mega-sweep: {mega.n_points} points, {mega.n_variants} "
+          f"variants, chunk {mega.chunk_size}, backend {mega.backend}")
+    # the first three sections against the same functions on the CPU
+    def head_sections():
+        eds.sec6_tables("cpu")
+        eds.hook_axes("cpu")
+        eds.registry_demo("cpu")
+    _, cpu_text = captured(head_sections,
+                           root / "explore_design_space_cpu_head.log")
+    card_head = text.split("\n=== Streaming mega-sweep")[0].splitlines()
+    cpu_head = cpu_text.rstrip("\n").splitlines()
+    skip = ("=== explore(): ", "=== Registry demo")
+    pairs = [(a, b) for a, b in zip(card_head, cpu_head)
+             if not a.startswith(skip)]
+    check(len(card_head) == len(cpu_head)
+          and all(same_printed(a, b) for a, b in pairs),
+          "explore_design_space's tables on the card differ from the CPU")
+    # the mega-sweep against the staged engine on the same space
+    t0 = time.perf_counter()
+    staged = explore(eds.mega_space(True), engine="staged",
+                     chunk_size=eds.mega_chunk(True), k=mega.k)
+    staged_s = time.perf_counter() - t0
+    check(mega.topk == staged.topk, "mega-sweep: top-k differs from staged")
+    check((mega.n_points, mega.n_feasible)
+          == (staged.n_points, staged.n_feasible),
+          f"mega-sweep counts {mega.n_feasible} vs staged "
+          f"{staged.n_feasible}")
+    for label, sa in mega.summaries.items():
+        sb = staged.summaries[label]
+        ma, mb = sa["metric_mean"], sb["metric_mean"]
+        rest = [{k: v for k, v in x.items() if k != "metric_mean"}
+                for x in (sa, sb)]
+        check((ma == mb or math.isnan(ma) and math.isnan(mb))
+              and rest[0] == rest[1],
+              f"mega-sweep: {label} summary differs from staged: {sa} "
+              f"vs {sb}")
+    rec["explore_design_space"] = {
+        "seconds": ex_s, "launches": {k: v for k, v in ex_counts.items()
+                                      if v},
+        "campaign_worker_k1_launches": worker_k1,
+        "mega": {"points": mega.n_points, "variants": mega.n_variants,
+                 "chunk": mega.chunk_size, "eval_s": mega.eval_s,
+                 "wall_s": mega.wall_s, "compile_s": mega.compile_s,
+                 "points_per_s": mega.points_per_sec,
+                 "dispatches": mega.dispatches,
+                 "superchunk": mega.superchunk,
+                 "n_feasible": mega.n_feasible,
+                 "best_total_j": mega.topk[0]["total_j"]},
+        "staged": {"eval_s": staged.eval_s, "wall_s": staged_s,
+                   "dispatches": staged.dispatches,
+                   "topk_and_summaries_bit_equal": True},
+        "verdicts": [ln for ln in text.splitlines()
+                     if "identical" in ln or "group=" in ln
+                     or "cache_hit=" in ln]}
+
+    # ----- train_lm at its defaults: no port kernel -------------------------
+    ckpt = root / "train_lm_ckpt"
+    reset_all(kernel_mods)
+    t0 = time.perf_counter()
+    tr, tr_text = captured(lambda: train_lm.run(
+        ["--device", "cuda", "--ckpt-dir", str(ckpt)]),
+        root / "train_lm_cuda.log")
+    tr_s = time.perf_counter() - t0
+    __import__("shutil").rmtree(ckpt, ignore_errors=True)
+    tr_counts = launch_counts(kernel_mods)
+    hist = tr["history"]
+    check("(LEARNED)" in tr_text.splitlines()[-1],
+          f"train_lm did not learn: {tr_text.splitlines()[-1]}")
+    check(not any(tr_counts.values()),
+          f"train_lm launched port kernels {tr_counts}")
+    rec["train_lm"] = {
+        "seconds": tr_s, "steps": tr["step"],
+        "first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+        "ms_per_step_median": 1e3 * float(np.median(
+            [h["step_time_s"] for h in hist])),
+        "verdict": tr_text.splitlines()[-1].split(";")[0]}
+
+    launches = {}
+    for part in (qs_counts, ex_counts):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    launches["fused_sweep"] += worker_k1
+    rec["kernel_launches"] = {k: v for k, v in launches.items() if v}
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(f"examples_path: {rec['wall_s']:.1f} s on {smi}", flush=True)
+    emit({"examples_path": rec})
+    return rec
+
+
+def static_checks(smi) -> dict:
+    """Phase 15: ``python -m repro_torch.analysis`` over its default scope
+    (the port's core, kernels, explore and serve) under this machine's
+    Python: exit 0 with 0 findings against the empty baseline."""
+    import os
+    from repro_torch.analysis import RULE_MAP, rule_names
+    root = Path(__file__).resolve().parent
+    report = root / "build" / "analysis_report.json"
+    report.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--report",
+         str(report)], cwd=str(root), capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(source_dir())))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"static checks: exit {proc.returncode}\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    counts = json.loads(report.read_text())["counts"]
+    check(counts["total"] == 0 and "0 finding(s)" in proc.stdout,
+          f"static checks: {proc.stdout[-4000:]}")
+    rec = {"rules": len(rule_names()), "reference_rules": len(RULE_MAP),
+           "not_applicable": sorted(k for k, (p, _r) in RULE_MAP.items()
+                                    if p is None),
+           "findings": counts["total"], "exit_code": proc.returncode,
+           "summary": next(ln for ln in proc.stdout.splitlines()
+                           if "finding(s)" in ln),
+           "wall_s": wall, "power_limit": smi}
+    print(f"static_checks: {rec['rules']} rules, {rec['findings']} "
+          f"findings, {wall:.1f} s on {smi}", flush=True)
+    emit({"static_checks": rec})
+    return rec
+
+
 def ptxas_by_entry(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as ``{kernel: "registers, stack and
     spills"}``, the kernel names demangled by ``c++filt`` where it runs."""
@@ -4907,6 +5150,16 @@ def main() -> int:
     lm_mesh_path(power, kernel_mods)
     # ----- 13. the dry run and the energy model (P12c-3): no port kernel ---
     dryrun_path(power, dryrun_start(), train["olmo_1b"], lm)
+    # ----- 14. the examples (P15): K1, K4, K5, K6 ---------------------------
+    examples = examples_path(power, kernel_mods)["kernel_launches"]
+    # ----- 15. the static checks (P13) --------------------------------------
+    static_checks(power)
+    for entry in entries:
+        n = examples.get(entry["name"], 0)
+        entry["examples_launches"] = n
+        if n:
+            entry["launches"] += n
+            entry["path"] += f" + examples ({n})"
 
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

@@ -913,18 +913,19 @@ def build_banked_eval(dims):
 
     def eval_bank(bank, variant_ids, points: DesignPoints):
         dev = points.frame_rate.device
+        n_variants = bank.fused.shape[0]
         ids = torch.as_tensor(variant_ids, device=dev).to(torch.int64)
+        ids = torch.where(ids < 0, ids + n_variants, ids)  # rows from the end
         pt = _pt(points)
+        # each variant scores the whole batch and each point keeps its own
+        # variant's outputs: no host sync (the ids never reach the host),
+        # as the reference's per-point row gather, at V evaluations a batch
         out: Dict[str, torch.Tensor] = {}
-        for v in torch.unique(ids).tolist():
-            sel = torch.nonzero(ids == v).reshape(-1)
-            res = compute(bank.fused[v],
-                          {k: t.index_select(0, sel) for k, t in pt.items()})
-            for key, val in res.items():
-                if key not in out:
-                    out[key] = torch.empty((points.batch,), dtype=val.dtype,
-                                           device=dev)
-                out[key].index_copy_(0, sel, val)
+        for v in range(n_variants):
+            pick = ids == v
+            for key, val in compute(bank.fused[v], pt).items():
+                out[key] = val if v == 0 else torch.where(pick, val,
+                                                          out[key])
         return out
 
     return eval_bank, eval_bank_uniform

@@ -31,7 +31,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -158,7 +158,8 @@ def sm_count(device) -> int:
     return _SMS[idx]
 
 
-def launch(name: str, entry, device, *args) -> None:
+def launch(name: str, entry: Callable[..., int], device: torch.device,
+           *args: object) -> None:
     """Call a kernel's C entry point with ``args`` and the current stream
     of ``device`` last; raise if it returns a nonzero ``cudaError_t`` (a
     refused launch never runs, and a later synchronise does not report

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -443,7 +443,7 @@ def _static_params(dims: BankDims, metric: str, shape: Tuple[int, ...],
     return bytes(p)
 
 
-def kernel_params(dims, *, metric: str, shape: Sequence[int], n_var: int,
+def kernel_params(dims: Sequence[int], *, metric: str, shape: Sequence[int], n_var: int,
                   total: int, chunk: int, lmax: int, table_cols: int,
                   bp: int, kk: int, start: int, low: int, limit: int,
                   p: Plan) -> _Params:
@@ -456,9 +456,10 @@ def kernel_params(dims, *, metric: str, shape: Sequence[int], n_var: int,
     return params
 
 
-def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
-                      limit, *, compute, metric: str, axis_names, shape,
-                      n_var: int, total: int, chunk: int, lmax: int,
+def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start: int,
+                      low: int, limit: int, *, compute: Callable,
+                      metric: str, axis_names: Sequence[str],
+                      shape: Sequence[int], n_var: int, total: int, chunk: int, lmax: int,
                       block_points: int = 4096, kk: int = 16,
                       idx_dtype=torch.int32):
     """Same signature and return contract as :func:`fused_sweep_block_torch`.
@@ -485,8 +486,9 @@ def fused_sweep_block(table2: torch.Tensor, row: torch.Tensor, start, low,
                block_points=block_points, kk=kk, idx_dtype=idx_dtype)
 
 
-def run(table2: torch.Tensor, row: torch.Tensor, start, low, limit,
-        p: Plan, *, compute, metric: str, axis_names, shape, n_var: int,
+def run(table2: torch.Tensor, row: torch.Tensor, start: int, low: int,
+        limit: int, p: Plan, *, compute: Callable, metric: str,
+        axis_names: Sequence[str], shape: Sequence[int], n_var: int,
         total: int, chunk: int, lmax: int, block_points: int = 4096,
         kk: int = 16, idx_dtype=torch.int32):
     """Launch the kernel under plan ``p`` (from :func:`plan` or

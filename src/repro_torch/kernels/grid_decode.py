@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -223,8 +223,9 @@ def load_kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def grid_decode(table2: torch.Tensor, start, *, shape, n_var: int,
-                total: int, chunk: int, lmax: int, idx_dtype=torch.int32):
+def grid_decode(table2: torch.Tensor, start: int, *, shape: Sequence[int],
+                n_var: int, total: int, chunk: int, lmax: int,
+                idx_dtype=torch.int32):
     """Same signature and return contract as :func:`grid_decode_torch`.
 
     On a CUDA tensor it launches the kernel of :func:`plan` on the

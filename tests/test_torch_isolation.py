@@ -15,13 +15,16 @@
   runs ``repro_torch.launch.train`` for two, nor one that imports
   ``repro_torch.launch.dryrun`` (no process group yet) and traces a
   cell on the CPU (its fake group of 512 ranks started by ``run_cell``);
-* an AST scan of every ``src/repro_torch/**/*.py`` and of
-  ``chip_smoke.py`` finds no ``import jax`` and no ``import repro`` /
-  ``from repro ...``;
+* one that runs ``python -m repro_torch.analysis`` and ``python -m
+  repro_torch.examples.quickstart --device cpu`` has loaded neither;
+* an AST scan of every ``src/repro_torch/**/*.py`` (``analysis/`` and
+  ``examples/`` among them) and of ``chip_smoke.py`` finds no ``import
+  jax`` and no ``import repro`` / ``from repro ...``;
 * without CUDA, ``explore(space)`` on the default device raises, and so
   do the LM stack's ``init_params``, ``init_cache``,
   ``params_from_numpy``, ``serve_lm``, ``launch.train``,
-  ``launch.dryrun`` and ``dryrun.run_cell``;
+  ``launch.dryrun``, ``dryrun.run_cell`` and the three examples'
+  ``main()``;
 * the sweep-backend policy mirrors the reference's
   (``tests/test_kernels.py``): ``auto`` follows the device, the
   environment overrides ``auto``, an explicit argument beats the
@@ -236,6 +239,38 @@ def test_dryrun_on_cpu_loads_no_jax_and_no_repro_and_no_group():
     assert "LOADED []" in proc.stdout
 
 
+_CHILD_STATIC = r"""
+import contextlib, io, runpy, sys
+for argv in (["repro_torch.analysis"],
+             ["repro_torch.examples.quickstart", "--device", "cpu"]):
+    sys.argv = list(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert e.code in (0, None), (argv, e.code, out.getvalue())
+    text = out.getvalue()
+    assert ("0 finding(s)" in text if argv[0].endswith("analysis")
+            else "functional sim: input (32, 32)" in text), text
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_static_checks_and_quickstart_load_no_jax_and_no_repro():
+    """``python -m repro_torch.analysis`` over its default scope (clean)
+    and ``python -m repro_torch.examples.quickstart --device cpu`` in one
+    interpreter load no ``jax*`` and no ``repro`` module."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CHILD_STATIC], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
 def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
     """``repro_torch.models`` and the serving entry point
     ``repro_torch.launch.serve_lm``, serving a reduced zamba2 (mamba2
@@ -255,11 +290,15 @@ def test_lm_serving_on_cpu_loads_no_jax_and_no_repro():
 @pytest.mark.parametrize("entry", ["init_params", "init_cache",
                                    "params_from_numpy", "serve_lm",
                                    "launch_train", "launch_dryrun",
-                                   "run_cell"])
+                                   "run_cell", "example_quickstart",
+                                   "example_explore_design_space",
+                                   "example_train_lm"])
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                               entry):
     import numpy as np
     from repro_torch.configs import get_config, reduced
+    from repro_torch.examples import (explore_design_space, quickstart,
+                                      train_lm)
     from repro_torch.launch import dryrun, serve_lm, train
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.models import model as M
@@ -277,6 +316,9 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "launch_dryrun": lambda: dryrun.main(["--arch", "olmo_1b",
                                               "--no-costs"]),
         "run_cell": lambda: dryrun.run_cell("olmo_1b", SHAPES["decode_32k"]),
+        "example_quickstart": lambda: quickstart.main([]),
+        "example_explore_design_space": lambda: explore_design_space.main([]),
+        "example_train_lm": lambda: train_lm.main([]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -309,7 +351,14 @@ def test_port_sources_import_no_jax_and_no_repro():
                    "launch/shapes.py", "launch/dryrun.py", "energy/hlo.py",
                    "energy/roofline.py", "energy/tpu_energy.py",
                    "energy/collectives.py", "energy/trace.py",
-                   "energy/__init__.py"):
+                   "energy/__init__.py", "analysis/__init__.py",
+                   "analysis/__main__.py", "analysis/framework.py",
+                   "analysis/astutil.py", "analysis/hotpath.py",
+                   "analysis/recompile.py", "analysis/dispatchloop.py",
+                   "analysis/units.py", "examples/__init__.py",
+                   "examples/quickstart.py",
+                   "examples/explore_design_space.py",
+                   "examples/train_lm.py"):
         assert PORT / module in files, module
     offenders = _offenders(files)
     assert not offenders, offenders
