@@ -24,8 +24,9 @@ outputs either side of their tiles; K7 on vec4, vec8 and scalar, with
 offset views; K8 on each of its three routes, the
 wgmma route also
 with positive operands at K = 16384, where its own f32 sums are held to
-the rule, and offset views on the tile route; K9 also with mixed operand
-dtypes and head dims past 128 on its SIMT route), then drives every
+the rule, and offset views on the tile route; K9 on each of its three
+routes: f16/bf16 on wgmma, f32 and mixed operand dtypes on 3xTF32, head
+dims past 128 and rows TMA does not move on SIMT), then drives every
 engine of ``explore()``, the functional simulator and the attention path
 at full width, each with the launch counters zeroed just before it and
 read just after:
@@ -85,7 +86,12 @@ read just after:
   launch of the tensor-core (wgmma) route, within one bf16 rounding of
   the twin, timed beside the twin and ``scaled_dot_product_attention``
   (whose distance from the twin is reported: it rounds P to bf16 once);
-  then K9's SIMT route (f32) at the same widths;
+  then the same two widths in f32 and with a bf16 q over f32 k and v,
+  each one launch of the 3xTF32 route (counters zeroed just before),
+  within 1e-5 of the twin (one bf16 rounding for the bf16 q), bit-equal
+  on a second call, timed beside the twin and SDPA in f32 (TF32 off),
+  its bound beside the FP32 one; and K9's SIMT route checked and timed at
+  f32 with D = 160;
 * LM serving (P12a, ``repro_torch.models``; plain torch ops, no kernel of
   the port, every launch counter checked still 0) — qwen2-7b at its
   published width and depth (bf16, 7.07e9 parameters, 4 prompts of 1,024
@@ -399,6 +405,7 @@ KERNEL_CLASSES = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                                       "gather")))
 PEAK_FP32 = 67e12
 PEAK_HALF = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 132 * 16 * 1.98e9
 
@@ -2756,8 +2763,11 @@ def matmul_probe(mm, events, w1, hidden, w2, big_a, big_b):
 
 
 def split_ops(nops):
-    """``(fp32, half)`` operations: a bare count is all FP32."""
-    return nops if isinstance(nops, tuple) else (nops, 0)
+    """``(fp32, half, tf32)`` operations: a bare count is all FP32, a pair
+    is ``(fp32, half)``."""
+    if not isinstance(nops, tuple):
+        return nops, 0, 0
+    return (*nops, 0, 0)[:3]
 
 
 def timing_row(shape, ker, plain, lib, nbytes, nops, needle, reps=20,
@@ -2766,12 +2776,14 @@ def timing_row(shape, ker, plain, lib, nbytes, nops, needle, reps=20,
     wrapper calls (the median of 5 windows), profiler device ms, the plain twin's and the library
     call's ms, the library call's device ms (all its kernels), and the
     bound from the bytes it must move and the
-    operations it must do.  ``nops`` is an FP32 count or ``(fp32, half)``:
-    the half operations (products of two f16/bf16 values) at the tensor
-    cores' rate, added to the FP32 ones' time at the CUDA cores' rate."""
-    fp32_ops, half_ops = split_ops(nops)
+    operations it must do.  ``nops`` is an FP32 count, ``(fp32, half)`` or
+    ``(fp32, half, tf32)``: the half operations (products of two f16/bf16
+    values) at the tensor cores' half rate and the TF32 ones at their TF32
+    rate, added to the FP32 ones' time at the CUDA cores' rate."""
+    fp32_ops, half_ops, tf32_ops = split_ops(nops)
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = fp32_ops / PEAK_FP32 + half_ops / PEAK_HALF
+    t_ops = fp32_ops / PEAK_FP32 + half_ops / PEAK_HALF \
+        + tf32_ops / PEAK_TF32
     return dict(shape=shape, ms=time_ms(ker, reps, windows=5),
                 device_ms=device_ms(ker, needle, reps),
                 plain_ms=time_ms(plain, reps=plain_reps),
@@ -2781,8 +2793,8 @@ def timing_row(shape, ker, plain, lib, nbytes, nops, needle, reps=20,
                 if lib is not None else None,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, operations=fp32_ops + half_ops,
-                half_operations=half_ops)
+                bytes=nbytes, operations=fp32_ops + half_ops + tf32_ops,
+                half_operations=half_ops, tf32_operations=tf32_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -2800,19 +2812,23 @@ def attention_scores(b, h, s, causal):
     return (s * (s + 1) // 2 if causal else s * s) * b * h
 
 
-def attention_ops(b, h, s, d, causal, dtype, route):
-    """``(fp32, half)`` operations of the route's arithmetic per unmasked
-    score.  wgmma: ``2 D`` for q . k and ``4 D`` for the split p . v
-    (``P_hi V + P_lo V``), all products of two f16/bf16 values (exact in
-    f32), so half operations.  SIMT: ``2 D`` for q . k, half operations
-    with f16/bf16 operands, and ``2 D`` FP32 for p . v (p in f32); all
-    ``4 D`` FP32 in f32."""
+def attention_ops(b, h, s, d, causal, dtype, route, n_half=0):
+    """``(fp32, half, tf32)`` operations of the route's arithmetic per
+    unmasked score.  wgmma: ``2 D`` for q . k and ``4 D`` for the split
+    p . v (``P_hi V + P_lo V``), all products of two f16/bf16 values
+    (exact in f32), so half operations.  tf32x3: three TF32 products for
+    each of q . k and p . v, ``12 D``, less ``2 D`` for each of the
+    ``n_half`` half operands (its lo is zero).  SIMT: ``2 D`` for q . k,
+    half operations with f16/bf16 operands, and ``2 D`` FP32 for p . v
+    (p in f32); all ``4 D`` FP32 in f32."""
     per_d = d * attention_scores(b, h, s, causal)
     if route == "wgmma":
-        return 0, 6 * per_d
+        return 0, 6 * per_d, 0
+    if route == "tf32x3":
+        return 0, 0, (12 - 2 * n_half) * per_d
     if dtype == torch.float32:
-        return 4 * per_d, 0
-    return 2 * per_d, 2 * per_d
+        return 4 * per_d, 0, 0
+    return 2 * per_d, 2 * per_d, 0
 
 
 def half_rule(k, t):
@@ -2853,38 +2869,62 @@ def close_case(name, ker, twin, tol, **extra):
     return rec
 
 
+def expected_route(dts, d, shifted=False):
+    """The route K9 should take for operands of dtypes ``dts`` and head dim
+    ``d`` (``shifted``: q's base off a 16-byte boundary): wgmma for one
+    half dtype, tf32x3 for f32 and mixed operands, each up to D = 128 with
+    rows TMA moves (16-byte multiples) and aligned bases; SIMT for the
+    rest."""
+    if d > 128 or shifted:
+        return "simt"
+    if len(set(dts)) == 1 and dts[0] != torch.float32:
+        return "wgmma" if d % 8 == 0 else "simt"
+    row = 4 if set(dts) == {torch.float32} else 8
+    return "tf32x3" if d % row == 0 else "simt"
+
+
 def attention_cases(fa):
     """K9 against its twin at each dtype, shape and mask, and in f32 at the
     attention path's shapes, each on the route the wrapper picks (f16/bf16
-    on wgmma, f32 on SIMT), checked by the route's launch counter."""
+    on wgmma, f32 and mixed on tf32x3, D > 128 and rows TMA does not move
+    on SIMT), checked by the route's launch counter."""
     cases = [(dt, shape, causal) for dt in FA_TOL for shape in FA_SHAPES
              for causal in (True, False)]
     cases += [(torch.float32, shape[:5], shape[5])
               for shape in ATTENTION_MODELS.values()]
-    # mixed operand dtypes and head dims past 128: the SIMT route
+    # mixed operand dtypes (tf32x3), head dims past 128, rows TMA does not
+    # move and misaligned bases (SIMT)
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
     cases += [((bf16, f32, f16), (1, 4, 2, 200, 64), True),
               ((f32, bf16, bf16), (1, 4, 2, 200, 128), False),
               ((f16, f16, f32), (2, 8, 2, 127, 40), True),
+              ((bf16, f32, f32), (1, 28, 4, 320, 128), True),
               (f32, (1, 4, 2, 200, 160), True),
+              (f32, (1, 4, 2, 200, 18), False),
+              (f32, (1, 4, 2, 200, 98), True),
+              (f16, (1, 4, 2, 130, 100), False),
+              ((bf16, f32, f32), (1, 4, 2, 130, 12), True),
               (bf16, (1, 4, 2, 200, 256), False),
-              (f16, (1, 4, 4, 130, 160), True)]
+              (f16, (1, 4, 4, 130, 160), True),
+              (f32, (1, 4, 2, 200, 64), True, True),
+              (f32, (1, 4, 2, 127, 128), False, True)]
     recs = []
-    for dt, (b, h, hkv, s, d), causal in cases:
+    for dt, (b, h, hkv, s, d), causal, *shifted in cases:
+        shifted = bool(shifted)
         dts = dt if isinstance(dt, tuple) else (dt,) * 3
-        q = gaussian((b, h, s, d), s + d, dts[0])
+        q = frame((b, h, s, d), s + d, dts[0], offset=shifted)
         k = gaussian((b, hkv, s, d), s + d + 1, dts[1])
         v = gaussian((b, hkv, s, d), s + d + 2, dts[2])
         dt = dts[0]
         route = fa.route(q, k, v)
-        simt = dt == torch.float32 or len(set(dts)) > 1 or d > 128
-        check(route == ("simt" if simt else "wgmma"),
+        check(route == expected_route(dts, d, shifted),
               f"flash {dts} D = {d}: route {route}")
         fa.reset_counts()
         recs.append(close_case(
             f"flash_{b}x{h}x{hkv}x{s}x{d}_"
             f"{'causal' if causal else 'full'}_"
-            f"{'_'.join(dict.fromkeys(dtype_name(x) for x in dts))}",
+            f"{'_'.join(dict.fromkeys(dtype_name(x) for x in dts))}"
+            f"{'_offset' if shifted else ''}",
             lambda: fa.flash_attention(q, k, v, causal),
             lambda: fa.flash_attention_torch(q, k, v, causal), FA_TOL[dt],
             route=route))
@@ -2961,38 +3001,110 @@ def attention_path(fa, kernel_mods):
     return rec
 
 
-def attention_f32_timing(fa):
-    """K9's SIMT route at the attention path's widths: f32 operands (the
-    kernel's, twin's and SDPA's (f32, TF32 off) times and the bound), and
-    mixed operands, a bf16 q over f32 k and v (the mixed-dtype kernel; no
-    single library call takes mixed dtypes)."""
+def attention_f32_path(fa, kernel_mods):
+    """K9's 3xTF32 route at the attention path's widths, through
+    ``ops.flash_attention``: f32 operands and a bf16 q over f32 k and v,
+    with the launch counters zeroed just before each call and read just
+    after: one launch, on tf32x3; the output finite, of q's shape and
+    dtype, within 1e-5 of the twin (f32) or one rounding of it (bf16),
+    and bit-equal on a second call.  Then the kernel's, twin's and SDPA's
+    (f32, TF32 off; no call takes mixed dtypes) times, the 3xTF32 bound
+    and the FP32 one.  Last, the SIMT route at f32 with D = 160 (no
+    configured model has it: checked and timed directly)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must run in full f32 (TF32 off) beside the kernel")
     rec = {}
     for seed, (name, (b, h, hkv, s, d, causal)) in enumerate(
             ATTENTION_MODELS.items()):
-        q, k, v = attention_inputs(b, h, hkv, s, d, 100 * seed + 7,
-                                   torch.float32)
-        check(fa.route(q, k, v) == "simt", f"f32 {name}: not on SIMT")
+        q32, k, v = attention_inputs(b, h, hkv, s, d, 100 * seed + 7,
+                                     torch.float32)
         mode = 'causal' if causal else 'full'
-        rec[name] = timing_row(
-            f"{b}x{h}x{hkv}x{s}x{d} {mode} f32",
-            lambda: fa.flash_attention(q, k, v, causal),
-            lambda: fa.flash_attention_torch(q, k, v, causal),
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True),
-            q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            attention_ops(b, h, s, d, causal, q.dtype, "simt"),
-            "flash_attention_kernel", reps=5, plain_reps=2)
-        qm = q.to(torch.bfloat16)
-        check(fa.route(qm, k, v) == "simt", f"mixed {name}: not on SIMT")
-        rec[f"{name}_mixed"] = timing_row(
-            f"{b}x{h}x{hkv}x{s}x{d} {mode} bf16 q, f32 k v",
-            lambda: fa.flash_attention(qm, k, v, causal),
-            lambda: fa.flash_attention_torch(qm, k, v, causal), None,
-            qm.element_size() * 2 * qm.numel() + k.element_size() * 2
-            * k.numel(),
-            attention_ops(b, h, s, d, causal, torch.float32, "simt"),
-            "flash_attention_kernel_any", reps=5, plain_reps=2)
+        for label, q in (("f32", q32), ("bf16q", q32.to(torch.bfloat16))):
+            key = name if label == "f32" else f"{name}_mixed"
+            check(fa.route(q, k, v) == "tf32x3",
+                  f"{label} {name}: not on tf32x3")
+            ops.flash_attention(q, k, v, causal=causal)     # warm-up
+            reset_all(kernel_mods)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fa.COUNTS["kernel_launches"]
+            tf32x3 = fa.COUNTS["tf32x3_launches"]
+            twins = sum(m.COUNTS[c] for m in kernel_mods for c in m.COUNTS
+                        if "twin" in c)
+            check(launches == 1 and tf32x3 == 1 and twins == 0,
+                  f"attention {key}: {launches} kernel launches ({tf32x3} "
+                  f"tf32x3), {twins} twin calls")
+            check(out.shape == q.shape and out.dtype == q.dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"attention {key}: output not finite {tuple(q.shape)}")
+            again = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again),
+                  f"attention {key}: differs from run to run")
+            del again
+            twin = fa.flash_attention_torch(q, k, v, causal)
+            err = (out.float() - twin.float()).abs()
+            if label == "f32":
+                over = float((err - FA_TOL[torch.float32]
+                              * (1.0 + twin.float().abs())).max())
+                ratio = None
+                check(over <= 0.0, f"attention {key}: off its twin by "
+                      f"{float(err.max())} (tolerance 1e-5)")
+            else:
+                ratio = half_rule(out, twin)
+                check(ratio <= 1.0, f"attention {key}: off its twin by "
+                      f"{float(err.max())}, {ratio} x one bf16 rounding")
+            del twin, out
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+            n_half = int(q.dtype != torch.float32)
+            times = timing_row(
+                f"{b}x{h}x{hkv}x{s}x{d} {mode} "
+                f"{'f32' if label == 'f32' else 'bf16 q, f32 k v'}",
+                lambda: fa.flash_attention(q, k, v, causal),
+                lambda: fa.flash_attention_torch(q, k, v, causal),
+                sdpa if label == "f32" else None,
+                q.element_size() * 2 * q.numel()
+                + k.element_size() * 2 * k.numel(),
+                attention_ops(b, h, s, d, causal, q.dtype, "tf32x3",
+                              n_half),
+                "flash_attention_tf32x3_kernel", reps=5, plain_reps=2)
+            fp32_ops = attention_ops(b, h, s, d, causal, torch.float32,
+                                     "simt")[0]
+            rec[key] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
+                            q_dtype=dtype_name(q.dtype), route="tf32x3",
+                            wall_s=wall, kernel_launches=launches,
+                            tf32x3_launches=tf32x3, twin_calls=twins,
+                            max_abs_err=float(err.max()),
+                            over_one_rounding=ratio,
+                            fp32_bound_ms=fp32_ops / PEAK_FP32 * 1e3,
+                            **times)
+    # the SIMT route: a head dim past 128 (f32)
+    b, h, hkv, s, d, causal = 1, 16, 16, 1500, 160, False
+    q, k, v = attention_inputs(b, h, hkv, s, d, 31, torch.float32)
+    check(fa.route(q, k, v) == "simt", "f32 D = 160: not on SIMT")
+    simt_case = close_case(
+        f"flash_{b}x{h}x{hkv}x{s}x{d}_full_float32",
+        lambda: fa.flash_attention(q, k, v, causal),
+        lambda: fa.flash_attention_torch(q, k, v, causal),
+        FA_TOL[torch.float32], route="simt")
+    rec["simt_d160"] = dict(
+        route="simt", max_abs_err=simt_case["max_abs_err"],
+        **timing_row(f"{b}x{h}x{hkv}x{s}x{d} full f32 (SIMT)",
+                     lambda: fa.flash_attention(q, k, v, causal),
+                     lambda: fa.flash_attention_torch(q, k, v, causal),
+                     lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=causal),
+                     q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                     attention_ops(b, h, s, d, causal, q.dtype, "simt"),
+                     "flash_attention_kernel_any", reps=5, plain_reps=2))
     emit({"attention_f32": rec})
     return rec
 
@@ -4894,7 +5006,7 @@ def main() -> int:
 
     # ----- 8. the attention path: K9 (timed there) --------------------------
     attn = attention_path(fa, kernel_mods)
-    attn_f32 = attention_f32_timing(fa)
+    attn_f32 = attention_f32_path(fa, kernel_mods)
 
     # ----- 9. timing at the main paths' shapes ------------------------------
     kw = dict(compute=compute, metric="total_j",
@@ -5131,17 +5243,36 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in k9
                         if r["route"] == "wgmma"),
         power_limit=power, **by_shape[0], by_shape=by_shape))
-    f32_by_shape = [{k: r[k] for k in keys} for r in attn_f32.values()]
+    t3_keys = keys + ("tf32_operations", "fp32_bound_ms", "max_abs_err")
+    t3_rows = [r for r in attn_f32.values() if r["route"] == "tf32x3"]
+    t3_by_shape = [{k: r[k] for k in t3_keys} for r in t3_rows]
+    entries.append(dict(
+        name="flash_attention_tf32x3", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:35",
+        kernel="flash_attention_tf32x3_kernel (f32 and mixed: 3xTF32 "
+               "wgmma, TMA)",
+        launches=sum(r["tf32x3_launches"] for r in t3_rows),
+        path="attention f32 and bf16 q over f32 k v (ops.flash_attention)",
+        max_abs_err=max([r["max_abs_err"] for r in k9
+                         if r["route"] == "tf32x3"]
+                        + [r["max_abs_err"] for r in t3_rows
+                           if r["q_dtype"] == "float32"]),
+        power_limit=power,
+        **{k: v for k, v in t3_by_shape[0].items() if k != "max_abs_err"},
+        by_shape=t3_by_shape))
+    simt = attn_f32["simt_d160"]
     entries.append(dict(
         name="flash_attention_simt", route="cuda",
         source=src + "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:35",
-        kernel="flash_attention_kernel (f32: FP32 FMAs); "
-               "flash_attention_kernel_any (mixed dtypes, D > 128)",
-        launches=0, path="none (f32 operands; checked directly)",
+        kernel="flash_attention_kernel_any (D > 128, rows TMA does not "
+               "move, misaligned bases)",
+        launches=0, path="none (D > 128 and unaligned operands; checked "
+                         "directly)",
         max_abs_err=max(r["max_abs_err"] for r in k9
                         if r["route"] == "simt"),
-        power_limit=power, **f32_by_shape[0], by_shape=f32_by_shape))
+        power_limit=power, **{k: simt[k] for k in keys}))
     # ----- 10. the LM stack's serving path (P12a): no port kernel ----------
     lm = lm_path(power, kernel_mods)
     # ----- 11. the LM stack's training path (P12b): no port kernel ---------

@@ -16,22 +16,28 @@
 // skips the blocks above it; the longest query tiles launch first.  Rows
 // and columns past S are masked in the kernel, not padded in memory, so any
 // S >= 1 is taken.  No atomics: each output row is written by one block,
-// so two runs agree bit for bit.  Two routes, picked by the wrapper
+// so two runs agree bit for bit.  Three routes, picked by the wrapper
 // (repro_torch/kernels/flash_attention.py::route):
 //
 // * the tensor-core route (repro_flash_attention_wgmma) for f16/bf16
 //   operands of one dtype with D a multiple of 8 up to 128 and
 //   16-byte-aligned bases;
-// * the SIMT route (repro_flash_attention) for everything else: f32
-//   (whose function does not survive the tensor cores' TF32 within 1e-5),
-//   mixed operand dtypes and any D.
+// * the 3xTF32 route (repro_flash_attention_tf32x3) for f32 and mixed
+//   operands with D up to 128, rows of a 16-byte multiple (D % 4 == 0 all
+//   f32, D % 8 == 0 with a half operand) and 16-byte-aligned bases.  One
+//   TF32 product keeps 11 bits of each operand, ~2^-11 of a score, which is
+//   another function than the reference's f32 one; three keep ~2^-22;
+// * the SIMT route (repro_flash_attention) for the rest: D > 128, rows TMA
+//   does not move, misaligned bases.
 //
 // What bounds it on the card: the operations.  For qwen2-7b's attention at
 // S = 4096 (H = 28, Hkv = 4, D = 128, causal) the tensor-core route does
 // 6 D half operations per unmasked score (2 D for Q K^T, 4 D for the split
 // P V below), 1.80e11, 0.182 ms at 989 TFLOP/s; its 2.35e8 exps take
-// 0.056 ms at the SFU rate and the bytes ~0.02 ms.  The SIMT route does
-// 4 D FP32 operations per score: 1.20e11, 1.80 ms at 67 TFLOP/s.
+// 0.056 ms at the SFU rate and the bytes ~0.02 ms.  The 3xTF32 route does
+// 12 D TF32 operations per score (2 D fewer for each half operand),
+// 3.61e11, 0.729 ms at 495 TFLOP/s.  The SIMT route does 4 D FP32
+// operations per score: 1.20e11, 1.80 ms at 67 TFLOP/s.
 //
 // The tensor-core route (flash_attention_wgmma_kernel): one block owns 192
 // (D <= 64) or 128 query rows of one (batch, head): three or two consumer
@@ -77,30 +83,74 @@
 // skips the products but still waits for the tile, so no warpgroup runs a
 // stage ahead of the others.
 //
-// The SIMT kernel (flash_attention_kernel, and flash_attention_kernel_d64
-// for 32 < D <= 64 with a register bound; the port's first design): one
-// block owns 64 query rows, 8 warps of 8 rows, K/V tiles of 64 rows staged
-// as f32 in dynamic shared memory, all arithmetic FP32 on the CUDA cores:
+// The 3xTF32 route (flash_attention_tf32x3_kernel): one block owns 64
+// query rows of one (batch, head): one consumer warpgroup (the wgmma M)
+// and one producer warpgroup of 128 threads.  256 threads a block may
+// each hold 255 registers, so no setmaxnreg is needed; a third warpgroup
+// would cap every thread at 168 and spill the consumer's 218.
+//   * Split: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both
+//     rounded to nearest, ties away, as cvt.rna.tf32.f32 (hopper.cuh's
+//     tf32_rna: two integer instructions); x - hi is exact in f32.  hi is
+//     stored rounded (low 13 bits zero): the tensor cores read a .tf32
+//     operand by dropping those bits, so an unrounded hi would be
+//     truncated and lo would not be its remainder.  A half operand is
+//     exact in TF32: its lo is zero and every product it feeds is skipped.
+//     a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, each term exact in f32,
+//     accumulated in f32; the dropped a_lo b_lo is ~2^-22 of a b.
+//   * Loads: Q once (f32 into its Q_lo slot, a half Q in its own dtype),
+//     then K and V tiles of 32 kv rows by TMA (tensor maps of 32 f32 or 64
+//     half columns a box, 128-byte swizzled; ragged S and D < 64 or < 128
+//     zero-filled) into a ring of 2 raw stages; thread 0 of the producer
+//     reloads a raw stage as soon as the producer has split it.
+//   * The producer splits each raw tile: K into K_hi and K_lo in the same
+//     layout (interleaved by 32-column atom, so that [K_hi; K_lo] is one
+//     64-row operand); V into V_hi^T and V_lo^T ([D, 32 kv], one 128-byte
+//     atom: .tf32 has no transposed B, so P V needs V K-major), with V's
+//     rows permuted within each group of 8 (0, 2, 4, 6, 1, 3, 5, 7) because
+//     a k8 A fragment holds columns (t, t + 4) where the S accumulator
+//     holds (2t, 2t + 1): P goes from the accumulator to the A operand
+//     with no shuffle.  Each split tile completes on an mbarrier of 128
+//     arrivals after a proxy fence (generic stores, then wgmma reads).
+//   * The consumer splits Q once: Q_hi into registers (its A fragments),
+//     Q_lo in place in shared memory.  S: Q_lo K_hi (m64n32k8, A from
+//     shared memory) first, then Q_hi [K_hi; K_lo]^T (m64n64k8, A from
+//     registers), whose two 32-column halves are added.  The online
+//     softmax is the tensor-core route's, on 32 columns.  O += P_lo V_hi +
+//     P_hi V_lo + P_hi V_hi (m64nDk8, A from registers).  The overlap is
+//     the tensor-core route's.
+//   * Shared memory (DP = 64 or 128 staged columns): Q 64 DP * 4 bytes;
+//     per stage a raw K and a raw V tile of 32 DP * 4, a split K tile of
+//     2 * 32 DP * 4, V_hi^T and V_lo^T of 32 DP * 4 each: 224 KB at
+//     DP = 128 (of the 227 a block may have), 112 KB at DP = 64.
+//   * What holds it back is not measured: a profiler's stall breakdown of
+//     the producer and consumer warpgroups does not run on the card we
+//     have.  Our guess, in order: the producer's split (V's transpose above
+//     all) on 4 warps, then a single consumer warpgroup whose softmax the
+//     tensor cores wait on.
+//
+// The SIMT kernel (flash_attention_kernel_any; the port's first design):
+// one block owns 64 query rows, 8 warps of 8 rows, K/V tiles of 64 rows
+// staged as f32 in dynamic shared memory, all arithmetic FP32 on the CUDA
+// cores.  Each operand is read through its runtime dtype code, and D is
+// tiled in chunks of 128 columns (zero-filled past D):
 //   * Q K^T: lane j scores kv rows j and j + 32 against the warp's 8 rows,
-//     explicit fmaf over d in order from 0 (the build has --fmad=false).
-//     K rows are padded by one float, so the 32 lanes' reads of one column
-//     fall in 32 banks; the query rows are read as float4 broadcasts.
+//     explicit fmaf over d in order from 0 (the build has --fmad=false),
+//     chunk by chunk.  K rows are padded by one float, so the 32 lanes'
+//     reads of one column fall in 32 banks; the query rows are read as
+//     float4 broadcasts.
 //   * softmax: warp-shuffle max and sum (xor butterflies, the same order
 //     on every run), masked as above.  A warp whose 8 rows all lie above a
 //     kv tile skips that tile's arithmetic.
 //   * P V: the warp's probabilities go through shared memory; lane c owns
 //     columns c, c + 32, ... of the f32 accumulator of each of its rows.
-// Operands of one dtype with D up to kMaxD = 128 run a kernel of that
-// dtype, staged as 32, 64 or 128 columns (zero-filled past D).  Mixed
-// dtypes, or D > 128, run flash_attention_kernel_any, which reads each
-// operand through its dtype code and tiles D in chunks of 128 columns:
-// each score sums its D products chunk by chunk from column 0, and each
-// 128-column chunk of the output repeats the kv walk (so for D > 128 it
-// computes the scores D / 128 times over; no configured model has such a
-// head dim).
-//
-// Plain C interfaces (repro_flash_attention, repro_flash_attention_wgmma)
-// for ctypes; the Python wrapper is
+//     Each 128-column chunk of the output repeats the kv walk (so for
+//     D > 128 it computes the scores D / 128 times over; no configured
+//     model has such a head dim).
+// It takes what the two tensor-core routes do not: D > 128, rows TMA does
+// not move, misaligned bases.
+
+// Plain C interfaces (repro_flash_attention, repro_flash_attention_wgmma,
+// repro_flash_attention_tf32x3) for ctypes; the Python wrapper is
 // repro_torch/kernels/flash_attention.py::flash_attention.  A launch is
 // refused (cudaErrorInvalidValue) past the caps or the grid's limits.
 
@@ -121,20 +171,15 @@ constexpr int kRowsPerWarp = kRows / kWarps;   // 8
 constexpr int kMaxD = 128;
 constexpr float kMaxInit = -1e30f;             // the reference's NEG_INF
 
-// f32 floats of shared memory one block stages at a staged width DP.
-template <int DP>
-constexpr size_t smem_floats() {
-  return (size_t)kRows * DP              // Q tile
-         + (size_t)kRows * (DP + 1)      // K tile, rows padded by one
-         + (size_t)kRows * DP            // V tile
-         + (size_t)kWarps * kRowsPerWarp * kRows;   // probabilities
-}
+// f32 floats of shared memory one block of the SIMT kernel stages.
+constexpr size_t kSimtSmemFloats =
+    (size_t)kRows * kMaxD                // Q tile
+    + (size_t)kRows * (kMaxD + 1)        // K tile, rows padded by one
+    + (size_t)kRows * kMaxD              // V tile
+    + (size_t)kWarps * kRowsPerWarp * kRows;   // probabilities
 
-// Operand access of the SIMT kernels.  The kernels of one dtype read
-// typed pointers; the mixed kernel (flash_attention_kernel_any) reads
-// each operand through its own runtime dtype code (0 f32, 1 f16, 2 bf16)
-// and writes the output in q's: one kernel, where typed loads per operand
-// would be 27 dtype combinations times three staged widths.
+// Operand access of the SIMT kernel: each operand is read through its own
+// runtime dtype code (0 f32, 1 f16, 2 bf16) and the output written in q's.
 struct AnyDtype {
   const void* p;
   int code;
@@ -144,28 +189,16 @@ struct AnyOut {
   int code;
 };
 
-template <typename T>
-__device__ __forceinline__ float load(const T* p, long long i) {
-  return to_f32(p[i]);
-}
 __device__ __forceinline__ float load(AnyDtype a, long long i) {
   if (a.code == 0) return static_cast<const float*>(a.p)[i];
   if (a.code == 1) return __half2float(static_cast<const __half*>(a.p)[i]);
   return __bfloat162float(static_cast<const __nv_bfloat16*>(a.p)[i]);
 }
 
-template <typename T>
-__device__ __forceinline__ const T* advance(const T* p, long long i) {
-  return p + i;
-}
 __device__ __forceinline__ AnyDtype advance(AnyDtype a, long long i) {
   return {static_cast<const char*>(a.p) + i * (a.code == 0 ? 4 : 2), a.code};
 }
 
-template <typename T>
-__device__ __forceinline__ void store(T* p, long long i, float x) {
-  p[i] = from_f32<T>(x);
-}
 __device__ __forceinline__ void store(AnyOut o, long long i, float x) {
   if (o.code == 0) {
     static_cast<float*>(o.p)[i] = x;
@@ -176,22 +209,17 @@ __device__ __forceinline__ void store(AnyOut o, long long i, float x) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T* advance_out(T* p, long long i) {
-  return p + i;
-}
 __device__ __forceinline__ AnyOut advance_out(AnyOut o, long long i) {
   return {static_cast<char*>(o.p) + i * (o.code == 0 ? 4 : 2), o.code};
 }
 
-// Rows [r0, r0 + 64) and columns [c0, c0 + DP) of a [s, d] slab into dst
-// as f32 (row stride ld), zero past row s and past column d.
-template <int DP, typename Src>
-__device__ __forceinline__ void stage(Src src, float* dst, int ld, int r0,
-                                      int s, int d, int c0) {
-  for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
-    const int r = i / DP;
-    const int c = i - r * DP;
+// Rows [r0, r0 + 64) and columns [c0, c0 + kMaxD) of a [s, d] slab into
+// dst as f32 (row stride ld), zero past row s and past column d.
+__device__ __forceinline__ void stage(AnyDtype src, float* dst, int ld,
+                                      int r0, int s, int d, int c0) {
+  for (int i = threadIdx.x; i < kRows * kMaxD; i += kThreads) {
+    const int r = i / kMaxD;
+    const int c = i - r * kMaxD;
     const int gr = r0 + r;
     float x = 0.f;
     if (gr < s && c0 + c < d) x = load(src, (long long)gr * d + c0 + c);
@@ -215,16 +243,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One block's 64 query rows.  Without kTiled the head dim fits DP and Q is
-// staged once.  kTiled (the mixed kernel, DP = 128) takes any d: the
-// output is written DP columns at a time, each after its own kv walk, and
-// every score sums its d products over DP-column chunks of Q and K in
-// order from column 0, so each walk sees the same scores and softmax.
-template <int DP, bool kTiled, typename QP, typename KP, typename VP,
-          typename OP>
-__device__ __forceinline__ void simt_block(QP q, KP k, VP v, OP out, int h,
-                                           int hkv, int s, int d,
-                                           float scale, int causal) {
+// One block's 64 query rows, any d: the output is written kMaxD columns
+// at a time, each after its own kv walk, and every score sums its d
+// products over kMaxD-column chunks of Q and K in order from column 0, so
+// each walk sees the same scores and softmax.
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel_any(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out,
+                           int h, int hkv, int s, int d, float scale,
+                           int causal) {
+  constexpr int DP = kMaxD;
   constexpr int kCols = DP / 32;               // accumulator columns a lane
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;
@@ -239,17 +266,17 @@ __device__ __forceinline__ void simt_block(QP q, KP k, VP v, OP out, int h,
   const int n_qt = (s + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;   // longest first
   const long long slab = (long long)s * d;
-  const QP qp = advance(q, bh * slab);
-  const KP kp = advance(k, kvh * slab);
-  const VP vp = advance(v, kvh * slab);
-  const int n_dc = kTiled ? (d + DP - 1) / DP : 1;   // column chunks of d
-  if (n_dc == 1) stage<DP>(qp, s_q, DP, q0, s, d, 0);
+  const AnyDtype qp = advance(q, bh * slab);
+  const AnyDtype kp = advance(k, kvh * slab);
+  const AnyDtype vp = advance(v, kvh * slab);
+  const int n_dc = (d + DP - 1) / DP;          // column chunks of d
+  if (n_dc == 1) stage(qp, s_q, DP, q0, s, d, 0);
 
   const int last_row = min(q0 + kRows, s) - 1;
   const int n_kt = causal ? last_row / kRows + 1 : n_qt;
   const int wr0 = q0 + warp * kRowsPerWarp;    // the warp's first row
   const float* q_w = s_q + warp * kRowsPerWarp * DP;
-  const OP o = advance_out(out, bh * slab);
+  const AnyOut o = advance_out(out, bh * slab);
 
   for (int oc = 0; oc < n_dc; ++oc) {          // the output's column chunk
     float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
@@ -270,9 +297,9 @@ __device__ __forceinline__ void simt_block(QP q, KP k, VP v, OP out, int h,
       for (int r = 0; r < kRowsPerWarp; ++r) sc[r][0] = sc[r][1] = 0.f;
       for (int dc = 0; dc < n_dc; ++dc) {
         __syncthreads();               // the last tile is consumed, Q staged
-        if (n_dc > 1) stage<DP>(qp, s_q, DP, q0, s, d, dc * DP);
-        stage<DP>(kp, s_k, DP + 1, k0, s, d, dc * DP);
-        if (dc == n_dc - 1) stage<DP>(vp, s_v, DP, k0, s, d, oc * DP);
+        if (n_dc > 1) stage(qp, s_q, DP, q0, s, d, dc * DP);
+        stage(kp, s_k, DP + 1, k0, s, d, dc * DP);
+        if (dc == n_dc - 1) stage(vp, s_v, DP, k0, s, d, oc * DP);
         __syncthreads();
         if (idle) continue;
         const float* k_a = s_k + lane * (DP + 1);
@@ -366,82 +393,18 @@ __device__ __forceinline__ void simt_block(QP q, KP k, VP v, OP out, int h,
   }
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int h,
-                       int hkv, int s, int d, float scale, int causal) {
-  simt_block<DP, false>(q, k, v, out, h, hkv, s, d, scale, causal);
-}
-
-// DP = 64: three blocks fit an SM's shared memory (65,792 B each) when a
-// thread keeps to 80 registers, which the bound holds it to; unbounded,
-// the compiler has given it 80 or 92 (two blocks an SM) as other kernels
-// of this source changed.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_attention_kernel_d64(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int h, int hkv, int s, int d, float scale,
-                           int causal) {
-  simt_block<64, false>(q, k, v, out, h, hkv, s, d, scale, causal);
-}
-
-// Operands of mixed dtypes, or a head dim past kMaxD: each operand read
-// through its dtype code, d tiled in 128-column chunks.
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel_any(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out,
-                           int h, int hkv, int s, int d, float scale,
-                           int causal) {
-  simt_block<kMaxD, true>(q, k, v, out, h, hkv, s, d, scale, causal);
-}
-
-template <typename T, int DP>
-constexpr auto simt_kernel() {
-  if constexpr (DP == 64) {
-    return flash_attention_kernel_d64<T>;
-  } else {
-    return flash_attention_kernel<T, DP>;
-  }
-}
-
-template <int DP, typename Kernel, typename... Args>
-int launch_simt(Kernel kernel, long long bh, int s, cudaStream_t stream,
-                Args... args) {
-  constexpr size_t smem = sizeof(float) * smem_floats<DP>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+int launch_simt(long long bh, int s, cudaStream_t stream, AnyDtype q,
+                AnyDtype k, AnyDtype v, AnyOut out, int h, int hkv, int d,
+                float scale, int causal) {
+  constexpr size_t smem = sizeof(float) * kSimtSmemFloats;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel_any,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)bh, (unsigned)((s + kRows - 1) / kRows));
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  flash_attention_kernel_any<<<grid, kThreads, smem, stream>>>(
+      q, k, v, out, h, hkv, s, d, scale, causal);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* out,
-           long long bh, int h, int hkv, int s, int d, float scale,
-           int causal, cudaStream_t stream) {
-  return launch_simt<DP>(simt_kernel<T, DP>(), bh, s, stream, (const T*)q,
-                         (const T*)k, (const T*)v, (T*)out, h, hkv, s, d,
-                         scale, causal);
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out,
-             long long bh, int h, int hkv, int s, int d, float scale,
-             int causal, cudaStream_t stream) {
-  if (d <= 32) {
-    return launch<T, 32>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
-                         stream);
-  }
-  if (d <= 64) {
-    return launch<T, 64>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
-                         stream);
-  }
-  return launch<T, 128>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
-                        stream);
 }
 
 
@@ -564,15 +527,15 @@ __device__ __forceinline__ void fence_pv(float (&o)[DP / 2],
   }
 }
 
-// The online softmax of one tile on the S accumulator layout, in base 2:
-// scores times scale2 = scale * log2(e), so that exp(x - m) is exp2 of the
-// scaled difference.  Under kMask the thread's rows (0, 1) attend to
-// columns up to lim0, lim1 (the rest are -inf); a tile that lies wholly
-// inside every row's range of its warpgroup skips the compares.  sc
-// becomes P (times pscale), m (base 2) and l are updated, and alpha (the
-// rescale of O) is returned.
-template <bool kMask>
-__device__ __forceinline__ void online_softmax(float (&sc)[32], int k0, int t,
+// The online softmax of one tile of N / 4 columns on the S accumulator
+// layout, in base 2: scores times scale2 = scale * log2(e), so that
+// exp(x - m) is exp2 of the scaled difference.  Under kMask the thread's
+// rows (0, 1) attend to columns up to lim0, lim1 (the rest are -inf); a
+// tile that lies wholly inside every row's range of its warpgroup skips the
+// compares.  sc becomes P (times pscale), m (base 2) and l are updated, and
+// alpha (the rescale of O) is returned.
+template <bool kMask, int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], int k0, int t,
                                                int lim0, int lim1,
                                                float scale2, float pscale,
                                                float& m0, float& m1,
@@ -580,7 +543,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], int k0, int t,
                                                float& al0, float& al1) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float x0 = sc[4 * j + e] * scale2;
@@ -602,7 +565,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], int k0, int t,
   al1 = exp2f(m1 - mn1);
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float p0 = exp2f(sc[4 * j + e] - mn0);
@@ -872,6 +835,569 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// ------------------------------------------------ 3xTF32 tensor-core route
+
+namespace t3 {
+
+using namespace hopper;
+
+constexpr int kBM = 64;          // query rows a block: one consumer warpgroup
+constexpr int kBN = 32;          // kv rows a tile: one 128-byte row of V^T
+constexpr int kStages = 2;       // raw and split K and V tiles in flight
+constexpr int kThreads = 256;    // consumer warpgroup 0, producer 1
+constexpr uint32_t kKBox = kBN * 128;   // one TMA box (128-byte rows) of K, V
+constexpr uint32_t kQBox = kBM * 128;   // one TMA box of Q
+
+// Shared memory of one block at a staged head width DP, in bytes from the
+// 1024-aligned base: Q's landing tile (which becomes Q_lo), kStages raw K
+// and V tiles (TMA's landing tiles, in the operand's dtype), kStages split
+// K tiles (K_hi and K_lo interleaved by column atom) and V tiles (V_hi^T,
+// V_lo^T), all in f32 slots, then the barriers.  At DP = 128: 32 + 64 +
+// 64 + 64 KB = 224 KB of the 227 a block can have; half of it at DP = 64.
+template <int DP>
+struct Smem {
+  static constexpr uint32_t kQ = kBM * DP * 4;
+  static constexpr uint32_t kTile = kBN * DP * 4;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t raw_k = q + kQ;
+  static constexpr uint32_t raw_v = raw_k + kStages * kTile;
+  static constexpr uint32_t k = raw_v + kStages * kTile;   // 2 kTile each
+  static constexpr uint32_t v_hi = k + kStages * 2 * kTile;
+  static constexpr uint32_t v_lo = v_hi + kStages * kTile;
+  static constexpr uint32_t bars = v_lo + kStages * kTile;
+  // Q full; per stage: raw K full, raw V full, K full, K free, V full,
+  // V free
+  static constexpr uint32_t kBars = 1 + 6 * kStages;
+  static constexpr size_t bytes = bars + 8 * kBars + 1024;
+};
+
+// Bytes of an element of dtype code CODE (0 f32, 1 f16, 2 bf16).
+template <int CODE>
+__host__ __device__ constexpr int esize() {
+  return CODE == 0 ? 4 : 2;
+}
+
+// Byte offset of element (r, c) of a 128-byte-swizzled tile of `rows` rows
+// a column atom, elements of dtype code CODE.
+template <int CODE>
+__device__ __forceinline__ uint32_t sw_off(int r, int c, int rows) {
+  constexpr int kPer = 128 / esize<CODE>();       // elements a 128-byte row
+  const int byte = (c % kPer) * esize<CODE>();
+  return (c / kPer) * rows * 128 + r * 128 + (((byte / 16) ^ (r & 7)) * 16) +
+         byte % 16;
+}
+
+// One element of dtype code CODE as f32.
+template <int CODE>
+__device__ __forceinline__ float ld1(const uint8_t* p) {
+  if constexpr (CODE == 0) {
+    return *reinterpret_cast<const float*>(p);
+  } else if constexpr (CODE == 1) {
+    return __half2float(*reinterpret_cast<const __half*>(p));
+  } else {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  }
+}
+
+// x = hi + lo: hi = tf32_rna(x), lo = tf32_rna(x - hi) (x - hi is exact).
+__device__ __forceinline__ void split1(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint4& hi,
+                                       uint4& lo) {
+  split1(x[0], hi.x, lo.x);
+  split1(x[1], hi.y, lo.y);
+  split1(x[2], hi.z, lo.z);
+  split1(x[3], hi.w, lo.w);
+}
+
+// A K tile: raw (TMA's tile in the operand's dtype) into K_hi and, for an
+// f32 K, K_lo, both in the f32 layout (32-column atoms of kBN rows), by
+// 16-byte chunks: chunk c is atom c / (8 kBN), row (c / 8) % kBN,
+// physical 16-byte slot c % 8.  Column atom a of the split tile holds K_hi
+// at 2 a kKBox and K_lo right after it, so that one 64-row B operand is
+// [K_hi; K_lo].  An f32 raw tile has the chunk layout already; a half one
+// is read at the chunk's four columns and widened (exact in TF32, so its
+// lo is zero and not written).
+template <int DP, int CODE>
+__device__ __forceinline__ void split_k(const uint8_t* raw, uint8_t* dst,
+                                        int ptid) {
+#pragma unroll 4
+  for (int c = ptid; c < kBN * DP / 4; c += 128) {
+    float x[4];
+    if constexpr (CODE == 0) {
+      const float4 v = *reinterpret_cast<const float4*>(raw + 16 * c);
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else {
+      const int r = (c / 8) % kBN;
+      const int col = (c / (8 * kBN)) * 32 + 4 * ((c % 8) ^ (r & 7));
+      const uint8_t* p = raw + sw_off<CODE>(r, col, kBN);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = ld1<CODE>(p + 2 * e);
+    }
+    uint4 h, l;
+    split4(x, h, l);
+    uint8_t* hi = dst + (c / (8 * kBN)) * 2 * kKBox + 16 * (c % (8 * kBN));
+    *reinterpret_cast<uint4*>(hi) = h;
+    if constexpr (CODE == 0) *reinterpret_cast<uint4*>(hi + kKBox) = l;
+  }
+}
+
+// A V tile: raw [kBN kv rows, DP] into V_hi^T and, for an f32 V, V_lo^T:
+// [DP rows, kBN kv columns], one 32-column atom, K-major for P V (.tf32
+// has no transposed B).  Logical column kappa of k8 slice j holds kv row
+// 8 j + perm(kappa), perm = (0, 2, 4, 6, 1, 3, 5, 7): the A fragment reads
+// P's accumulator columns (2t, 2t + 1) as its columns (t, t + 4), and V's
+// rows are permuted to match instead of P's registers being shuffled.  A
+// thread writes one 16-byte chunk a step, of V^T row d (lanes on
+// consecutive d: the reads of one kv row and the swizzled writes are free
+// of bank conflicts), logical chunk lc: kv rows k0, k0 + 2, k0 + 4, k0 + 6
+// with k0 = 8 (lc / 2) + lc % 2.
+template <int DP, int CODE>
+__device__ __forceinline__ void split_v(const uint8_t* raw, uint8_t* hi,
+                                        uint8_t* lo, int ptid) {
+  const int d = ptid % DP;
+  // the offset of (row r, column d) for r = 0..7; row r + 8 g is 8 g rows on
+  uint32_t row[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) row[r] = sw_off<CODE>(r, d, kBN);
+#pragma unroll
+  for (int it = 0; it < DP / 16; ++it) {
+    const int lc = ptid / DP + (128 / DP) * it;
+    const uint8_t* base = raw + (lc / 2) * 8 * 128;
+    float x[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      // kv row 8 (lc / 2) + lc % 2 + 2 m
+      const uint32_t off = lc % 2 ? row[1 + 2 * m] : row[2 * m];
+      x[m] = ld1<CODE>(base + off);
+    }
+    uint4 h, l;
+    split4(x, h, l);
+    const uint32_t out = d * 128 + ((lc ^ (d & 7)) * 16);
+    *reinterpret_cast<uint4*>(hi + out) = h;
+    if constexpr (CODE == 0) *reinterpret_cast<uint4*>(lo + out) = l;
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void split_k_code(const uint8_t* raw, uint8_t* dst,
+                                             int code, int ptid) {
+  if (code == 0) {
+    split_k<DP, 0>(raw, dst, ptid);
+  } else if (code == 1) {
+    split_k<DP, 1>(raw, dst, ptid);
+  } else {
+    split_k<DP, 2>(raw, dst, ptid);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void split_v_code(const uint8_t* raw, uint8_t* hi,
+                                             uint8_t* lo, int code,
+                                             int ptid) {
+  if (code == 0) {
+    split_v<DP, 0>(raw, hi, lo, ptid);
+  } else if (code == 1) {
+    split_v<DP, 1>(raw, hi, lo, ptid);
+  } else {
+    split_v<DP, 2>(raw, hi, lo, ptid);
+  }
+}
+
+// Q's A fragments: the thread's elements of every k8 slice rounded to TF32
+// (qh, held in registers for every tile); for an f32 Q, the remainder
+// rounded again (Q_lo) is written back in place, where the Q_lo . K_hi
+// product reads it from shared memory.  Element e of slice kk: row
+// 16 warp + lane / 4 + 8 (e & 1), column 8 kk + lane % 4 + 4 (e >> 1).
+template <int DP, int CODE>
+__device__ __forceinline__ void split_q(uint8_t* q, int warp, int lane,
+                                        uint32_t (&qh)[DP / 8][4]) {
+  const int r = 16 * warp + lane / 4;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint8_t* p = q + sw_off<CODE>(r + 8 * (e & 1),
+                                    8 * kk + lane % 4 + 4 * (e >> 1), kBM);
+      uint32_t lo;
+      split1(ld1<CODE>(p), qh[kk][e], lo);
+      if constexpr (CODE == 0) *reinterpret_cast<uint32_t*>(p) = lo;
+    }
+  }
+}
+
+// S of one tile, issued (not waited), into sc[32] zeroed first.  Q_lo
+// K_hi (an f32 Q) is m64n32k8 with Q_lo from shared memory, into columns
+// 0-31, issued first (small terms first).  With an f32 K, Q_hi [K_hi;
+// K_lo]^T is one m64n64k8 product a k8 slice with Q_hi from registers:
+// columns 0-31 take Q_hi K_hi, columns 32-63 Q_hi K_lo, added once the
+// tile is done (half the instructions).  With a half K,
+// Q_hi K_hi is m64n32k8 and columns 32-63 stay zero.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&sc)[32],
+                                             uint32_t (&qh)[DP / 8][4],
+                                             uint32_t q_lo, uint32_t k_tile,
+                                             bool q32, bool k32) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  fence_regs(sc);
+  wgmma_fence();
+  const auto kdesc = [&](int kk) {
+    return desc_sw128(k_tile + (kk / 4) * 2 * kKBox + (kk % 4) * 32, 16,
+                      1024);
+  };
+  if (q32) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      WgmmaTf32::ss_n32(
+          sc, desc_sw128(q_lo + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024),
+          kdesc(kk), 1);
+    }
+  }
+  if (k32) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      WgmmaTf32::rs_n64(sc, qh[kk], kdesc(kk), 1);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      WgmmaTf32::rs_n32(sc, qh[kk], kdesc(kk), 1);
+    }
+  }
+  wgmma_commit();
+}
+
+template <int DP>
+__device__ __forceinline__ void pv_mma(float (&o)[DP / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DP == 128) {
+    WgmmaTf32::rs_n128(o, a, b, 1);
+  } else {
+    WgmmaTf32::rs_n64(o, a, b, 1);
+  }
+}
+
+// O += P_lo V_hi + P_hi V_lo + P_hi V_hi of one tile, issued (not waited),
+// small products first (P_hi V_lo skipped for a half V); A from registers,
+// V^T K-major, k8 slice j 32 bytes into its one atom.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         uint32_t (&ph)[4][4],
+                                         uint32_t (&pl)[4][4], uint32_t v_hi,
+                                         uint32_t v_lo, bool v32) {
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fence_regs(ph[j]);
+    fence_regs(pl[j]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pv_mma<DP>(o, pl[j], desc_sw128(v_hi + 32 * j, 16, 1024));
+  }
+  if (v32) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pv_mma<DP>(o, ph[j], desc_sw128(v_lo + 32 * j, 16, 1024));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pv_mma<DP>(o, ph[j], desc_sw128(v_hi + 32 * j, 16, 1024));
+  }
+  wgmma_commit();
+}
+
+template <int DP>
+__device__ __forceinline__ void fence_pv(float (&o)[DP / 2],
+                                         uint32_t (&ph)[4][4],
+                                         uint32_t (&pl)[4][4]) {
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fence_regs(ph[j]);
+    fence_regs(pl[j]);
+  }
+}
+
+// O *= alpha (per row), then P (in sc) split into the A fragments of the
+// tile's four k8 slices: slice j takes accumulator columns 8 j + 2t and
+// 8 j + 2t + 1 of rows g and g + 8 as its a[0], a[2] and a[1], a[3].
+template <int DP>
+__device__ __forceinline__ void rescale_and_split(float (&o)[DP / 2],
+                                                  const float (&sc)[16],
+                                                  float al0, float al1,
+                                                  uint32_t (&ph)[4][4],
+                                                  uint32_t (&pl)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    o[4 * j] = o[4 * j] * al0;
+    o[4 * j + 1] = o[4 * j + 1] * al0;
+    o[4 * j + 2] = o[4 * j + 2] * al1;
+    o[4 * j + 3] = o[4 * j + 3] * al1;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split1(sc[4 * j], ph[j][0], pl[j][0]);
+    split1(sc[4 * j + 2], ph[j][1], pl[j][1]);
+    split1(sc[4 * j + 1], ph[j][2], pl[j][2]);
+    split1(sc[4 * j + 3], ph[j][3], pl[j][3]);
+  }
+}
+
+__device__ __forceinline__ void store2(void* out, int code, long long i,
+                                       float a, float b) {
+  if (code == 0) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
+        make_float2(a, b);
+  } else if (code == 1) {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(out) + i) =
+        __floats2half2_rn(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                       i) = __floats2bfloat162_rn(a, b);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              void* __restrict__ out, int qc, int kc, int vc,
+                              int h, int hkv, int s, int d, float scale,
+                              int causal) {
+  using L = Smem<DP>;
+  extern __shared__ __align__(1024) uint8_t t3_smem[];
+  const uint32_t sb = (smem_u32(t3_smem) + 1023u) & ~1023u;
+  uint8_t* gb = t3_smem + (sb - smem_u32(t3_smem));
+  const uint32_t bar_q = sb + L::bars;
+  const uint32_t bar_rk = bar_q + 8;                  // raw K full
+  const uint32_t bar_rv = bar_rk + 8 * kStages;       // raw V full
+  const uint32_t bar_kf = bar_rv + 8 * kStages;       // K split
+  const uint32_t bar_ke = bar_kf + 8 * kStages;       // K read
+  const uint32_t bar_vf = bar_ke + 8 * kStages;       // V split
+  const uint32_t bar_ve = bar_vf + 8 * kStages;       // V read
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / h) * hkv + (bh % h) / (h / hkv);
+  const int n_qt = (s + kBM - 1) / kBM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBM;   // longest first
+  const int n_kt = causal ? (min(q0 + kBM, s) - 1) / kBN + 1
+                          : (s + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_rk + 8 * st, 1);
+      mbar_init(bar_rv + 8 * st, 1);
+      mbar_init(bar_kf + 8 * st, 128);      // every producer thread
+      mbar_init(bar_ke + 8 * st, 4);        // every consumer warp
+      mbar_init(bar_vf + 8 * st, 128);
+      mbar_init(bar_ve + 8 * st, 4);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warpgroup: thread 0 issues the loads, all 128 split
+    const int ptid = threadIdx.x - 128;
+    const auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                          int code, int rows, int r0, int z) {
+      const int per = code == 0 ? 32 : 64;          // columns a box
+      const int boxes = DP / per;
+      mbar_arrive_expect_tx(bar, boxes * rows * 128);
+      for (int a = 0; a < boxes; ++a) {
+        tma_load_3d(dst + a * rows * 128, map, bar, a * per, r0, z);
+      }
+    };
+    const auto load_kv = [&](int i, bool is_k) {
+      const int st = i % kStages;
+      load(is_k ? &tm_k : &tm_v,
+           sb + (is_k ? L::raw_k : L::raw_v) + st * L::kTile,
+           (is_k ? bar_rk : bar_rv) + 8 * st, is_k ? kc : vc, kBN, i * kBN,
+           kvh);
+    };
+    if (ptid == 0) {
+      tma_prefetch(&tm_q);
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      load(&tm_q, sb + L::q, bar_q, qc, kBM, q0, bh);
+      for (int i = 0; i < min(kStages, n_kt); ++i) {
+        load_kv(i, true);
+        load_kv(i, false);
+      }
+    }
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      mbar_wait(bar_rk + 8 * st, ph);
+      mbar_wait(bar_ke + 8 * st, ph ^ 1);   // K of tile i - 2 is read
+      split_k_code<DP>(gb + L::raw_k + st * L::kTile,
+                       gb + L::k + st * 2 * L::kTile, kc, ptid);
+      fence_proxy_async();
+      mbar_arrive(bar_kf + 8 * st);
+      named_bar_sync(1, 128);               // raw K of stage st is read
+      if (ptid == 0 && i + kStages < n_kt) load_kv(i + kStages, true);
+      mbar_wait(bar_rv + 8 * st, ph);
+      mbar_wait(bar_ve + 8 * st, ph ^ 1);   // V^T of tile i - 2 is read
+      split_v_code<DP>(gb + L::raw_v + st * L::kTile,
+                       gb + L::v_hi + st * L::kTile,
+                       gb + L::v_lo + st * L::kTile, vc, ptid);
+      fence_proxy_async();
+      mbar_arrive(bar_vf + 8 * st);
+      named_bar_sync(1, 128);               // raw V of stage st is read
+      if (ptid == 0 && i + kStages < n_kt) load_kv(i + kStages, false);
+    }
+  } else {
+    // consumer warpgroup: query rows [q0, q0 + 64); this thread holds rows
+    // r0 and r0 + 8, columns 8 j + 2 t + {0, 1}
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int r0 = q0 + 16 * warp + lane / 4;
+    const int lim0 = causal ? min(r0, s - 1) : s - 1;
+    const int lim1 = causal ? min(r0 + 8, s - 1) : s - 1;
+    // tiles before first_masked lie inside every row's range
+    const int first_masked = ((causal ? q0 : s - 1) + 1) / kBN;
+    const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+    const bool q32 = qc == 0, k32 = kc == 0, v32 = vc == 0;
+    const auto wait_k = [&](int i) {
+      mbar_wait(bar_kf + 8 * (i % kStages), (i / kStages) & 1);
+    };
+    const auto wait_v = [&](int i) {
+      mbar_wait(bar_vf + 8 * (i % kStages), (i / kStages) & 1);
+    };
+    const auto free_k = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_ke + 8 * (i % kStages));
+    };
+    const auto free_v = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_ve + 8 * (i % kStages));
+    };
+    const auto tile = [&](uint32_t buf, int i) {
+      return sb + buf + (i % kStages) * L::kTile;
+    };
+
+    uint32_t qh[DP / 8][4];
+    mbar_wait(bar_q, 0);
+    if (qc == 0) {
+      split_q<DP, 0>(gb + L::q, warp, lane, qh);
+    } else if (qc == 1) {
+      split_q<DP, 1>(gb + L::q, warp, lane, qh);
+    } else {
+      split_q<DP, 2>(gb + L::q, warp, lane, qh);
+    }
+    fence_proxy_async();
+    named_bar_sync(2, 128);                 // Q_lo is written
+
+    float o[DP / 2], sc[32];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    // the tile's scores: columns 0-31 once the K_lo columns 32-63 are added
+    float(&sv)[16] = *reinterpret_cast<float(*)[16]>(sc);
+    uint32_t ph[4][4], pl[4][4];
+    float m0 = kMaxInit, m1 = kMaxInit, l0 = 0.f, l1 = 0.f, al0, al1;
+    const auto softmax = [&](int i) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sc[e] = sc[e] + sc[16 + e];
+      if (i >= first_masked) {
+        tc::online_softmax<true>(sv, i * kBN, t, lim0, lim1, scale2, 1.f, m0,
+                                 m1, l0, l1, al0, al1);
+      } else {
+        tc::online_softmax<false>(sv, i * kBN, t, lim0, lim1, scale2, 1.f,
+                                  m0, m1, l0, l1, al0, al1);
+      }
+    };
+    const auto scores = [&](int i) {
+      issue_scores<DP>(sc, qh, sb + L::q,
+                       sb + L::k + (i % kStages) * 2 * L::kTile, q32, k32);
+    };
+    const auto pv = [&](int i) {
+      issue_pv<DP>(o, ph, pl, tile(L::v_hi, i), tile(L::v_lo, i), v32);
+    };
+
+    // tile i's scores are issued before tile i - 1's P V, so the softmax
+    // of tile i runs while the tensor cores multiply P V of tile i - 1;
+    // O is rescaled once that product is done
+    wait_k(0);
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    free_k(0);
+    softmax(0);
+    rescale_and_split<DP>(o, sv, al0, al1, ph, pl);
+    for (int i = 1; i < n_kt; ++i) {
+      wait_k(i);
+      scores(i);
+      wait_v(i - 1);
+      pv(i - 1);
+      wgmma_wait<1>();                      // the scores of tile i
+      fence_regs(sc);
+      free_k(i);
+      softmax(i);
+      wgmma_wait<0>();                      // P V of tile i - 1
+      fence_pv<DP>(o, ph, pl);
+      free_v(i - 1);
+      rescale_and_split<DP>(o, sv, al0, al1, ph, pl);
+    }
+    wait_v(n_kt - 1);
+    pv(n_kt - 1);
+    wgmma_wait<0>();
+    fence_pv<DP>(o, ph, pl);
+    free_v(n_kt - 1);
+
+    const float den0 = fmaxf(l0, 1e-30f);
+    const float den1 = fmaxf(l1, 1e-30f);
+    const long long row0 = (long long)bh * s;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= d) break;
+      if (r0 < s) {
+        store2(out, qc, (row0 + r0) * d + col, o[4 * j] / den0,
+               o[4 * j + 1] / den0);
+      }
+      if (r0 + 8 < s) {
+        store2(out, qc, (row0 + r0 + 8) * d + col, o[4 * j + 2] / den1,
+               o[4 * j + 3] / den1);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* out, int qc,
+           int kc, int vc, long long b, int h, int hkv, int s, int d,
+           float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_3d_sw128_code(&tm_q, q, qc, d, s, b * h, kBM);
+  if (!err) err = encode_3d_sw128_code(&tm_k, k, kc, d, s, b * hkv, kBN);
+  if (!err) err = encode_3d_sw128_code(&tm_v, v, vc, d, s, b * hkv, kBN);
+  if (err) return -err;
+  constexpr size_t smem = Smem<DP>::bytes;
+  auto kernel = flash_attention_tf32x3_kernel<DP>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)(b * h), (unsigned)((s + kBM - 1) / kBM));
+  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, out, qc, kc, vc,
+                                           h, hkv, s, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace t3
+
 }  // namespace
 
 extern "C" {
@@ -879,9 +1405,8 @@ extern "C" {
 // out[b, h, s, d] = softmax(scale * q k^T (masked)) v over contiguous
 // device tensors q [b, h, s, d], k and v [b, hkv, s, d], out like q in q's
 // dtype; each operand's dtype code: 0 float32, 1 float16, 2 bfloat16.
-// bh = b * h.  One dtype and d <= kMaxD run the kernels of that dtype;
-// mixed dtypes or a larger d the mixed kernel.  Returns the cudaError_t
-// of the launch (0 on success).
+// bh = b * h; any d >= 1, any alignment.  Returns the cudaError_t of the
+// launch (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int q_dtype, int k_dtype, int v_dtype,
                           long long bh, int h, int hkv, int s, int d,
@@ -892,23 +1417,9 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
       bad_code(q_dtype) || bad_code(k_dtype) || bad_code(v_dtype)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = (cudaStream_t)stream;
-  if (q_dtype != k_dtype || q_dtype != v_dtype || d > kMaxD) {
-    return launch_simt<kMaxD>(flash_attention_kernel_any, bh, s, st,
-                              AnyDtype{q, q_dtype}, AnyDtype{k, k_dtype},
-                              AnyDtype{v, v_dtype}, AnyOut{out, q_dtype}, h,
-                              hkv, s, d, scale, causal);
-  }
-  if (q_dtype == 0) {
-    return launch_d<float>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
-                           st);
-  }
-  if (q_dtype == 1) {
-    return launch_d<__half>(q, k, v, out, bh, h, hkv, s, d, scale, causal,
-                            st);
-  }
-  return launch_d<__nv_bfloat16>(q, k, v, out, bh, h, hkv, s, d, scale,
-                                 causal, st);
+  return launch_simt(bh, s, (cudaStream_t)stream, AnyDtype{q, q_dtype},
+                     AnyDtype{k, k_dtype}, AnyDtype{v, v_dtype},
+                     AnyOut{out, q_dtype}, h, hkv, d, scale, causal);
 }
 
 // The tensor-core route: the same function over f16 (dtype 1) or bf16
@@ -937,6 +1448,41 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
   }
   return tc::launch_d<__nv_bfloat16>(q, k, v, out, b, h, hkv, s, d, scale,
                                      causal, st);
+}
+
+
+// The 3xTF32 tensor-core route: the same function over operands of dtype
+// codes q_dtype, k_dtype, v_dtype (0 float32, 1 float16, 2 bfloat16),
+// q [b, h, s, d], k and v [b, hkv, s, d], out like q in q's dtype,
+// contiguous with 16-byte-aligned bases, d up to 128 and a multiple of 4
+// (all f32) or 8 (any half operand).  Returns the cudaError_t of the
+// launch (0 on success), or minus the CUresult of a tensor map the driver
+// refuses.
+int repro_flash_attention_tf32x3(const void* q, const void* k, const void* v,
+                                 void* out, int q_dtype, int k_dtype,
+                                 int v_dtype, long long b, int h, int hkv,
+                                 int s, int d, float scale, int causal,
+                                 void* stream) {
+  const long long bh = b * h;
+  const auto misaligned = [](const void* p) {
+    return ((unsigned long long)p & 15ull) != 0;
+  };
+  const auto bad_code = [](int c) { return c < 0 || c > 2; };
+  const int row = (q_dtype || k_dtype || v_dtype) ? 8 : 4;
+  if (b < 1 || h < 1 || bh > 0x7fffffffLL || hkv < 1 || h % hkv || s < 1 ||
+      (s + t3::kBM - 1) / t3::kBM > 65535 || d < row || d > kMaxD ||
+      d % row || bad_code(q_dtype) || bad_code(k_dtype) ||
+      bad_code(v_dtype) || misaligned(q) || misaligned(k) ||
+      misaligned(v) || misaligned(out)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d <= 64) {
+    return t3::launch<64>(q, k, v, out, q_dtype, k_dtype, v_dtype, b, h, hkv,
+                          s, d, scale, causal, st);
+  }
+  return t3::launch<128>(q, k, v, out, q_dtype, k_dtype, v_dtype, b, h, hkv,
+                         s, d, scale, causal, st);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, in raw
 // PTX: mbarriers, TMA tensor loads and the host-side tensor map, wgmma
 // shared-memory descriptors, the wgmma fence / commit / wait and the
-// instructions themselves, and setmaxnreg.
+// instructions themselves (f16/bf16 and tf32), the proxy fence, named
+// barriers, the TF32 rounding, and setmaxnreg.
 //
 // The tensor map is encoded through cuTensorMapEncodeTiled, which lives in
 // the driver library; the build links only the runtime, so the function is
@@ -9,13 +10,14 @@
 // included for the CUtensorMap type and its enums alone.
 //
 // Shared-memory layout the helpers assume (what TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_128B): a tile of 16-bit elements is cut into
-// column atoms of 64 elements (128 bytes a row); an atom holds its rows at
-// 128 bytes each, the 16-byte chunks of row r XOR-swizzled by r % 8, and
-// starts on a 1024-byte boundary.  A K-major operand (its reduction axis
-// contiguous) advances by 32 bytes for each k16 slice inside an atom, 8-row
-// groups 1024 bytes apart; an MN-major operand advances by 16 rows (2048
-// bytes) a k16 slice, and its descriptor's LBO is the distance to its next
+// CU_TENSOR_MAP_SWIZZLE_128B): a tile is cut into column atoms of 128
+// bytes a row (64 elements of 16 bits, 32 of 32 bits); an atom holds its
+// rows at 128 bytes each, the 16-byte chunks of row r XOR-swizzled by
+// r % 8, and starts on a 1024-byte boundary.  A K-major operand (its
+// reduction axis contiguous) advances by 32 bytes for each k16 (16-bit) or
+// k8 (tf32) slice inside an atom, 8-row groups 1024 bytes apart; an
+// MN-major operand (16-bit types only) advances by 16 rows (2048 bytes) a
+// k16 slice, and its descriptor's LBO is the distance to its next
 // 64-column atom.
 
 #pragma once
@@ -139,26 +141,38 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map of a contiguous [dim2, dim1, dim0] tensor of 16-bit elements
-// (f16 if half, else bf16) with boxes of (64, box1, 1) elements, 128-byte
-// swizzled, zero-filled out of bounds.  Returns the CUresult (0 on
-// success; CUDA_ERROR_NOT_FOUND without the driver's entry point).
-inline int encode_3d_sw128(CUtensorMap* map, const void* base, bool half,
-                           unsigned long long dim0, unsigned long long dim1,
-                           unsigned long long dim2, unsigned box1) {
+// A 3-D map of a contiguous [dim2, dim1, dim0] tensor of the dtype code
+// `code` (0 f32, 1 f16, 2 bf16) with boxes of one 128-byte row of dim0
+// (32 f32 or 64 16-bit elements) by box1 by 1, 128-byte swizzled,
+// zero-filled out of bounds.  Returns the CUresult (0 on success;
+// CUDA_ERROR_NOT_FOUND without the driver's entry point).
+inline int encode_3d_sw128_code(CUtensorMap* map, const void* base, int code,
+                                unsigned long long dim0,
+                                unsigned long long dim1,
+                                unsigned long long dim2, unsigned box1) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const unsigned long long esize = code == 0 ? 4 : 2;
   const cuuint64_t dims[3] = {dim0, dim1, dim2};
-  const cuuint64_t strides[2] = {dim0 * 2, dim0 * dim1 * 2};
-  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint64_t strides[2] = {dim0 * esize, dim0 * dim1 * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), box1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return (int)fn(map,
-                 half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 code == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : code == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                  3, const_cast<void*>(base), dims, strides, box, unit,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The same for 16-bit elements: f16 if half, else bf16 (boxes of 64).
+inline int encode_3d_sw128(CUtensorMap* map, const void* base, bool half,
+                           unsigned long long dim0, unsigned long long dim1,
+                           unsigned long long dim2, unsigned box1) {
+  return encode_3d_sw128_code(map, base, half ? 1 : 2, dim0, dim1, dim2,
+                              box1);
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -172,6 +186,28 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Makes this thread's shared-memory writes (st.shared) visible to the
+// async proxy (wgmma, TMA) once a barrier orders them before its reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A named barrier (id 1-15) over `count` threads, whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as a 32-bit word whose low 13 bits are zero: what the tensor cores read
+// from a .tf32 operand.  Adding half of the dropped unit to the magnitude
+// bits and clearing them is cvt.rna.tf32.f32 for every finite x and +-inf
+// (a carry rounds into the exponent, FLT_MAX up to inf); it takes two
+// integer instructions where cvt.rna takes four (it guards NaN and inf).
+// A NaN stays a NaN or becomes inf, whose lo, x - inf, is NaN.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // Orders this warpgroup's register and shared-memory accesses before the
@@ -203,6 +239,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+#define HOPPER_ACC16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+   "%14, %15}"
+#define HOPPER_ACC16_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15])
 #define HOPPER_ACC32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
    "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
@@ -303,6 +347,63 @@ struct Wgmma<__nv_bfloat16> {
 template <>
 struct Wgmma<__half> {
   HOPPER_WGMMA_OPS("f16")
+};
+
+// The wgmma instructions of TF32 operands (k8 slices of 32-bit words whose
+// low 13 bits the tensor cores drop; both operands K-major, the only
+// layout .tf32 has), f32 accumulators in the D fragment above:
+//   ss_n32     d[0..15] (+)= A . B, m64n32k8, A and B in shared memory
+//              (the first half of an m64n64 accumulator);
+//   rs_n{32,64,128}  d (+)= A . B, m64n{32,64,128}k8, A from registers
+//              (rs_n32 into d[0..15] likewise):
+//              warp w of the warpgroup holds rows 16w..16w+15, thread lane
+//              a[0] (row lane/4, col lane%4), a[1] (row + 8, same col),
+//              a[2] (row, col + 4), a[3] (row + 8, col + 4), as
+//              mma.m16n8k8's .tf32 A fragment.
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void ss_n32(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+                 HOPPER_ACC16 ", %16, %17, p, 1, 1;\n}\n"
+                 : HOPPER_ACC16_OPS(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs_n32(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+                 HOPPER_ACC16 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : HOPPER_ACC16_OPS(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "l"(desc_b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+                 HOPPER_ACC32 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : HOPPER_ACC32_OPS(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "l"(desc_b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+                 HOPPER_ACC64 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : HOPPER_ACC64_OPS(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "l"(desc_b), "r"(scale_d));
+  }
 };
 
 // --------------------------------------------------------------- setmaxnreg

@@ -12,7 +12,7 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
   kernels of ``repro_torch/csrc/flash_attention.cu``.  Each operand is
   f32, f16 or bf16 (the reference casts each to f32; the output is in
   ``q.dtype``), with any ``S >= 1`` and any head dim, and it picks one of
-  two routes (:func:`route`):
+  three routes (:func:`route`):
 
   - ``"wgmma"``, f16/bf16 operands of one dtype with ``D % 8 == 0``,
     ``D <= 128`` and 16-byte-aligned bases: Hopper's tensor cores.  K/V
@@ -20,9 +20,21 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
     ``P V`` are ``wgmma`` products with f32 accumulators, and P keeps its
     f32 precision as the sum of two halves, ``P_hi + P_lo``, each
     multiplied by V;
-  - ``"simt"``, everything else (f32 above all, mixed dtypes, D > 128):
-    FP32 on the CUDA cores, K/V staged as f32 in shared memory, D tiled
-    in 128-column chunks past 128.
+  - ``"tf32x3"``, f32 and mixed operands (any other combination of the
+    three dtypes) with ``D <= 128``, rows of a 16-byte multiple (``D % 4
+    == 0`` when all are f32, ``D % 8 == 0`` when one is a half type) and
+    16-byte-aligned bases: the tensor cores in TF32, three TF32 products
+    for each f32 one.  Each f32 operand is split as ``hi = tf32(x)``, ``lo =
+    tf32(x - hi)`` (round to nearest, ties away), and ``a b`` becomes
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with f32 accumulation, each
+    term exact in f32: one TF32 product keeps ~2^-11 of a score, which is
+    another function than the reference's, while the three keep ~2^-22.
+    A half operand is exact in TF32, so its ``lo`` and the product it
+    feeds are dropped; P is split as the operands are;
+  - ``"simt"``, everything else (D > 128, rows TMA does not move, a
+    misaligned base): one kernel, FP32 on the CUDA cores, each operand
+    read through its dtype code, K/V staged as f32 in shared memory, D
+    tiled in 128-column chunks.
 
   For CUDA tensors it launches the route's kernel or raises; for CPU
   tensors it runs the twin.  It takes no block sizes: ``bq``/``bk`` were
@@ -38,13 +50,20 @@ softmax is online, so they agree within a tolerance, not bit for bit: f32
 ``atol = rtol = 1e-5``, and one rounding of the output dtype beyond it.
 The split P is within ``2^-16`` (bf16) or ``2^-22`` (f16) of the f32 P; a
 P rounded once to the half dtype, as ``scaled_dot_product_attention``
-rounds it, is another function and misses that tolerance.
+rounds it, is another function and misses that tolerance.  The
+tolerance is the reference's at scores of a few units; at scores of
+hundreds an ulp of a score is ~3e-5 of P, so any other summation order
+of the same f32 function (an exact one included) misses ``1e-5`` against
+the twin there: such inputs are held to the exact (f64) function instead.
 
-What bounds the kernels on the card: the operations.  The wgmma route
-does ``6 D`` half operations per unmasked score (``2 D`` for ``Q K^T``,
-``4 D`` for the split ``P V``) at the tensor cores' 989 TFLOP/s: 1.80e11
-for qwen2-7b's heads at S = 4096, causal, 0.182 ms.  The SIMT route does
-``4 D`` FP32 operations, 1.20e11, 1.80 ms at 67 TFLOP/s.
+What bounds the kernels on the card: the operations.  For qwen2-7b's
+heads at S = 4096, causal, the wgmma route does ``6 D`` half operations
+per unmasked score (``2 D`` for ``Q K^T``, ``4 D`` for the split
+``P V``) at the tensor cores' 989 TFLOP/s: 1.80e11, 0.182 ms.  The
+tf32x3 route does ``12 D`` TF32 operations (``2 D`` fewer for each
+half operand: ``10 D`` with a bf16 q) at 495 TFLOP/s: 3.61e11,
+0.729 ms.  The SIMT route
+does ``4 D`` FP32 operations, 1.20e11, 1.80 ms at 67 TFLOP/s.
 
 :data:`COUNTS` counts kernel launches, in all and by route, and twin
 calls.
@@ -62,7 +81,8 @@ from .cuda_build import check_operands, launch, load_library
 #: launches of the CUDA kernels (in all, and of each route's kernel) /
 #: calls of the torch twin since the last :func:`reset_counts`
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "wgmma_launches": 0,
-                          "simt_launches": 0, "twin_calls": 0}
+                          "tf32x3_launches": 0, "simt_launches": 0,
+                          "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -100,18 +120,21 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor,
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel that :func:`flash_attention` launches for CUDA operands:
-    ``"wgmma"`` (tensor cores) for f16/bf16 operands of one dtype with
-    ``D`` a multiple of 8 (TMA moves rows of 16-byte multiples) up to 128
-    and every base 16-byte aligned (a tensor map's address), ``"simt"``
-    otherwise."""
+    """The kernel that :func:`flash_attention` launches for CUDA operands.
+    Both tensor-core routes take ``D`` up to 128, rows of a 16-byte
+    multiple (TMA moves no other) and 16-byte-aligned bases (a tensor
+    map's address): ``"wgmma"`` f16/bf16 operands of one dtype (``D %
+    8 == 0``), ``"tf32x3"`` any other mix of f32, f16 and bf16 (``D % 4
+    == 0`` when all are f32, else ``D % 8 == 0``); ``"simt"`` the rest."""
     d = q.shape[-1]
-    same = k.dtype == q.dtype and v.dtype == q.dtype
+    dtypes = {q.dtype, k.dtype, v.dtype}
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    if q.dtype in _HALF and same and d % 8 == 0 and d <= _MAX_D \
-            and aligned:
-        return "wgmma"
-    return "simt"
+    if d > _MAX_D or not aligned:
+        return "simt"
+    if len(dtypes) == 1 and q.dtype in _HALF:
+        return "wgmma" if d % 8 == 0 else "simt"
+    row = 4 if dtypes == {torch.float32} else 8
+    return "tf32x3" if d % row == 0 else "simt"
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,6 +189,12 @@ def load_kernel_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.repro_flash_attention_wgmma.restype = ctypes.c_int
+    lib.repro_flash_attention_tf32x3.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.repro_flash_attention_tf32x3.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
 
@@ -197,16 +226,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = load_kernel_library()
     scale = 1.0 / math.sqrt(d)
-    if route(q, k, v) == "wgmma":
+    codes = (_DTYPES[q.dtype], _DTYPES[k.dtype], _DTYPES[v.dtype])
+    picked = route(q, k, v)
+    if picked == "wgmma":
         launch("flash_attention", lib.repro_flash_attention_wgmma, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               _DTYPES[q.dtype], b, h, hkv, s, d, scale, int(bool(causal)))
+               codes[0], b, h, hkv, s, d, scale, int(bool(causal)))
         COUNTS["wgmma_launches"] += 1
+    elif picked == "tf32x3":
+        launch("flash_attention", lib.repro_flash_attention_tf32x3, dev,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               *codes, b, h, hkv, s, d, scale, int(bool(causal)))
+        COUNTS["tf32x3_launches"] += 1
     else:
         launch("flash_attention", lib.repro_flash_attention, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               _DTYPES[q.dtype], _DTYPES[k.dtype], _DTYPES[v.dtype],
-               b * h, h, hkv, s, d, scale, int(bool(causal)))
+               *codes, b * h, h, hkv, s, d, scale, int(bool(causal)))
         COUNTS["simt_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return out

@@ -24,6 +24,12 @@ reference, the torch twin and the CUDA kernel alike.
 ``csrc/grid_decode.cuh``) in torch, so that the CPU tests hold the
 kernels' index arithmetic to floor division and to ``grid_decode_torch``.
 
+:func:`attention_f64` is softmax attention computed in f64 (one rounding
+at the end): where scores reach hundreds, an ulp of a score is ~3e-5 of
+P, so two f32 summation orders of the same attention differ by more
+than K9's f32 tolerance of 1e-5 and neither is the reference for the
+other; both are held to this (:func:`f64_error`).
+
 :func:`stats_case` draws the block-stats kernels' (K3a, K3b) edge cases:
 ties, NaN, +-inf, masked blocks and ids outside ``[0, V)`` on three id
 layouts, for the CPU tests, the card tests and ``chip_smoke.py``.
@@ -178,6 +184,38 @@ def half_rule(got: torch.Tensor, want: torch.Tensor) -> float:
     rule = ulp(torch.maximum(g.abs(), w.abs()), got.dtype) \
         + 1e-5 * (1.0 + w.abs())
     return float(((g - w).abs() / rule).max())
+
+
+def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> torch.Tensor:
+    """Softmax attention of ``q [B, H, S, D]`` over ``k, v [B, Hkv, S,
+    D]`` (GQA head map) in f64 from the operands' values, ``[B, H, S,
+    D]`` f64."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    kd = k.double().repeat_interleave(group, dim=1)
+    vd = v.double().repeat_interleave(group, dim=1)
+    scores = (q.double() @ kd.transpose(-1, -2)) / np.sqrt(d)
+    if causal:
+        rows = torch.arange(s, device=q.device)
+        scores = scores.masked_fill(rows[None, :] > rows[:, None],
+                                    float("-inf"))
+    return torch.softmax(scores, dim=-1) @ vd
+
+
+def f64_error(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """Max over the elements of ``|got - exact| / (1 + |exact|)``."""
+    return float(((got.double() - exact).abs()
+                  / (1.0 + exact.abs())).max())
+
+
+def rounded_f64_error(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """:func:`f64_error` less one rounding of ``got``'s dtype: the max over
+    the elements of ``(|got - exact| - ulp) / (1 + |exact|)``, the ulp of
+    ``got``'s dtype at ``max(|got|, |exact|)``."""
+    g = got.double()
+    slack = ulp(torch.maximum(g.abs(), exact.abs()), got.dtype)
+    return float((((g - exact).abs() - slack) / (1.0 + exact.abs())).max())
 
 
 def mulhi(n: torch.Tensor, m: int, bits: int) -> torch.Tensor:

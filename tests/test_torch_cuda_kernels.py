@@ -21,11 +21,15 @@ route (each launch counted on the route that ran); ``matmul`` within ``1e-5 * (|
 elementwise (another summation order; one unit in the last place more
 for an f16 or bf16 output) and the same from run to run; ``flash_attention`` within
 ``atol = rtol`` 1e-5 (f32), 1e-2 (bf16), 2e-3 (f16), compared in f32
-(another summation order and an online softmax), its tensor-core route
+(another summation order and an online softmax), its tensor-core routes
 also within one rounding of the half output plus ``1e-5 (1 + |twin|)``
 (``repro_torch.testing.half_rule``), and the same from run to run, each
-launch counted on the route that ran; the pipelines bit-equal to the
-CPU's, the DNN output by the matmul rule through both layers.
+launch counted on the route that ran; at inputs scaled by 8 (scores of
+hundreds, where no other summation order of the f32 function stays
+within 1e-5 of the twin) the 3xTF32 route's f32 result within twice the
+twin's distance from the f64 function (``repro_torch.testing.
+attention_f64``); the pipelines bit-equal to the CPU's, the DNN output by
+the matmul rule through both layers.
 """
 import importlib
 
@@ -33,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.testing import half_rule
+from repro_torch.testing import (attention_f64, f64_error, half_rule,
+                                 rounded_f64_error)
 
 pytestmark = pytest.mark.cuda
 
@@ -721,7 +726,8 @@ def _wgmma_case(cuda, shape, causal, dtype):
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 1,
-                         "simt_launches": 0, "twin_calls": 0}
+                         "tf32x3_launches": 0, "simt_launches": 0,
+                         "twin_calls": 0}
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == dtype and ker.shape == q.shape
     tol = FA_TOL[dtype]
@@ -750,28 +756,114 @@ def test_flash_attention_wgmma_every_head_dim(cuda, d, causal, dtype):
     _wgmma_case(cuda, (1, 4, 2, 200, d), causal, dtype)
 
 
+def _tf32x3_case(cuda, shape, causal, dtypes, scale=1.0):
+    """The 3xTF32 route against the twin: one launch on that route, within
+    FA_TOL (and one rounding of a half output), bit-equal from run to
+    run.  At ``scale = 8`` (scores of hundreds) the f32 result before its
+    one rounding (a half q taken at its f32 values) is held to the f64
+    function within twice the twin's distance instead, and a half q's
+    output, from the half q itself, to one rounding of the f64 function
+    to q's dtype."""
+    fa = _mod("flash_attention")
+    b, h, hkv, s, d = shape
+    q = scale * _rand(cuda, (b, h, s, d), s + d, torch.float32)
+    k = scale * _rand(cuda, (b, hkv, s, d), s + d + 1, torch.float32)
+    v = scale * _rand(cuda, (b, hkv, s, d), s + d + 2, torch.float32)
+    q, k, v = q.to(dtypes[0]), k.to(dtypes[1]), v.to(dtypes[2])
+    assert fa.route(q, k, v) == "tf32x3"
+    fa.reset_counts()
+    ker = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
+                         "tf32x3_launches": 1, "simt_launches": 0,
+                         "twin_calls": 0}
+    assert ker.dtype == dtypes[0] and ker.shape == q.shape
+    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+    if scale == 1.0:
+        twin = fa.flash_attention_torch(q, k, v, causal)
+        tol = FA_TOL[dtypes[0]]
+        torch.testing.assert_close(ker.float(), twin.float(), rtol=tol,
+                                   atol=tol)
+        if dtypes[0] != torch.float32:
+            assert half_rule(ker, twin) <= 1.0
+        return
+    qf = q.float()
+    got = fa.flash_attention(qf, k, v, causal)
+    exact = attention_f64(q, k, v, causal)
+    twin = fa.flash_attention_torch(qf, k, v, causal)
+    theirs = f64_error(twin, exact)
+    assert f64_error(got, exact) <= 2 * theirs
+    if dtypes[0] != torch.float32:
+        assert rounded_f64_error(ker, exact) <= 2 * theirs
+
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+#: operand dtypes (q, k, v) that take the 3xTF32 route
+TF32X3_MIXES = [(F32,) * 3, (BF16, F32, F32), (F32, BF16, BF16),
+                (F16, F16, F32), (BF16, F32, F16), (F32, F16, BF16)]
+
+
+def _dt_id(dts):
+    return "_".join(str(t)[6:] for t in dts)
+
+
+@pytest.mark.parametrize("dtypes", TF32X3_MIXES, ids=_dt_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 4, 4), (1, 8, 2), (1, 8, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("s", [1, 127, 200, 1500])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_tf32x3_matches_twin(cuda, d, s, heads, causal,
+                                             dtypes):
+    _tf32x3_case(cuda, (*heads, s, d), causal, dtypes)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", list(range(4, 129, 4)))
+def test_flash_attention_tf32x3_every_head_dim_f32(cuda, d, causal):
+    _tf32x3_case(cuda, (1, 4, 2, 200, d), causal, (F32,) * 3)
+
+
+@pytest.mark.parametrize("dtypes", TF32X3_MIXES[1:], ids=_dt_id)
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_attention_tf32x3_every_head_dim_mixed(cuda, d, dtypes):
+    _tf32x3_case(cuda, (1, 4, 2, 130, d), True, dtypes)
+
+
+@pytest.mark.parametrize("dtypes", TF32X3_MIXES[:4], ids=_dt_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 1500, 128), (2, 8, 2, 200, 64),
+                                   (1, 2, 1, 127, 16)])
+def test_flash_attention_tf32x3_scores_of_hundreds(cuda, shape, causal,
+                                                   dtypes):
+    _tf32x3_case(cuda, shape, causal, dtypes, scale=8.0)
+
+
 def test_flash_attention_simt_route(cuda):
-    """f32, a head dim TMA does not move and a misaligned base go through
-    the SIMT kernel, within FA_TOL of the twin."""
+    """A head dim past 128, head dims TMA does not move and misaligned
+    bases go through the SIMT kernel, within FA_TOL of the twin."""
     fa = _mod("flash_attention")
     cases = []
-    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
+    for dtype, d in ((torch.float32, 160), (torch.float32, 18),
+                     (torch.float32, 98), (torch.float16, 100),
                      (torch.bfloat16, 12)):
         cases.append(tuple(_rand(cuda, (1, heads, 130, d), heads + d, dtype)
                            for heads in (4, 2, 2)))
-    flat = torch.empty(1 * 4 * 130 * 64 + 1, dtype=torch.float16,
-                       device=cuda)
-    q = flat[1:].view(1, 4, 130, 64)
-    q.copy_(_rand(cuda, (1, 4, 130, 64), 7, torch.float16))
-    cases.append((q, *(_rand(cuda, (1, 2, 130, 64), 8 + i, torch.float16)
-                       for i in range(2))))
+    for dtype, d in ((torch.float16, 64), (torch.float32, 64),
+                     (torch.float32, 128)):
+        flat = torch.empty(1 * 4 * 130 * d + 1, dtype=dtype, device=cuda)
+        q = flat[1:].view(1, 4, 130, d)
+        q.copy_(_rand(cuda, (1, 4, 130, d), 7, dtype))
+        cases.append((q, *(_rand(cuda, (1, 2, 130, d), 8 + i, dtype)
+                           for i in range(2))))
     for q, k, v in cases:
         assert fa.route(q, k, v) == "simt"
         fa.reset_counts()
         ker = fa.flash_attention(q, k, v, True)
         torch.cuda.synchronize()
         assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                             "simt_launches": 1, "twin_calls": 0}
+                             "tf32x3_launches": 0, "simt_launches": 1,
+                             "twin_calls": 0}
         tol = FA_TOL[q.dtype]
         torch.testing.assert_close(
             ker.float(), fa.flash_attention_torch(q, k, v, True).float(),
@@ -790,15 +882,15 @@ def test_flash_attention_refuses_what_it_does_not_stage(cuda):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtypes,d", [
-    ((torch.bfloat16, torch.float32, torch.float16), 64),
-    ((torch.float32, torch.bfloat16, torch.bfloat16), 128),
-    ((torch.float16, torch.float16, torch.float32), 40),
+    ((torch.bfloat16, torch.float32, torch.float16), 12),
+    ((torch.float32, torch.bfloat16, torch.bfloat16), 20),
     ((torch.float32,) * 3, 160), ((torch.bfloat16,) * 3, 256),
     ((torch.float16,) * 3, 160), ((torch.float32, torch.float16,
                                    torch.float16), 256)],
     ids=lambda x: str(x).replace("torch.", ""))
 def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
-    """Mixed operand dtypes and head dims past 128 run the SIMT route,
+    """Head dims past 128, and mixed operands whose rows TMA does not move
+    (D not a multiple of 8 beside a half operand), run the SIMT route,
     within the output dtype's FA_TOL (and one rounding of a half output)
     of the twin, the same from run to run."""
     fa = _mod("flash_attention")
@@ -810,7 +902,8 @@ def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                         "simt_launches": 1, "twin_calls": 0}
+                         "tf32x3_launches": 0, "simt_launches": 1,
+                         "twin_calls": 0}
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == twin.dtype == dtypes[0] and ker.shape == q.shape
     tol = FA_TOL[dtypes[0]]
