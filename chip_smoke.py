@@ -330,6 +330,19 @@ ATTENTION_MODELS = {
     "qwen2_7b": (1, 28, 4, 4096, 128, True),
     "whisper_medium_encoder": (1, 16, 16, 1500, 64, False),
 }
+# K9's route through registers (tf32x3_any), (B, H, Hkv, S, D, causal,
+# dtype): f32 at D = 160 (whisper-medium's encoder shape with a head dim
+# no configured model has), and gemma-2-9b's attention width (its
+# published config: 16 heads, 8 kv heads, head_dim 256; the shape alone:
+# its logit soft-capping and sliding window are not part of K9's
+# function) at S = 4096, causal, in f32 and bf16
+ATTENTION_ANY = {
+    "d160_f32": (1, 16, 16, 1500, 160, False, torch.float32),
+    "gemma2_9b_f32": (1, 16, 8, 4096, 256, True, torch.float32),
+    "gemma2_9b_bf16": (1, 16, 8, 4096, 256, True, torch.bfloat16),
+}
+# the SIMT route past D = 256, f32, timed beside SDPA
+ATTENTION_SIMT = (1, 16, 16, 1500, 320, False)
 
 # the launch probe's device ms (both trees' kernels carry these names)
 PROBE_DEVICE = {"K1_fused_sweep_2^18": "fused_sweep_kernel",
@@ -1041,7 +1054,8 @@ def device_ms(fn, needle, reps=20, tries=5):
     launches each of its kernels once).  On the card the profiler has
     been seen to drop kernel records from a trace, which medians survive;
     a trace that holds fewer than ``reps // 2`` records of a name is
-    taken again, up to ``tries`` times; then the run fails."""
+    taken again, up to ``tries`` times; then the time is taken with CUDA
+    events instead (:func:`profiler_dropped`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1058,9 +1072,18 @@ def device_ms(fn, needle, reps=20, tries=5):
                     e.time_range.end - e.time_range.start)
         if spans and min(map(len, spans.values())) >= reps // 2:
             return sum(float(np.median(v)) for v in spans.values()) * 1e-3
-    raise AssertionError(f"device time of {needle}: {tries} profiler traces "
-                         f"each held fewer than {reps // 2} of {reps} "
-                         f"kernel records")
+    return profiler_dropped(fn, needle, reps, tries)
+
+
+def profiler_dropped(fn, needle, reps, tries):
+    """CUDA-event ms per call of ``fn`` where ``tries`` profiler traces
+    dropped its kernel records, with a line that says so: the measuring
+    guide's fallback when the profiler shows no device time.  For a
+    kernel of milliseconds the events' per-launch host share is small."""
+    ms = time_ms(fn, reps)
+    emit({"profiler_dropped": {"kernels": needle, "reps": reps,
+                               "tries": tries, "cuda_event_ms": ms}})
+    return ms
 
 
 def library_device_ms(fn, reps=20, tries=5):
@@ -1068,8 +1091,10 @@ def library_device_ms(fn, reps=20, tries=5):
     whatever their names, from ``torch.profiler`` over ``reps``
     back-to-back calls: for each kernel name, its median span times the
     number of times a call launches it (its records over ``reps``,
-    rounded, so a dropped record does not count).  A trace with no kernel
-    is taken again, up to ``tries`` times; then the run fails."""
+    rounded, so a dropped record does not count, and at least one: after
+    the warm-up call, a kernel in the trace is one the call launches).
+    A trace with no kernel is taken again, up to ``tries`` times; then
+    the time is taken with CUDA events (:func:`profiler_dropped`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1084,12 +1109,11 @@ def library_device_ms(fn, reps=20, tries=5):
             if e.device_type == DeviceType.CUDA:
                 spans.setdefault(e.name, []).append(
                     e.time_range.end - e.time_range.start)
-        total = sum(float(np.median(v)) * round(len(v) / reps)
+        total = sum(float(np.median(v)) * max(1, round(len(v) / reps))
                     for v in spans.values())
         if total > 0:
             return total * 1e-3
-    raise AssertionError(f"library device time: {tries} profiler traces "
-                         f"held no kernel")
+    return profiler_dropped(fn, "library call", reps, tries)
 
 
 # ---------------------------------------------------------------------------
@@ -2816,15 +2840,19 @@ def attention_ops(b, h, s, d, causal, dtype, route, n_half=0):
     """``(fp32, half, tf32)`` operations of the route's arithmetic per
     unmasked score.  wgmma: ``2 D`` for q . k and ``4 D`` for the split
     p . v (``P_hi V + P_lo V``), all products of two f16/bf16 values
-    (exact in f32), so half operations.  tf32x3: three TF32 products for
-    each of q . k and p . v, ``12 D``, less ``2 D`` for each of the
-    ``n_half`` half operands (its lo is zero).  SIMT: ``2 D`` for q . k,
-    half operations with f16/bf16 operands, and ``2 D`` FP32 for p . v
-    (p in f32); all ``4 D`` FP32 in f32."""
+    (exact in f32), so half operations.  tf32x3 and tf32x3_any: three TF32
+    products for each of q . k and p . v, ``12 D``, less ``2 D`` for each
+    of the ``n_half`` half operands (its lo is zero); with all three
+    operands half, the ``6 D`` left are products of half values (q . k
+    and the split p . v, as wgmma's), so half operations.  SIMT: ``2 D`` for
+    q . k, half operations with f16/bf16 operands, and ``2 D`` FP32 for
+    p . v (p in f32); all ``4 D`` FP32 in f32."""
     per_d = d * attention_scores(b, h, s, causal)
     if route == "wgmma":
         return 0, 6 * per_d, 0
-    if route == "tf32x3":
+    if route in ("tf32x3", "tf32x3_any"):
+        if n_half == 3:
+            return 0, 6 * per_d, 0
         return 0, 0, (12 - 2 * n_half) * per_d
     if dtype == torch.float32:
         return 4 * per_d, 0, 0
@@ -2873,27 +2901,31 @@ def expected_route(dts, d, shifted=False):
     """The route K9 should take for operands of dtypes ``dts`` and head dim
     ``d`` (``shifted``: q's base off a 16-byte boundary): wgmma for one
     half dtype, tf32x3 for f32 and mixed operands, each up to D = 128 with
-    rows TMA moves (16-byte multiples) and aligned bases; SIMT for the
-    rest."""
-    if d > 128 or shifted:
+    rows TMA moves (16-byte multiples) and aligned bases; tf32x3_any for
+    every other call up to D = 256; SIMT past it."""
+    if d > 256:
         return "simt"
-    if len(set(dts)) == 1 and dts[0] != torch.float32:
-        return "wgmma" if d % 8 == 0 else "simt"
-    row = 4 if set(dts) == {torch.float32} else 8
-    return "tf32x3" if d % row == 0 else "simt"
+    if d <= 128 and not shifted:
+        if len(set(dts)) == 1 and dts[0] != torch.float32:
+            if d % 8 == 0:
+                return "wgmma"
+        elif d % (4 if set(dts) == {torch.float32} else 8) == 0:
+            return "tf32x3"
+    return "tf32x3_any"
 
 
 def attention_cases(fa):
     """K9 against its twin at each dtype, shape and mask, and in f32 at the
     attention path's shapes, each on the route the wrapper picks (f16/bf16
-    on wgmma, f32 and mixed on tf32x3, D > 128 and rows TMA does not move
-    on SIMT), checked by the route's launch counter."""
+    on wgmma, f32 and mixed on tf32x3, the rest up to D = 256 on
+    tf32x3_any, past it on SIMT), checked by the route's launch
+    counter."""
     cases = [(dt, shape, causal) for dt in FA_TOL for shape in FA_SHAPES
              for causal in (True, False)]
     cases += [(torch.float32, shape[:5], shape[5])
               for shape in ATTENTION_MODELS.values()]
-    # mixed operand dtypes (tf32x3), head dims past 128, rows TMA does not
-    # move and misaligned bases (SIMT)
+    # mixed operand dtypes (tf32x3); head dims past 128, rows TMA does not
+    # move and misaligned bases (tf32x3_any); head dims past 256 (SIMT)
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
     cases += [((bf16, f32, f16), (1, 4, 2, 200, 64), True),
               ((f32, bf16, bf16), (1, 4, 2, 200, 128), False),
@@ -2906,8 +2938,15 @@ def attention_cases(fa):
               ((bf16, f32, f32), (1, 4, 2, 130, 12), True),
               (bf16, (1, 4, 2, 200, 256), False),
               (f16, (1, 4, 4, 130, 160), True),
+              ((f32, f16, bf16), (2, 8, 2, 127, 200), True),
+              (bf16, (1, 8, 1, 1500, 256), True),
               (f32, (1, 4, 2, 200, 64), True, True),
-              (f32, (1, 4, 2, 127, 128), False, True)]
+              (f32, (1, 4, 2, 127, 128), False, True),
+              (bf16, (1, 4, 2, 200, 128), True, True),
+              (f32, (1, 4, 2, 200, 320), True),
+              (bf16, (1, 4, 2, 130, 264), False),
+              ((f32, bf16, bf16), (1, 4, 2, 130, 300), True),
+              (f16, (1, 4, 2, 130, 264), True, True)]
     recs = []
     for dt, (b, h, hkv, s, d), causal, *shifted in cases:
         shifted = bool(shifted)
@@ -3009,8 +3048,11 @@ def attention_f32_path(fa, kernel_mods):
     dtype, within 1e-5 of the twin (f32) or one rounding of it (bf16),
     and bit-equal on a second call.  Then the kernel's, twin's and SDPA's
     (f32, TF32 off; no call takes mixed dtypes) times, the 3xTF32 bound
-    and the FP32 one.  Last, the SIMT route at f32 with D = 160 (no
-    configured model has it: checked and timed directly)."""
+    and the FP32 one, and the route through registers (tf32x3_any, forced
+    by ``flash_attention._run`` outside the counted call) checked and
+    timed on the same call.  Then :func:`attention_any_path`, and last the
+    SIMT route at f32 with D = 320 (no configured model has it: checked
+    and timed directly, beside SDPA)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -3059,7 +3101,21 @@ def attention_f32_path(fa, kernel_mods):
                 ratio = half_rule(out, twin)
                 check(ratio <= 1.0, f"attention {key}: off its twin by "
                       f"{float(err.max())}, {ratio} x one bf16 rounding")
-            del twin, out
+
+            def forced_any():
+                return fa._run(q, k, v, causal, "tf32x3_any")
+            # the route through registers on the same call, beside tf32x3
+            alt = forced_any()
+            torch.cuda.synchronize()
+            if label == "f32":
+                check(float((alt.float() - twin.float()).abs().sub(
+                    FA_TOL[torch.float32] * (1.0 + twin.float().abs()))
+                    .max()) <= 0.0, f"attention {key}: tf32x3_any off "
+                    f"its twin (tolerance 1e-5)")
+            else:
+                check(half_rule(alt, twin) <= 1.0, f"attention {key}: "
+                      f"tf32x3_any off its twin by one bf16 rounding")
+            del twin, out, alt
 
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -3085,17 +3141,23 @@ def attention_f32_path(fa, kernel_mods):
                             max_abs_err=float(err.max()),
                             over_one_rounding=ratio,
                             fp32_bound_ms=fp32_ops / PEAK_FP32 * 1e3,
+                            tf32x3_any_ms=time_ms(forced_any, 5, windows=3),
+                            tf32x3_any_device_ms=device_ms(
+                                forced_any,
+                                "flash_attention_tf32x3_any_kernel", 5),
                             **times)
-    # the SIMT route: a head dim past 128 (f32)
-    b, h, hkv, s, d, causal = 1, 16, 16, 1500, 160, False
+    # the route through registers (tf32x3_any), then the SIMT route past
+    # D = 256
+    rec.update(attention_any_path(fa, kernel_mods))
+    b, h, hkv, s, d, causal = ATTENTION_SIMT
     q, k, v = attention_inputs(b, h, hkv, s, d, 31, torch.float32)
-    check(fa.route(q, k, v) == "simt", "f32 D = 160: not on SIMT")
+    check(fa.route(q, k, v) == "simt", f"f32 D = {d}: not on SIMT")
     simt_case = close_case(
         f"flash_{b}x{h}x{hkv}x{s}x{d}_full_float32",
         lambda: fa.flash_attention(q, k, v, causal),
         lambda: fa.flash_attention_torch(q, k, v, causal),
         FA_TOL[torch.float32], route="simt")
-    rec["simt_d160"] = dict(
+    rec[f"simt_d{d}"] = dict(
         route="simt", max_abs_err=simt_case["max_abs_err"],
         **timing_row(f"{b}x{h}x{hkv}x{s}x{d} full f32 (SIMT)",
                      lambda: fa.flash_attention(q, k, v, causal),
@@ -3104,8 +3166,93 @@ def attention_f32_path(fa, kernel_mods):
                          q, k, v, is_causal=causal),
                      q.element_size() * (2 * q.numel() + 2 * k.numel()),
                      attention_ops(b, h, s, d, causal, q.dtype, "simt"),
-                     "flash_attention_kernel_any", reps=5, plain_reps=2))
+                     "flash_attention_kernel_any", reps=3, plain_reps=2))
     emit({"attention_f32": rec})
+    return rec
+
+
+def attention_any_path(fa, kernel_mods):
+    """K9's route through registers (tf32x3_any) at :data:`ATTENTION_ANY`,
+    through ``ops.flash_attention``, with the launch counters zeroed just
+    before each call and read just after: one launch, on tf32x3_any; the
+    output finite, of q's shape and dtype, within 1e-5 of the twin (f32)
+    or one rounding of it (bf16), bit-equal on a second call.  Then the
+    kernel's, the twin's, SDPA's (f32 with TF32 off; bf16) and the SIMT
+    kernel's times at the same inputs (the SIMT kernel forced by
+    ``flash_attention._run``, outside the counted call), the bound (3xTF32,
+    or half with all operands half) and the FP32 one."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rec = {}
+    for seed, (name, (b, h, hkv, s, d, causal, dt)) in enumerate(
+            ATTENTION_ANY.items()):
+        q, k, v = attention_inputs(b, h, hkv, s, d, 200 + 10 * seed, dt)
+        mode = "causal" if causal else "full"
+        check(fa.route(q, k, v) == "tf32x3_any",
+              f"attention {name}: not on tf32x3_any")
+        ops.flash_attention(q, k, v, causal=causal)     # warm-up
+        reset_all(kernel_mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.COUNTS["kernel_launches"]
+        any_launches = fa.COUNTS["tf32x3_any_launches"]
+        twins = sum(m.COUNTS[c] for m in kernel_mods for c in m.COUNTS
+                    if "twin" in c)
+        check(launches == 1 and any_launches == 1 and twins == 0,
+              f"attention {name}: {launches} kernel launches "
+              f"({any_launches} tf32x3_any), {twins} twin calls")
+        check(out.shape == q.shape and out.dtype == q.dtype
+              and bool(torch.isfinite(out).all()),
+              f"attention {name}: output not finite {tuple(q.shape)}")
+        again = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"attention {name}: differs from run to run")
+        del again
+        twin = fa.flash_attention_torch(q, k, v, causal)
+        err = (out.float() - twin.float()).abs()
+        if dt == torch.float32:
+            over = float((err - FA_TOL[torch.float32]
+                          * (1.0 + twin.float().abs())).max())
+            ratio = None
+            check(over <= 0.0, f"attention {name}: off its twin by "
+                  f"{float(err.max())} (tolerance 1e-5)")
+        else:
+            ratio = half_rule(out, twin)
+            check(ratio <= 1.0, f"attention {name}: off its twin by "
+                  f"{float(err.max())}, {ratio} x one rounding")
+        del twin, out
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        def simt():
+            return fa._run(q, k, v, causal, "simt")
+        n_half = 3 * int(dt != torch.float32)
+        times = timing_row(
+            f"{b}x{h}x{hkv}x{s}x{d} {mode} {dtype_name(dt)}",
+            lambda: fa.flash_attention(q, k, v, causal),
+            lambda: fa.flash_attention_torch(q, k, v, causal), sdpa,
+            q.element_size() * 2 * (q.numel() + k.numel()),
+            attention_ops(b, h, s, d, causal, dt, "tf32x3_any", n_half),
+            "flash_attention_tf32x3_any_kernel", reps=5, plain_reps=2)
+        fp32_ops = attention_ops(b, h, s, d, causal, torch.float32,
+                                 "simt")[0]
+        rec[name] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
+                         q_dtype=dtype_name(dt), route="tf32x3_any",
+                         wall_s=wall, kernel_launches=launches,
+                         tf32x3_any_launches=any_launches, twin_calls=twins,
+                         max_abs_err=float(err.max()),
+                         over_one_rounding=ratio,
+                         fp32_bound_ms=fp32_ops / PEAK_FP32 * 1e3,
+                         simt_ms=time_ms(simt, 3, windows=3),
+                         simt_device_ms=device_ms(
+                             simt, "flash_attention_kernel_any", 3),
+                         **times)
     return rec
 
 
@@ -5245,7 +5392,8 @@ def main() -> int:
         power_limit=power, **by_shape[0], by_shape=by_shape))
     t3_keys = keys + ("tf32_operations", "fp32_bound_ms", "max_abs_err")
     t3_rows = [r for r in attn_f32.values() if r["route"] == "tf32x3"]
-    t3_by_shape = [{k: r[k] for k in t3_keys} for r in t3_rows]
+    t3_by_shape = [{k: r[k] for k in t3_keys + (
+        "tf32x3_any_ms", "tf32x3_any_device_ms")} for r in t3_rows]
     entries.append(dict(
         name="flash_attention_tf32x3", route="cuda",
         source=src + "flash_attention.cu",
@@ -5261,15 +5409,32 @@ def main() -> int:
         power_limit=power,
         **{k: v for k, v in t3_by_shape[0].items() if k != "max_abs_err"},
         by_shape=t3_by_shape))
-    simt = attn_f32["simt_d160"]
+    any_keys = t3_keys + ("simt_ms", "simt_device_ms")
+    any_rows = [r for r in attn_f32.values() if r["route"] == "tf32x3_any"]
+    any_by_shape = [{k: r[k] for k in any_keys} for r in any_rows]
+    entries.append(dict(
+        name="flash_attention_tf32x3_any", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:35",
+        kernel="flash_attention_tf32x3_any_kernel (D <= 256 beyond the TMA "
+               "routes: 3xTF32 mma.sync, loads through registers)",
+        launches=sum(r["tf32x3_any_launches"] for r in any_rows),
+        path="attention at D = 160 (f32) and gemma-2-9b's width (f32, "
+             "bf16) (ops.flash_attention)",
+        max_abs_err=max([r["max_abs_err"] for r in k9
+                         if r["route"] == "tf32x3_any"]
+                        + [r["max_abs_err"] for r in any_rows
+                           if r["q_dtype"] == "float32"]),
+        power_limit=power,
+        **{k: v for k, v in any_by_shape[0].items() if k != "max_abs_err"},
+        by_shape=any_by_shape))
+    simt = attn_f32[f"simt_d{ATTENTION_SIMT[4]}"]
     entries.append(dict(
         name="flash_attention_simt", route="cuda",
         source=src + "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:35",
-        kernel="flash_attention_kernel_any (D > 128, rows TMA does not "
-               "move, misaligned bases)",
-        launches=0, path="none (D > 128 and unaligned operands; checked "
-                         "directly)",
+        kernel="flash_attention_kernel_any (D > 256)",
+        launches=0, path="none (D > 256; checked directly)",
         max_abs_err=max(r["max_abs_err"] for r in k9
                         if r["route"] == "simt"),
         power_limit=power, **{k: simt[k] for k in keys}))

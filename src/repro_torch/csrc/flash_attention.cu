@@ -16,7 +16,7 @@
 // skips the blocks above it; the longest query tiles launch first.  Rows
 // and columns past S are masked in the kernel, not padded in memory, so any
 // S >= 1 is taken.  No atomics: each output row is written by one block,
-// so two runs agree bit for bit.  Three routes, picked by the wrapper
+// so two runs agree bit for bit.  Four routes, picked by the wrapper
 // (repro_torch/kernels/flash_attention.py::route):
 //
 // * the tensor-core route (repro_flash_attention_wgmma) for f16/bf16
@@ -27,8 +27,10 @@
 //   f32, D % 8 == 0 with a half operand) and 16-byte-aligned bases.  One
 //   TF32 product keeps 11 bits of each operand, ~2^-11 of a score, which is
 //   another function than the reference's f32 one; three keep ~2^-22;
-// * the SIMT route (repro_flash_attention) for the rest: D > 128, rows TMA
-//   does not move, misaligned bases.
+// * the 3xTF32 route through registers (repro_flash_attention_tf32x3_any)
+//   for every other call with D up to 256, any dtype mix: D > 128, rows TMA
+//   does not move, misaligned bases;
+// * the SIMT route (repro_flash_attention) for D > 256.
 //
 // What bounds it on the card: the operations.  For qwen2-7b's attention at
 // S = 4096 (H = 28, Hkv = 4, D = 128, causal) the tensor-core route does
@@ -37,7 +39,11 @@
 // 0.056 ms at the SFU rate and the bytes ~0.02 ms.  The 3xTF32 route does
 // 12 D TF32 operations per score (2 D fewer for each half operand),
 // 3.61e11, 0.729 ms at 495 TFLOP/s.  The SIMT route does 4 D FP32
-// operations per score: 1.20e11, 1.80 ms at 67 TFLOP/s.
+// operations per score: 1.20e11, 1.80 ms at 67 TFLOP/s.  The route through
+// registers counts as the 3xTF32 one: at gemma-2-9b's width (H = 16, Hkv =
+// 8, D = 256, S = 4096, causal) 12 D TF32 operations per score, 4.12e11,
+// 0.833 ms in f32.  With every operand half, the 6 D left are products of
+// half values, as the wgmma route's: 2.06e11, 0.208 ms at 989 TFLOP/s.
 //
 // The tensor-core route (flash_attention_wgmma_kernel): one block owns 192
 // (D <= 64) or 128 query rows of one (batch, head): three or two consumer
@@ -128,6 +134,63 @@
 //     all) on 4 warps, then a single consumer warpgroup whose softmax the
 //     tensor cores wait on.
 //
+// The 3xTF32 route through registers (flash_attention_tf32x3_any_kernel,
+// namespace ta): the tf32x3 route's arithmetic for what TMA does not move
+// (any D up to 256, rows of any length, any base), in warp-level
+// mma.sync.m16n8k8 .tf32 products, whose A fragment comes from registers.
+// One block owns 64 query rows of one (batch, head): four consumer warps of
+// 16 rows and a producer warpgroup of 128 threads; 256 threads, one block
+// an SM (__launch_bounds__(256, 1): up to 255 registers a thread).
+//   * Staged head width DP: D rounded up to 32, 64, 128, 160, 192 or 256
+//     (one instantiation each; columns past D zero-filled in shared
+//     memory, so they add nothing).  kv rows a tile T: 32 up to DP = 160,
+//     24 at 192, 16 at 256, so that Q (256 DP bytes, f32) and two stages
+//     of K_hi, K_lo, V_hi, V_lo (16 T DP bytes each) fit: 192 KB at
+//     DP = 256, 192 KB at 192, 200 KB at 160, 160 KB at 128, 80 KB at 64.
+//   * Shared memory holds 16-byte units, each one lane's operand of one
+//     mma: Q's A fragment (f32; a half q's four 16-bit values, 8 bytes), K's
+//     B fragment of S = Q K^T (hi, then lo), V's of O += P V.  A warp's 32
+//     lanes read 32 consecutive units, swizzled within each 128-byte row
+//     (unit_k, unit_v), so loads and the producer's stores are free of bank
+//     conflicts.  A half K or V is exact in TF32: its unit is its two values
+//     alone (8 bytes), and its lo products are not issued.
+//   * Loads through registers, not TMA: the producer reads a chunk of 8
+//     columns of a row (K), or of two rows (V), by 16-byte loads where the
+//     base is 16-byte aligned and a row a 16-byte multiple, element by
+//     element otherwise (a half operand 2 bytes off a 4-byte boundary takes
+//     no vector load, not even cp.async's 4 bytes), zero past row S and
+//     column D; each load is predicated, not branched around, so a
+//     thread's loads of a tile are in flight together.  Tile i + 1 is
+//     loaded into registers as soon as tile i is split and stored, while
+//     the consumers multiply tile i; then it is widened to f32, split
+//     (hi = tf32_rna(x), lo = tf32_rna(x - hi), hi stored rounded) and
+//     stored once its stage is free.  mbarriers: full (128 producer
+//     arrivals), empty (4 consumer warps), two stages.
+//   * S: Q is split at each use (two integer instructions a value for hi;
+//     a pre-split Q_hi + Q_lo would take 128 KB at DP = 256, and Q_hi in
+//     registers DP / 2 of them beside O's DP / 2).  Q_lo K_hi and Q_hi K_lo
+//     accumulate apart from Q_hi K_hi (three independent chains for each
+//     n8 tile; the chain a half operand frees takes every second or third
+//     slice's Q_hi K_hi), then (lo hi + hi lo) + hi hi.
+//   * Online softmax in base 2 from a running max of -1e30 on the m16n8
+//     accumulator layout (the wgmma route's, on T columns); O is rescaled
+//     only when some row of the warp changed its max (alpha is exactly 1
+//     otherwise).  P passes from the S accumulator to the A fragment with
+//     no shuffle: the accumulator holds columns (2t, 2t + 1) where the A
+//     fragment means (t, t + 4), so V's rows are permuted within each
+//     group of 8 as (0, 2, 4, 6, 1, 3, 5, 7): V's unit holds rows 2t and
+//     2t + 1.  O += P_lo V_hi + P_hi V_lo + P_hi V_hi, small terms first.
+//   * Registers (ptxas): 255 at DP = 256 (12 bytes spilled) and 192,
+//     244 at 160, 211 at 128; O takes DP / 2 of them.
+//   * Causal blocks stop at the diagonal tile, the longest query tiles
+//     first; a warp whose rows all lie above a tile skips it (it still
+//     waits for the tile and frees it).  No atomics.
+//   * What holds it back is not measured (no stall breakdown runs on this
+//     card); our guess: one consumer warp an SM sub-partition waits on its
+//     own shared-memory loads and mma chains (registers leave no room for
+//     a second), each warp reads the whole K and V tile from shared memory,
+//     and the producer's split and stores take issue slots beside it.
+//
 // The SIMT kernel (flash_attention_kernel_any; the port's first design):
 // one block owns 64 query rows, 8 warps of 8 rows, K/V tiles of 64 rows
 // staged as f32 in dynamic shared memory, all arithmetic FP32 on the CUDA
@@ -146,11 +209,11 @@
 //     Each 128-column chunk of the output repeats the kv walk (so for
 //     D > 128 it computes the scores D / 128 times over; no configured
 //     model has such a head dim).
-// It takes what the two tensor-core routes do not: D > 128, rows TMA does
-// not move, misaligned bases.
+// It takes D > 256, which no route on the tensor cores takes.
 
 // Plain C interfaces (repro_flash_attention, repro_flash_attention_wgmma,
-// repro_flash_attention_tf32x3) for ctypes; the Python wrapper is
+// repro_flash_attention_tf32x3, repro_flash_attention_tf32x3_any) for
+// ctypes; the Python wrapper is
 // repro_torch/kernels/flash_attention.py::flash_attention.  A launch is
 // refused (cudaErrorInvalidValue) past the caps or the grid's limits.
 
@@ -1398,6 +1461,555 @@ int launch(const void* q, const void* k, const void* v, void* out, int qc,
 
 }  // namespace t3
 
+// ------------------------------ 3xTF32 through registers: any D up to 256
+
+namespace ta {
+
+using namespace hopper;
+
+constexpr int kBM = 64;            // query rows a block: 4 consumer warps
+constexpr int kThreads = 256;      // consumer warps 0-3, producer warps 4-7
+constexpr int kProducers = 128;
+
+// The tile plan at a staged head width DP (a multiple of 32; columns past
+// D are zero): kBN kv rows a tile, so that Q (256 DP bytes) and two stages
+// of K_hi, K_lo, V_hi, V_lo (16 kBN DP bytes each) fit the 227 KB a block
+// may have.  Shared memory is kept in units, each one thread's operand of
+// one mma.sync (16 bytes; 8 for a half operand): Q [4 warps][DP / 8
+// slices][32 lanes], and a K or V tile [kBN / 8][DP / 8][32 lanes].
+template <int DP>
+struct Plan {
+  static constexpr int kBN = DP <= 160 ? 32 : DP <= 192 ? 24 : 16;
+  static constexpr int kSlices = DP / 8;   // k8 slices of Q K^T, n8 of P V
+  static constexpr int kNT = kBN / 8;      // n8 tiles of S, k8 slices of P V
+  static constexpr int kQUnits = 4 * kSlices * 32;
+  static constexpr int kTileUnits = kNT * kSlices * 32;
+  // the producer's work a tile: K in (row, slice) chunks of 8 columns, V
+  // in (kv slice, n8 tile, t) chunks of 2 rows by 8 columns
+  static constexpr int kKChunks = kBN * kSlices;
+  static constexpr int kVChunks = kNT * kSlices * 4;
+  static constexpr int kKIters = (kKChunks + kProducers - 1) / kProducers;
+  static constexpr int kVIters = (kVChunks + kProducers - 1) / kProducers;
+  // units, then the barriers: full[2] (128 producer arrivals), empty[2]
+  // (4 consumer warps)
+  static constexpr size_t kBytes =
+      16 * (size_t)(kQUnits + 4 * kTileUnits) + 8 * 4;
+};
+
+// Columns c0 .. c0 + 7 of row `row` of a [s, d] slab, zero past row s and
+// column d, as loaded: where `vec` (the slab's base 16-byte aligned and its
+// rows a 16-byte multiple) by 16-byte loads of the raw words (f32: columns
+// 0-3 in a, 4-7 in b; a half type: all eight in a), each predicated rather
+// than branched around, so that all of a thread's loads of a tile are in
+// flight together; otherwise element by element, widened to f32 at once.
+struct Raw8 {
+  uint4 a, b;
+};
+
+__device__ __forceinline__ Raw8 load_raw(AnyDtype slab, int row, int c0,
+                                         int s, int d, bool vec) {
+  Raw8 r;
+  r.a = r.b = make_uint4(0u, 0u, 0u, 0u);
+  const bool in = row < s;
+  const long long at = (long long)(in ? row : 0) * d + c0;
+  if (vec) {
+    if (slab.code == 0) {
+      const uint4* p = reinterpret_cast<const uint4*>(
+          static_cast<const float*>(slab.p) + at);
+      if (in && c0 + 4 <= d) r.a = p[0];
+      if (in && c0 + 8 <= d) r.b = p[1];
+    } else {
+      const uint4* p = reinterpret_cast<const uint4*>(
+          static_cast<const uint16_t*>(slab.p) + at);
+      if (in && c0 + 8 <= d) r.a = p[0];
+    }
+  } else {
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = in && c0 + e < d ? load(slab, at + e) : 0.f;
+    }
+    r.a = make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                     __float_as_uint(x[2]), __float_as_uint(x[3]));
+    r.b = make_uint4(__float_as_uint(x[4]), __float_as_uint(x[5]),
+                     __float_as_uint(x[6]), __float_as_uint(x[7]));
+  }
+  return r;
+}
+
+// A 16-bit value of dtype code QC (1 f16, 2 bf16) as an f32's bits: exact
+// in TF32.
+template <int QC>
+__device__ __forceinline__ uint32_t widen16(uint32_t bits) {
+  if constexpr (QC == 1) {
+    return __float_as_uint(
+        __half2float(__ushort_as_half((unsigned short)bits)));
+  } else {
+    return bits << 16;
+  }
+}
+
+// The eight values of a Raw8 as f32.
+__device__ __forceinline__ void widen(const Raw8& r, int code, bool vec,
+                                      float (&x)[8]) {
+  if (!vec || code == 0) {
+    const uint32_t w[8] = {r.a.x, r.a.y, r.a.z, r.a.w,
+                           r.b.x, r.b.y, r.b.z, r.b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __uint_as_float(w[e]);
+    return;
+  }
+  const uint32_t w[4] = {r.a.x, r.a.y, r.a.z, r.a.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const uint32_t bits = (w[e / 2] >> (16 * (e % 2))) & 0xffffu;
+    x[e] = __uint_as_float(code == 1 ? widen16<1>(bits) : widen16<2>(bits));
+  }
+}
+
+// The 16-byte unit (hi(a), hi(b), lo(a), lo(b)) of x = hi + lo, hi =
+// tf32_rna(x), lo = tf32_rna(x - hi).
+__device__ __forceinline__ uint4 split_pair(float a, float b) {
+  uint4 u;
+  t3::split1(a, u.x, u.z);
+  t3::split1(b, u.y, u.w);
+  return u;
+}
+
+// The unit of a half operand: (a, b), exact in TF32, with no lo.
+__device__ __forceinline__ uint2 half_pair(float a, float b) {
+  return make_uint2(__float_as_uint(a), __float_as_uint(b));
+}
+
+// Where lane l's unit lies in its 32-unit block: l ^ (l / 8), and for an
+// odd n8 tile of V also ^ 4.  It permutes each 8-unit (128-byte) row, so a
+// quarter warp's loads stay on eight distinct 16-byte bank groups, and it
+// spreads the producer's stores of one step (units 4 g + t of one t, or of
+// one g) over eight of them as well.
+__device__ __forceinline__ int unit_k(int l) { return l ^ (l >> 3); }
+__device__ __forceinline__ int unit_v(int l, int nt) {
+  return l ^ (l >> 3) ^ ((nt & 1) << 2);
+}
+
+// K of one tile into registers: chunk c is row 8 nt + g, columns 8 sl ..
+// 8 sl + 7 (g = c % 8, then sl, then nt), so lanes 0-7 read the same
+// slice of eight rows.
+template <int DP>
+__device__ __forceinline__ void load_k(AnyDtype kp, int k0, int s, int d,
+                                       bool vec, int ptid,
+                                       Raw8 (&x)[Plan<DP>::kKIters]) {
+  using P = Plan<DP>;
+#pragma unroll
+  for (int it = 0; it < P::kKIters; ++it) {
+    const int c = ptid + kProducers * it;
+    if (P::kKChunks % kProducers == 0 || c < P::kKChunks) {
+      const int g = c % 8, sl = (c / 8) % P::kSlices, nt = (c / 8) / P::kSlices;
+      x[it] = load_raw(kp, k0 + 8 * nt + g, 8 * sl, s, d, vec);
+    }
+  }
+}
+
+// ... split and stored as the B operand of S = Q K^T: unit (nt, sl, lane
+// 4 g + t) holds K row 8 nt + g at columns 8 sl + t and 8 sl + t + 4 (b0,
+// b1), at unit_k(4 g + t) of its block: an f32 K's hi then lo (16 bytes),
+// a half K's values alone (8 bytes; the tile's first half).
+template <int DP>
+__device__ __forceinline__ void store_k(uint4* kt, int code, bool vec,
+                                        int ptid,
+                                        Raw8 (&r)[Plan<DP>::kKIters]) {
+  using P = Plan<DP>;
+#pragma unroll
+  for (int it = 0; it < P::kKIters; ++it) {
+    const int c = ptid + kProducers * it;
+    if (P::kKChunks % kProducers == 0 || c < P::kKChunks) {
+      const int g = c % 8, sl = (c / 8) % P::kSlices, nt = (c / 8) / P::kSlices;
+      const int blk = (nt * P::kSlices + sl) * 32;
+      float x[8];
+      widen(r[it], code, vec, x);
+      if (code == 0) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          kt[blk + unit_k(4 * g + t)] = split_pair(x[t], x[t + 4]);
+        }
+      } else {
+        uint2* kh = reinterpret_cast<uint2*>(kt);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          kh[blk + unit_k(4 * g + t)] = half_pair(x[t], x[t + 4]);
+        }
+      }
+    }
+  }
+}
+
+// V of one tile into registers: chunk c is kv rows 8 j + 2 t and 8 j + 2 t
+// + 1, columns 8 nt .. 8 nt + 7 (t = c % 4, then nt, then j).
+template <int DP>
+__device__ __forceinline__ void load_v(AnyDtype vp, int k0, int s, int d,
+                                       bool vec, int ptid,
+                                       Raw8 (&x)[Plan<DP>::kVIters][2]) {
+  using P = Plan<DP>;
+#pragma unroll
+  for (int it = 0; it < P::kVIters; ++it) {
+    const int c = ptid + kProducers * it;
+    if (P::kVChunks % kProducers == 0 || c < P::kVChunks) {
+      const int t = c % 4, nt = (c / 4) % P::kSlices, j = (c / 4) / P::kSlices;
+      const int r = k0 + 8 * j + 2 * t;
+      x[it][0] = load_raw(vp, r, 8 * nt, s, d, vec);
+      x[it][1] = load_raw(vp, r + 1, 8 * nt, s, d, vec);
+    }
+  }
+}
+
+// ... split and stored as the B operand of O += P V.  P reaches the A
+// fragment straight from the S accumulator, whose lane (g, t) holds
+// columns 2t and 2t + 1 where the A fragment means t and t + 4: logical
+// column kappa of kv slice j is P's column 8 j + perm(kappa), perm = (0, 2,
+// 4, 6, 1, 3, 5, 7), so V's rows are permuted alike: unit (j, nt, lane 4 g
+// + t) holds V rows 8 j + 2 t and 8 j + 2 t + 1 (b0 = row perm(t), b1 = row
+// perm(t + 4)) at column 8 nt + g, at unit_v(4 g + t, nt) of its block: an
+// f32 V's hi then lo, a half V's values alone.
+template <int DP>
+__device__ __forceinline__ void store_v(uint4* vt, int code, bool vec,
+                                        int ptid,
+                                        Raw8 (&r)[Plan<DP>::kVIters][2]) {
+  using P = Plan<DP>;
+#pragma unroll
+  for (int it = 0; it < P::kVIters; ++it) {
+    const int c = ptid + kProducers * it;
+    if (P::kVChunks % kProducers == 0 || c < P::kVChunks) {
+      const int t = c % 4, nt = (c / 4) % P::kSlices, j = (c / 4) / P::kSlices;
+      const int blk = (j * P::kSlices + nt) * 32;
+      float a[8], b[8];
+      widen(r[it][0], code, vec, a);
+      widen(r[it][1], code, vec, b);
+      if (code == 0) {
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          vt[blk + unit_v(4 * g + t, nt)] = split_pair(a[g], b[g]);
+        }
+      } else {
+        uint2* vh = reinterpret_cast<uint2*>(vt);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          vh[blk + unit_v(4 * g + t, nt)] = half_pair(a[g], b[g]);
+        }
+      }
+    }
+  }
+}
+
+// S = Q K^T of one tile for a warp's 16 rows, n8 tile nt into x[4 nt ..
+// 4 nt + 3] (the m16n8 accumulator layout).  An f32 Q is split at each use
+// (its f32 unit is the A fragment); a half Q (dtype code QC) is widened
+// from its 8-byte unit.  Q_lo K_hi and Q_hi K_lo go to accumulators of
+// their own, added to each other and then to Q_hi K_hi once the slices are
+// done (small terms first).  A half operand's lo is zero and its product
+// is not issued; the accumulator it frees takes every second (or third)
+// slice's Q_hi K_hi, so that a tile always has three independent chains
+// for each n8 tile.
+template <int DP, int QC, bool kK32>
+__device__ __forceinline__ void scores(float (&x)[Plan<DP>::kNT * 4],
+                                       const uint4* qw, const uint4* kt,
+                                       int lane) {
+  constexpr bool kQ32 = QC == 0;
+  // the accumulators Q_hi K_hi takes in turn: sc, then sa (a half Q),
+  // then sb (a half K)
+  constexpr int kTurns = 1 + !kQ32 + !kK32;
+  const int uk = unit_k(lane);
+  using P = Plan<DP>;
+  float sa[P::kNT][4], sb[P::kNT][4], sc[P::kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < P::kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sa[nt][e] = sb[nt][e] = sc[nt][e] = 0.f;
+  }
+#pragma unroll
+  for (int sl = 0; sl < P::kSlices; ++sl) {
+    uint32_t qh[4], ql[4];
+    if constexpr (kQ32) {
+      const uint4 qv = qw[sl * 32 + lane];
+      t3::split1(__uint_as_float(qv.x), qh[0], ql[0]);
+      t3::split1(__uint_as_float(qv.y), qh[1], ql[1]);
+      t3::split1(__uint_as_float(qv.z), qh[2], ql[2]);
+      t3::split1(__uint_as_float(qv.w), qh[3], ql[3]);
+    } else {
+      const uint2 qv = reinterpret_cast<const uint2*>(qw)[sl * 32 + lane];
+      qh[0] = widen16<QC>(qv.x & 0xffffu);
+      qh[1] = widen16<QC>(qv.x >> 16);
+      qh[2] = widen16<QC>(qv.y & 0xffffu);
+      qh[3] = widen16<QC>(qv.y >> 16);
+    }
+    const int turn = sl % kTurns;          // a constant once unrolled
+#pragma unroll
+    for (int nt = 0; nt < P::kNT; ++nt) {
+      const int at = (nt * P::kSlices + sl) * 32 + uk;
+      uint32_t kh0, kh1;
+      if constexpr (kK32) {
+        const uint4 kv = kt[at];
+        kh0 = kv.x;
+        kh1 = kv.y;
+        if constexpr (kQ32) mma_tf32_m16n8k8(sa[nt], ql, kh0, kh1);
+        mma_tf32_m16n8k8(sb[nt], qh, kv.z, kv.w);
+      } else {
+        const uint2 kv = reinterpret_cast<const uint2*>(kt)[at];
+        kh0 = kv.x;
+        kh1 = kv.y;
+        if constexpr (kQ32) mma_tf32_m16n8k8(sa[nt], ql, kh0, kh1);
+      }
+      if (turn == 0) {
+        mma_tf32_m16n8k8(sc[nt], qh, kh0, kh1);
+      } else if (turn == 1 && !kQ32) {
+        mma_tf32_m16n8k8(sa[nt], qh, kh0, kh1);
+      } else {
+        mma_tf32_m16n8k8(sb[nt], qh, kh0, kh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < P::kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[4 * nt + e] = (sa[nt][e] + sb[nt][e]) + sc[nt][e];
+    }
+  }
+}
+
+// O += P_lo V_hi + P_hi V_lo + P_hi V_hi of one tile, small products first
+// (P_hi V_lo not issued for a half V): kv slice j's A fragments are P's
+// (ph[j], pl[j]); n8 tile nt of O its own accumulator.
+template <int DP, bool kV32>
+__device__ __forceinline__ void pv(float (&o)[DP / 8][4],
+                                   uint32_t (&ph)[Plan<DP>::kNT][4],
+                                   uint32_t (&pl)[Plan<DP>::kNT][4],
+                                   const uint4* vt, int lane) {
+  using P = Plan<DP>;
+#pragma unroll
+  for (int j = 0; j < P::kNT; ++j) {
+#pragma unroll
+    for (int nt = 0; nt < P::kSlices; ++nt) {
+      const int at = (j * P::kSlices + nt) * 32 + unit_v(lane, nt);
+      if constexpr (kV32) {
+        const uint4 vv = vt[at];
+        mma_tf32_m16n8k8(o[nt], pl[j], vv.x, vv.y);
+        mma_tf32_m16n8k8(o[nt], ph[j], vv.z, vv.w);
+        mma_tf32_m16n8k8(o[nt], ph[j], vv.x, vv.y);
+      } else {
+        const uint2 vv = reinterpret_cast<const uint2*>(vt)[at];
+        mma_tf32_m16n8k8(o[nt], pl[j], vv.x, vv.y);
+        mma_tf32_m16n8k8(o[nt], ph[j], vv.x, vv.y);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
+                                  AnyOut out, int h, int hkv, int s, int d,
+                                  float scale, int causal, int vec_k,
+                                  int vec_v) {
+  using P = Plan<DP>;
+  constexpr int T = P::kBN;
+  extern __shared__ __align__(16) uint4 ta_smem[];
+  uint4* s_q = ta_smem;
+  uint4* s_k = s_q + P::kQUnits;                  // 2 stages
+  uint4* s_v = s_k + 2 * P::kTileUnits;           // 2 stages
+  const uint32_t bar_full = smem_u32(s_v + 2 * P::kTileUnits);
+  const uint32_t bar_empty = bar_full + 16;
+
+  const long long bh = blockIdx.x;
+  const long long kvh = (bh / h) * hkv + (bh % h) / (h / hkv);
+  const int n_qt = (s + kBM - 1) / kBM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kBM;   // longest first
+  const int n_kt = causal ? (min(q0 + kBM, s) - 1) / T + 1 : (s + T - 1) / T;
+  const long long slab = (long long)s * d;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bar_full + 8 * st, kProducers);   // every producer thread
+      mbar_init(bar_empty + 8 * st, 4);           // every consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: tile i + 1's K and V are loaded into registers as soon as
+    // tile i's are split and stored, so the loads are in flight while the
+    // consumers multiply and the producer waits for a free stage
+    const int ptid = threadIdx.x - 128;
+    const AnyDtype kp = advance(k, kvh * slab);
+    const AnyDtype vp = advance(v, kvh * slab);
+    Raw8 kx[P::kKIters], vx[P::kVIters][2];
+    load_k<DP>(kp, 0, s, d, vec_k, ptid, kx);
+    load_v<DP>(vp, 0, s, d, vec_v, ptid, vx);
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i & 1;
+      mbar_wait(bar_empty + 8 * st, ((i >> 1) & 1) ^ 1);
+      store_k<DP>(s_k + st * P::kTileUnits, k.code, vec_k, ptid, kx);
+      store_v<DP>(s_v + st * P::kTileUnits, v.code, vec_v, ptid, vx);
+      mbar_arrive(bar_full + 8 * st);
+      if (i + 1 < n_kt) {
+        load_k<DP>(kp, (i + 1) * T, s, d, vec_k, ptid, kx);
+        load_v<DP>(vp, (i + 1) * T, s, d, vec_v, ptid, vx);
+      }
+    }
+    return;
+  }
+
+  // consumer warp: query rows [w0, w0 + 16); this thread holds rows r0 and
+  // r0 + 8, columns 8 nt + 2 t + {0, 1} of S's n8 tiles and of O's
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * warp;
+  const int r0 = w0 + g;
+  // Q's A fragments, one unit a slice, written and read by this thread
+  // alone: (row r0, col t), (r0 + 8, t), (r0, t + 4), (r0 + 8, t + 4), as
+  // f32 (16 bytes) or, for a half q, as its 16-bit values (8 bytes)
+  uint4* qw = s_q + warp * P::kSlices * 32;
+  {
+    const AnyDtype qp = advance(q, bh * slab);
+    const auto at = [&](int r, int c) { return (long long)r * d + c; };
+    const auto in = [&](int r, int c) { return r < s && c < d; };
+#pragma unroll 4
+    for (int sl = 0; sl < P::kSlices; ++sl) {
+      const int c = 8 * sl + t;
+      if (q.code == 0) {
+        const auto ld = [&](int r, int cc) {
+          return in(r, cc) ? __float_as_uint(load(qp, at(r, cc))) : 0u;
+        };
+        qw[sl * 32 + lane] = make_uint4(ld(r0, c), ld(r0 + 8, c),
+                                        ld(r0, c + 4), ld(r0 + 8, c + 4));
+      } else {
+        const uint16_t* q16 = static_cast<const uint16_t*>(qp.p);
+        const auto ld = [&](int r, int cc) {
+          return in(r, cc) ? (uint32_t)q16[at(r, cc)] : 0u;
+        };
+        reinterpret_cast<uint2*>(qw)[sl * 32 + lane] =
+            make_uint2(ld(r0, c) | ld(r0 + 8, c) << 16,
+                       ld(r0, c + 4) | ld(r0 + 8, c + 4) << 16);
+      }
+    }
+  }
+  const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+  const int lim0 = causal ? min(r0, s - 1) : s - 1;
+  const int lim1 = causal ? min(r0 + 8, s - 1) : s - 1;
+  const int lim_w = causal ? min(w0, s - 1) : s - 1;   // the warp's least
+  const bool k32 = k.code == 0, v32 = v.code == 0;
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  }
+  float m0 = kMaxInit, m1 = kMaxInit, l0 = 0.f, l1 = 0.f;
+  for (int i = 0; i < n_kt; ++i) {
+    const int st = i & 1;
+    const int k0 = i * T;
+    mbar_wait(bar_full + 8 * st, (i >> 1) & 1);
+    // a warp whose rows all lie past S, or above a causal tile, skips it
+    if (w0 < s && (!causal || k0 <= w0 + 15)) {
+      const uint4* kt = s_k + st * P::kTileUnits;
+      float x[P::kNT * 4];
+      if (q.code == 0) {
+        if (k32) {
+          scores<DP, 0, true>(x, qw, kt, lane);
+        } else {
+          scores<DP, 0, false>(x, qw, kt, lane);
+        }
+      } else if (q.code == 1) {
+        if (k32) {
+          scores<DP, 1, true>(x, qw, kt, lane);
+        } else {
+          scores<DP, 1, false>(x, qw, kt, lane);
+        }
+      } else if (k32) {
+        scores<DP, 2, true>(x, qw, kt, lane);
+      } else {
+        scores<DP, 2, false>(x, qw, kt, lane);
+      }
+      float al0, al1;
+      if (k0 + T - 1 > lim_w) {
+        tc::online_softmax<true>(x, k0, t, lim0, lim1, scale2, 1.f, m0, m1,
+                                 l0, l1, al0, al1);
+      } else {
+        tc::online_softmax<false>(x, k0, t, lim0, lim1, scale2, 1.f, m0, m1,
+                                  l0, l1, al0, al1);
+      }
+      // O *= alpha, skipped when no row of the warp changed its max (alpha
+      // is exactly 1 then, so the result is the same)
+      if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+        for (int nt = 0; nt < DP / 8; ++nt) {
+          o[nt][0] = o[nt][0] * al0;
+          o[nt][1] = o[nt][1] * al0;
+          o[nt][2] = o[nt][2] * al1;
+          o[nt][3] = o[nt][3] * al1;
+        }
+      }
+      // P split into the A fragments of the tile's kv slices: slice j
+      // takes accumulator columns 8 j + 2t, 8 j + 2t + 1 of rows g, g + 8
+      // as its a[0], a[2] and a[1], a[3]
+      uint32_t ph[P::kNT][4], pl[P::kNT][4];
+#pragma unroll
+      for (int j = 0; j < P::kNT; ++j) {
+        t3::split1(x[4 * j], ph[j][0], pl[j][0]);
+        t3::split1(x[4 * j + 2], ph[j][1], pl[j][1]);
+        t3::split1(x[4 * j + 1], ph[j][2], pl[j][2]);
+        t3::split1(x[4 * j + 3], ph[j][3], pl[j][3]);
+      }
+      const uint4* vt = s_v + st * P::kTileUnits;
+      if (v32) {
+        pv<DP, true>(o, ph, pl, vt, lane);
+      } else {
+        pv<DP, false>(o, ph, pl, vt, lane);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  }
+
+  if (w0 >= s) return;
+  const float den0 = fmaxf(l0, 1e-30f);
+  const float den1 = fmaxf(l1, 1e-30f);
+  const AnyOut ob = advance_out(out, bh * slab);
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * nt + 2 * t + e;
+      if (c >= d) continue;
+      if (r0 < s) store(ob, (long long)r0 * d + c, o[nt][e] / den0);
+      if (r0 + 8 < s) store(ob, (long long)(r0 + 8) * d + c, o[nt][2 + e] / den1);
+    }
+  }
+}
+
+template <int DP>
+int launch(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out, long long b,
+           int h, int hkv, int s, int d, float scale, int causal,
+           cudaStream_t stream) {
+  constexpr size_t smem = Plan<DP>::kBytes;
+  auto kernel = flash_attention_tf32x3_any_kernel<DP>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  // 16-byte loads: a 16-byte-aligned base and rows of a 16-byte multiple
+  const auto vec = [d](AnyDtype a) {
+    return (int)(((unsigned long long)a.p & 15ull) == 0 &&
+                 (long long)d * (a.code == 0 ? 4 : 2) % 16 == 0);
+  };
+  const dim3 grid((unsigned)(b * h), (unsigned)((s + kBM - 1) / kBM));
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, h, hkv, s, d, scale,
+                                           causal, vec(k), vec(v));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ta
+
 }  // namespace
 
 extern "C" {
@@ -1483,6 +2095,47 @@ int repro_flash_attention_tf32x3(const void* q, const void* k, const void* v,
   }
   return t3::launch<128>(q, k, v, out, q_dtype, k_dtype, v_dtype, b, h, hkv,
                          s, d, scale, causal, st);
+}
+
+// The 3xTF32 route through registers: the same function over operands of
+// dtype codes q_dtype, k_dtype, v_dtype, q [b, h, s, d], k and v
+// [b, hkv, s, d], out like q in q's dtype, contiguous, any alignment, any
+// d from 1 to 256.  Returns the cudaError_t of the launch (0 on success).
+int repro_flash_attention_tf32x3_any(const void* q, const void* k,
+                                     const void* v, void* out, int q_dtype,
+                                     int k_dtype, int v_dtype, long long b,
+                                     int h, int hkv, int s, int d,
+                                     float scale, int causal, void* stream) {
+  const long long bh = b * h;
+  const auto bad_code = [](int c) { return c < 0 || c > 2; };
+  if (b < 1 || h < 1 || bh > 0x7fffffffLL || hkv < 1 || h % hkv || s < 1 ||
+      (s + ta::kBM - 1) / ta::kBM > 65535 || d < 1 || d > 256 ||
+      bad_code(q_dtype) || bad_code(k_dtype) || bad_code(v_dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const AnyDtype qa{q, q_dtype}, ka{k, k_dtype}, va{v, v_dtype};
+  const AnyOut oa{out, q_dtype};
+  cudaStream_t st = (cudaStream_t)stream;
+  // the staged head width: d rounded up to one of six instantiations
+  if (d <= 32) {
+    return ta::launch<32>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal, st);
+  }
+  if (d <= 64) {
+    return ta::launch<64>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal, st);
+  }
+  if (d <= 128) {
+    return ta::launch<128>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal,
+                           st);
+  }
+  if (d <= 160) {
+    return ta::launch<160>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal,
+                           st);
+  }
+  if (d <= 192) {
+    return ta::launch<192>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal,
+                           st);
+  }
+  return ta::launch<256>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal, st);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // PTX: mbarriers, TMA tensor loads and the host-side tensor map, wgmma
 // shared-memory descriptors, the wgmma fence / commit / wait and the
 // instructions themselves (f16/bf16 and tf32), the proxy fence, named
-// barriers, the TF32 rounding, and setmaxnreg.
+// barriers, the TF32 rounding, the warp-level TF32 mma.sync, and
+// setmaxnreg.
 //
 // The tensor map is encoded through cuTensorMapEncodeTiled, which lives in
 // the driver library; the build links only the runtime, so the function is
@@ -405,6 +406,25 @@ struct WgmmaTf32 {
                    "l"(desc_b), "r"(scale_d));
   }
 };
+
+// ------------------------------------------------------------ warp-level mma
+
+// d (+)= A . B, mma.sync m16n8k8 of TF32 operands with f32 accumulators,
+// one warp.  Thread lane, g = lane / 4, t = lane % 4, holds A as a[0] (row
+// g, col t), a[1] (row g + 8, col t), a[2] (row g, col t + 4), a[3] (row
+// g + 8, col t + 4); B (8 x 8, k by n) as b0 (row t, col g), b1 (row
+// t + 4, col g); d as d[0], d[1] (row g, cols 2t, 2t + 1) and d[2], d[3]
+// (row g + 8, the same cols).  The tensor cores drop the low 13 bits of
+// each 32-bit operand word.
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // --------------------------------------------------------------- setmaxnreg
 

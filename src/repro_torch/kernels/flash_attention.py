@@ -12,7 +12,7 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
   kernels of ``repro_torch/csrc/flash_attention.cu``.  Each operand is
   f32, f16 or bf16 (the reference casts each to f32; the output is in
   ``q.dtype``), with any ``S >= 1`` and any head dim, and it picks one of
-  three routes (:func:`route`):
+  four routes (:func:`route`):
 
   - ``"wgmma"``, f16/bf16 operands of one dtype with ``D % 8 == 0``,
     ``D <= 128`` and 16-byte-aligned bases: Hopper's tensor cores.  K/V
@@ -31,10 +31,14 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
     another function than the reference's, while the three keep ~2^-22.
     A half operand is exact in TF32, so its ``lo`` and the product it
     feeds are dropped; P is split as the operands are;
-  - ``"simt"``, everything else (D > 128, rows TMA does not move, a
-    misaligned base): one kernel, FP32 on the CUDA cores, each operand
-    read through its dtype code, K/V staged as f32 in shared memory, D
-    tiled in 128-column chunks.
+  - ``"tf32x3_any"``, every other call with ``D <= 256`` (D past 128, rows
+    TMA does not move, a misaligned base), any dtype mix: the same 3xTF32
+    arithmetic in warp-level ``mma.sync`` products, the operands loaded
+    through registers (16-byte loads where base and row allow), split by
+    a producer warpgroup and staged in shared memory;
+  - ``"simt"``, ``D > 256``: one kernel, FP32 on the CUDA cores, each
+    operand read through its dtype code, K/V staged as f32 in shared
+    memory, D tiled in 128-column chunks.
 
   For CUDA tensors it launches the route's kernel or raises; for CPU
   tensors it runs the twin.  It takes no block sizes: ``bq``/``bk`` were
@@ -62,8 +66,9 @@ per unmasked score (``2 D`` for ``Q K^T``, ``4 D`` for the split
 ``P V``) at the tensor cores' 989 TFLOP/s: 1.80e11, 0.182 ms.  The
 tf32x3 route does ``12 D`` TF32 operations (``2 D`` fewer for each
 half operand: ``10 D`` with a bf16 q) at 495 TFLOP/s: 3.61e11,
-0.729 ms.  The SIMT route
-does ``4 D`` FP32 operations, 1.20e11, 1.80 ms at 67 TFLOP/s.
+0.729 ms; the tf32x3_any route counts the same, 0.140 ms at f32, D = 160,
+1x16x16x1500 full.  The SIMT route does ``4 D`` FP32 operations, 0.344 ms
+at 67 TFLOP/s on that case.
 
 :data:`COUNTS` counts kernel launches, in all and by route, and twin
 calls.
@@ -81,13 +86,15 @@ from .cuda_build import check_operands, launch, load_library
 #: launches of the CUDA kernels (in all, and of each route's kernel) /
 #: calls of the torch twin since the last :func:`reset_counts`
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "wgmma_launches": 0,
-                          "tf32x3_launches": 0, "simt_launches": 0,
-                          "twin_calls": 0}
+                          "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                          "simt_launches": 0, "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: the largest head dim of the wgmma route (``kMaxD`` in the .cu source)
+#: the largest head dim of the TMA routes (``kMaxD`` in the .cu source)
 _MAX_D = 128
+#: the largest head dim of the tf32x3_any route; the SIMT kernel takes more
+_MAX_D_ANY = 256
 #: dtypes the wgmma route takes
 _HALF = (torch.float16, torch.bfloat16)
 #: the twin holds at most this many f32 scores at once
@@ -121,20 +128,23 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor,
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention` launches for CUDA operands.
-    Both tensor-core routes take ``D`` up to 128, rows of a 16-byte
-    multiple (TMA moves no other) and 16-byte-aligned bases (a tensor
-    map's address): ``"wgmma"`` f16/bf16 operands of one dtype (``D %
-    8 == 0``), ``"tf32x3"`` any other mix of f32, f16 and bf16 (``D % 4
-    == 0`` when all are f32, else ``D % 8 == 0``); ``"simt"`` the rest."""
+    Both TMA routes take ``D`` up to 128, rows of a 16-byte multiple (TMA
+    moves no other) and 16-byte-aligned bases (a tensor map's address):
+    ``"wgmma"`` f16/bf16 operands of one dtype (``D % 8 == 0``),
+    ``"tf32x3"`` any other mix of f32, f16 and bf16 (``D % 4 == 0`` when
+    all are f32, else ``D % 8 == 0``); ``"tf32x3_any"`` every other call
+    with ``D <= 256``; ``"simt"`` ``D > 256``."""
     d = q.shape[-1]
-    dtypes = {q.dtype, k.dtype, v.dtype}
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    if d > _MAX_D or not aligned:
+    if d > _MAX_D_ANY:
         return "simt"
-    if len(dtypes) == 1 and q.dtype in _HALF:
-        return "wgmma" if d % 8 == 0 else "simt"
-    row = 4 if dtypes == {torch.float32} else 8
-    return "tf32x3" if d % row == 0 else "simt"
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if d <= _MAX_D and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        if len(dtypes) == 1 and q.dtype in _HALF:
+            if d % 8 == 0:
+                return "wgmma"
+        elif d % (4 if dtypes == {torch.float32} else 8) == 0:
+            return "tf32x3"
+    return "tf32x3_any"
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,6 +205,9 @@ def load_kernel_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.repro_flash_attention_tf32x3.restype = ctypes.c_int
+    lib.repro_flash_attention_tf32x3_any.argtypes = \
+        lib.repro_flash_attention_tf32x3.argtypes
+    lib.repro_flash_attention_tf32x3_any.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
 
@@ -208,15 +221,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the twin.  Each operand is f32, f16 or bf16 and the output is in
     ``q.dtype``; the kernels take them contiguous, on one device.
     """
-    b, h, hkv, s, d = _check_shapes(q, k, v)
+    _check_shapes(q, k, v)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        _check_dtypes(q, k, v)
+        return flash_attention_torch(q, k, v, causal)
+    return _run(q, k, v, causal, route(q, k, v))
+
+
+def _check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if any(t.dtype not in _DTYPES for t in (q, k, v)):
         raise ValueError(f"flash_attention takes float32, float16 or "
                          f"bfloat16 operands, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         picked: str) -> torch.Tensor:
+    """The kernel of route ``picked`` on CUDA operands, counted on that
+    route: :func:`flash_attention` passes :func:`route`'s pick, and
+    ``chip_smoke.py`` forces a route that takes every input where it
+    times it beside the picked one.  Only :func:`route`'s pick,
+    ``"tf32x3_any"`` (``D <= 256``) and ``"simt"`` are taken: any other
+    raises ``ValueError`` (the TMA routes read operands of other dtypes
+    or alignments wrongly)."""
+    b, h, hkv, s, d = _check_shapes(q, k, v)
+    _check_dtypes(q, k, v)
+    takes = {route(q, k, v), "simt"} | (
+        {"tf32x3_any"} if d <= _MAX_D_ANY else set())
+    if picked not in takes:
+        raise ValueError(f"flash_attention route {picked!r} does not take "
+                         f"{q.dtype}, {k.dtype}, {v.dtype} at D = {d}; "
+                         f"it takes {sorted(takes)}")
     dev = q.device
-    if dev.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{dev}, {k.device}, {v.device}")
@@ -227,21 +263,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load_kernel_library()
     scale = 1.0 / math.sqrt(d)
     codes = (_DTYPES[q.dtype], _DTYPES[k.dtype], _DTYPES[v.dtype])
-    picked = route(q, k, v)
     if picked == "wgmma":
         launch("flash_attention", lib.repro_flash_attention_wgmma, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                codes[0], b, h, hkv, s, d, scale, int(bool(causal)))
-        COUNTS["wgmma_launches"] += 1
-    elif picked == "tf32x3":
-        launch("flash_attention", lib.repro_flash_attention_tf32x3, dev,
+    elif picked in ("tf32x3", "tf32x3_any"):
+        entry = lib.repro_flash_attention_tf32x3 if picked == "tf32x3" \
+            else lib.repro_flash_attention_tf32x3_any
+        launch("flash_attention", entry, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                *codes, b, h, hkv, s, d, scale, int(bool(causal)))
-        COUNTS["tf32x3_launches"] += 1
     else:
         launch("flash_attention", lib.repro_flash_attention, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                *codes, b * h, h, hkv, s, d, scale, int(bool(causal)))
-        COUNTS["simt_launches"] += 1
+    COUNTS[f"{picked}_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return out

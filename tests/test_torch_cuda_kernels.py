@@ -726,8 +726,8 @@ def _wgmma_case(cuda, shape, causal, dtype):
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 1,
-                         "tf32x3_launches": 0, "simt_launches": 0,
-                         "twin_calls": 0}
+                         "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                         "simt_launches": 0, "twin_calls": 0}
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == dtype and ker.shape == q.shape
     tol = FA_TOL[dtype]
@@ -756,27 +756,32 @@ def test_flash_attention_wgmma_every_head_dim(cuda, d, causal, dtype):
     _wgmma_case(cuda, (1, 4, 2, 200, d), causal, dtype)
 
 
-def _tf32x3_case(cuda, shape, causal, dtypes, scale=1.0):
-    """The 3xTF32 route against the twin: one launch on that route, within
-    FA_TOL (and one rounding of a half output), bit-equal from run to
-    run.  At ``scale = 8`` (scores of hundreds) the f32 result before its
-    one rounding (a half q taken at its f32 values) is held to the f64
-    function within twice the twin's distance instead, and a half q's
-    output, from the half q itself, to one rounding of the f64 function
-    to q's dtype."""
+def _tf32x3_case(cuda, shape, causal, dtypes, scale=1.0, route="tf32x3",
+                 offset=False):
+    """A 3xTF32 route (``tf32x3``, or ``tf32x3_any``) against the twin: one
+    launch on that route, within FA_TOL (and one rounding of a half
+    output), bit-equal from run to run.  At ``scale = 8`` (scores of
+    hundreds) the f32 result before its one rounding (a half q taken at
+    its f32 values) is held to the f64 function within twice the twin's
+    distance instead, and a half q's output, from the half q itself, to
+    one rounding of the f64 function to q's dtype.  ``offset``: q's base
+    one element past a 16-byte boundary."""
     fa = _mod("flash_attention")
     b, h, hkv, s, d = shape
     q = scale * _rand(cuda, (b, h, s, d), s + d, torch.float32)
     k = scale * _rand(cuda, (b, hkv, s, d), s + d + 1, torch.float32)
     v = scale * _rand(cuda, (b, hkv, s, d), s + d + 2, torch.float32)
     q, k, v = q.to(dtypes[0]), k.to(dtypes[1]), v.to(dtypes[2])
-    assert fa.route(q, k, v) == "tf32x3"
+    if offset:
+        q = _offset(cuda, q)
+    assert fa.route(q, k, v) == route
     fa.reset_counts()
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                         "tf32x3_launches": 1, "simt_launches": 0,
-                         "twin_calls": 0}
+    want = {"kernel_launches": 1, "wgmma_launches": 0, "tf32x3_launches": 0,
+            "tf32x3_any_launches": 0, "simt_launches": 0, "twin_calls": 0}
+    want[f"{route}_launches"] = 1
+    assert fa.COUNTS == want
     assert ker.dtype == dtypes[0] and ker.shape == q.shape
     assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
     if scale == 1.0:
@@ -839,21 +844,69 @@ def test_flash_attention_tf32x3_scores_of_hundreds(cuda, shape, causal,
     _tf32x3_case(cuda, shape, causal, dtypes, scale=8.0)
 
 
+# the 3xTF32 route through registers: every call up to D = 256 that the
+# TMA routes do not take
+ANY_MIXES = [(F32,) * 3, (BF16,) * 3, (F16,) * 3, (BF16, F32, F16),
+             (F32, BF16, BF16), (F16, F16, F32)]
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES, ids=_dt_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 4, 4), (1, 8, 2), (1, 8, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("s", [1, 127, 200, 1500])
+@pytest.mark.parametrize("d", [136, 160, 200, 256])
+def test_flash_attention_tf32x3_any_matches_twin(cuda, d, s, heads, causal,
+                                                 dtypes):
+    _tf32x3_case(cuda, (*heads, s, d), causal, dtypes, route="tf32x3_any")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtypes,d", [
+    ((F32,) * 3, 18), ((F32,) * 3, 98), ((F32,) * 3, 2), ((F32,) * 3, 129),
+    ((F16,) * 3, 100), ((BF16,) * 3, 12), ((BF16,) * 3, 1), ((F16,) * 3, 60),
+    ((BF16, F32, F16), 12), ((F32, BF16, BF16), 20), ((F16, F16, F32), 36),
+    ((F32, F16, BF16), 250)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_flash_attention_tf32x3_any_rows_tma_does_not_move(cuda, dtypes, d,
+                                                           causal):
+    """Head dims whose rows are no 16-byte multiple (odd, or D % 8 != 0
+    beside a half operand) run the route through registers."""
+    _tf32x3_case(cuda, (1, 4, 2, 200, d), causal, dtypes, route="tf32x3_any")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtypes,d", [
+    ((F32,) * 3, 64), ((F32,) * 3, 128), ((F16,) * 3, 64), ((BF16,) * 3, 128),
+    ((BF16, F32, F32), 64), ((F32,) * 3, 160), ((F16,) * 3, 256)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_flash_attention_tf32x3_any_misaligned_base(cuda, dtypes, d, causal):
+    """q's base one element past a 16-byte boundary (2 bytes for a half
+    q: no 16-byte or 4-byte load of a row is aligned there)."""
+    _tf32x3_case(cuda, (1, 4, 2, 130, d), causal, dtypes, route="tf32x3_any",
+                 offset=True)
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES[:4], ids=_dt_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 1500, 256), (2, 8, 2, 200, 160),
+                                   (1, 2, 1, 127, 200), (1, 4, 2, 200, 18)])
+def test_flash_attention_tf32x3_any_scores_of_hundreds(cuda, shape, causal,
+                                                       dtypes):
+    _tf32x3_case(cuda, shape, causal, dtypes, scale=8.0, route="tf32x3_any")
+
+
 def test_flash_attention_simt_route(cuda):
-    """A head dim past 128, head dims TMA does not move and misaligned
-    bases go through the SIMT kernel, within FA_TOL of the twin."""
+    """Head dims past 256 go through the SIMT kernel, aligned or not,
+    within FA_TOL of the twin."""
     fa = _mod("flash_attention")
     cases = []
-    for dtype, d in ((torch.float32, 160), (torch.float32, 18),
-                     (torch.float32, 98), (torch.float16, 100),
-                     (torch.bfloat16, 12)):
+    for dtype, d in ((torch.float32, 264), (torch.float32, 320),
+                     (torch.float16, 300), (torch.bfloat16, 264)):
         cases.append(tuple(_rand(cuda, (1, heads, 130, d), heads + d, dtype)
                            for heads in (4, 2, 2)))
-    for dtype, d in ((torch.float16, 64), (torch.float32, 64),
-                     (torch.float32, 128)):
-        flat = torch.empty(1 * 4 * 130 * d + 1, dtype=dtype, device=cuda)
-        q = flat[1:].view(1, 4, 130, d)
-        q.copy_(_rand(cuda, (1, 4, 130, d), 7, dtype))
+    for dtype, d in ((torch.float16, 264), (torch.float32, 320)):
+        q = _offset(cuda, _rand(cuda, (1, 4, 130, d), 7, dtype))
         cases.append((q, *(_rand(cuda, (1, 2, 130, d), 8 + i, dtype)
                            for i in range(2))))
     for q, k, v in cases:
@@ -862,8 +915,8 @@ def test_flash_attention_simt_route(cuda):
         ker = fa.flash_attention(q, k, v, True)
         torch.cuda.synchronize()
         assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                             "tf32x3_launches": 0, "simt_launches": 1,
-                             "twin_calls": 0}
+                             "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                             "simt_launches": 1, "twin_calls": 0}
         tol = FA_TOL[q.dtype]
         torch.testing.assert_close(
             ker.float(), fa.flash_attention_torch(q, k, v, True).float(),
@@ -882,17 +935,16 @@ def test_flash_attention_refuses_what_it_does_not_stage(cuda):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtypes,d", [
-    ((torch.bfloat16, torch.float32, torch.float16), 12),
-    ((torch.float32, torch.bfloat16, torch.bfloat16), 20),
-    ((torch.float32,) * 3, 160), ((torch.bfloat16,) * 3, 256),
-    ((torch.float16,) * 3, 160), ((torch.float32, torch.float16,
-                                   torch.float16), 256)],
+    ((torch.bfloat16, torch.float32, torch.float16), 264),
+    ((torch.float32, torch.bfloat16, torch.bfloat16), 300),
+    ((torch.float32,) * 3, 320), ((torch.bfloat16,) * 3, 264),
+    ((torch.float16,) * 3, 320), ((torch.float32, torch.float16,
+                                   torch.float16), 288)],
     ids=lambda x: str(x).replace("torch.", ""))
 def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
-    """Head dims past 128, and mixed operands whose rows TMA does not move
-    (D not a multiple of 8 beside a half operand), run the SIMT route,
-    within the output dtype's FA_TOL (and one rounding of a half output)
-    of the twin, the same from run to run."""
+    """Head dims past 256, each operand in its own dtype, run the SIMT
+    route, within the output dtype's FA_TOL (and one rounding of a half
+    output) of the twin, the same from run to run."""
     fa = _mod("flash_attention")
     q = _rand(cuda, (1, 4, 200, d), d, dtypes[0])
     k = _rand(cuda, (1, 2, 200, d), d + 1, dtypes[1])
@@ -902,8 +954,8 @@ def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                         "tf32x3_launches": 0, "simt_launches": 1,
-                         "twin_calls": 0}
+                         "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                         "simt_launches": 1, "twin_calls": 0}
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == twin.dtype == dtypes[0] and ker.shape == q.shape
     tol = FA_TOL[dtypes[0]]

@@ -135,17 +135,18 @@ def test_mixed_dtypes_match_reference_kernel(dtypes, causal):
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 288])
 def test_head_dims_past_128_match_reference_kernel(d, dtype):
-    """Head dims the wgmma route does not take (D > 128) run the SIMT
-    route on the card; the twin takes them as the reference does."""
+    """Head dims the TMA routes do not take (D > 128) run the 3xTF32
+    route through registers up to 256 and the SIMT route past it on the
+    card; the twin takes them as the reference does."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import route
     shape = (1, 2, 1, 100, d)
     (q, qj), (k, kj), (v, vj) = _qkv(shape, d, dtype)
     want = ref_ops.flash_attention(qj, kj, vj, causal=True, bq=64, bk=64)
     _assert_close(ops.flash_attention(q, k, v, causal=True), want, dtype)
-    assert route(q, k, v) == "simt"
+    assert route(q, k, v) == ("simt" if d > 256 else "tf32x3_any")
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -188,8 +189,8 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     reset_counts()
     out = fn(q, k, v)
     assert COUNTS == {"kernel_launches": 0, "wgmma_launches": 0,
-                      "tf32x3_launches": 0, "simt_launches": 0,
-                      "twin_calls": 1}
+                      "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                      "simt_launches": 0, "twin_calls": 1}
     assert out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError, match="not a multiple"):
         fn(q[:, :3], k, v)
@@ -279,26 +280,31 @@ def test_one_rounded_p_misses_the_rule(dtype):
 def test_route_picks_the_tensor_cores_for_aligned_half_operands():
     from repro_torch.kernels.flash_attention import route
     (q, _), (k, _), (v, _) = _qkv((1, 4, 2, 16, 64), 4, torch.float32)
-    # f32 operands with D <= 128 and TMA-movable rows: the 3xTF32 route
+    # f32 operands with D <= 128 and TMA-movable rows: the 3xTF32 route;
+    # the rest up to D = 256 the 3xTF32 route through registers; past 256
+    # the SIMT route
     assert route(q, k, v) == "tf32x3"
     for d, want in ((4, "tf32x3"), (100, "tf32x3"), (128, "tf32x3"),
-                    (160, "simt"), (18, "simt"), (2, "simt")):
+                    (160, "tf32x3_any"), (18, "tf32x3_any"),
+                    (2, "tf32x3_any"), (256, "tf32x3_any"), (257, "simt"),
+                    (320, "simt")):
         f = torch.zeros(1, 2, 16, d)
         assert route(f, f[:, :1].contiguous(), f[:, :1].contiguous()) \
             == want, d
     flat = torch.empty(q.numel() + 1, dtype=torch.float32)
     shifted = flat[1:].view(q.shape)            # 4 bytes past an aligned base
-    assert shifted.is_contiguous() and route(shifted, k, v) == "simt"
+    assert shifted.is_contiguous() and route(shifted, k, v) == "tf32x3_any"
     for dt in (torch.bfloat16, torch.float16):
         qh, kh, vh = q.to(dt), k.to(dt), v.to(dt)
         assert route(qh, kh, vh) == "wgmma"
         # D = 12: rows of 24 bytes, which TMA does not move
         assert route(qh[..., :12].contiguous(), kh[..., :12].contiguous(),
-                     vh[..., :12].contiguous()) == "simt"
+                     vh[..., :12].contiguous()) == "tf32x3_any"
         # a base 2 bytes past an aligned one
         flat = torch.empty(qh.numel() + 1, dtype=dt)
         shifted = flat[1:].view(qh.shape)
-        assert shifted.is_contiguous() and route(shifted, kh, vh) == "simt"
+        assert shifted.is_contiguous() \
+            and route(shifted, kh, vh) == "tf32x3_any"
         # mixed operand dtypes take the 3xTF32 route, with D a multiple of
         # 8 (a half operand's rows are 16-byte multiples there), up to 128
         assert route(qh, kh.float(), vh) == "tf32x3"
@@ -306,13 +312,46 @@ def test_route_picks_the_tensor_cores_for_aligned_half_operands():
                                    else torch.bfloat16)) == "tf32x3"
         assert route(q, kh, vh) == "tf32x3"
         assert route(qh[..., :12].contiguous(), k[..., :12].contiguous(),
-                     v[..., :12].contiguous()) == "simt"
+                     v[..., :12].contiguous()) == "tf32x3_any"
         big = torch.zeros(1, 2, 16, 136, dtype=dt)
         assert route(big, big[:, :1].contiguous(),
-                     big[:, :1].contiguous()) == "simt"
-        assert route(big, big[:, :1].float(), big[:, :1].float()) == "simt"
+                     big[:, :1].contiguous()) == "tf32x3_any"
+        assert route(big, big[:, :1].float(), big[:, :1].float()) \
+            == "tf32x3_any"
+        wide = torch.zeros(1, 2, 16, 264, dtype=dt)
+        assert route(wide, wide[:, :1].contiguous(),
+                     wide[:, :1].float()) == "simt"
         ok = torch.zeros(1, 2, 16, 128, dtype=dt)
         assert route(ok, ok, ok) == "wgmma"
+
+
+@pytest.mark.parametrize("dts,d,forced", [
+    # wgmma reads k and v in q's dtype: a mixed call is refused
+    ((torch.float16, torch.float32, torch.float32), 64, "wgmma"),
+    ((torch.bfloat16, torch.bfloat16, torch.float16), 64, "wgmma"),
+    # the TMA routes take no D past 128, nor f32 with D % 4 != 0
+    ((torch.float32,) * 3, 160, "tf32x3"),
+    ((torch.bfloat16,) * 3, 160, "wgmma"),
+    ((torch.float32,) * 3, 18, "tf32x3"),
+    # the route through registers takes no D past 256
+    ((torch.float32,) * 3, 264, "tf32x3_any"),
+    ((torch.float32,) * 3, 64, "cutlass"),
+])
+def test_forced_route_must_take_the_operands(dts, d, forced):
+    """A route forced past :func:`route` is refused, before any device
+    check, unless it is the picked one, ``"tf32x3_any"`` at ``D <= 256``
+    or ``"simt"``: those take every input of their D."""
+    from repro_torch.kernels.flash_attention import _run, route
+    q = torch.zeros(1, 2, 16, d, dtype=dts[0])
+    k = torch.zeros(1, 1, 16, d, dtype=dts[1])
+    v = torch.zeros(1, 1, 16, d, dtype=dts[2])
+    assert route(q, k, v) != forced
+    with pytest.raises(ValueError, match="does not take"):
+        _run(q, k, v, True, forced)
+    takes = {route(q, k, v), "simt"} | ({"tf32x3_any"} if d <= 256 else set())
+    for ok in takes:
+        with pytest.raises(ValueError, match="runs on CUDA or CPU"):
+            _run(q, k, v, True, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -516,3 +555,203 @@ def test_p_fragment_and_v_row_permutation_compose_to_p_v():
     b = v[perm]                           # V^T's column kappa: V's row perm
     np.testing.assert_allclose(a @ b, p @ v, rtol=1e-13, atol=1e-13)
     assert not np.allclose(a @ v, p @ v)  # without the permutation: wrong
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 route through registers (tf32x3_any), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _any_plan(d):
+    """The staged head width DP and kv tile of ``csrc/flash_attention.cu``'s
+    ``ta::Plan`` for head dim ``d``: DP one of 32, 64, 128, 160, 192, 256,
+    kv rows a tile 32 up to DP = 160, 24 at 192, 16 at 256."""
+    dp = next(x for x in (32, 64, 128, 160, 192, 256) if d <= x)
+    return dp, 32 if dp <= 160 else 24 if dp == 192 else 16
+
+
+ANY_MIXES = [(torch.float32,) * 3, (torch.bfloat16,) * 3,
+             (torch.float16,) * 3,
+             (torch.bfloat16, torch.float32, torch.float16),
+             (torch.float32, torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES, ids=_mix_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 256])
+def test_tf32x3_any_arithmetic_within_tolerance(d, causal, dtypes):
+    """The route's arithmetic at its kv tile (32 rows at D = 160, 16 at
+    256) against the twin and the reference kernel (interpret mode): an
+    f32 output within 1e-5 of both, a half output within one rounding of
+    the twin and its dtype's tolerance of the reference."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    shape = (1, 2, 1, 100, d)
+    (q, qj), (k, kj), (v, vj) = _qkv_dtypes(shape, d + causal, dtypes)
+    assert fa.route(q, k, v) == "tf32x3_any"
+    got = _tf32x3_emulation(q, k, v, causal, bn=_any_plan(d)[1])
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    want = ref_ops.flash_attention(qj, kj, vj, causal=causal, bq=64, bk=64)
+    assert got.dtype == dtypes[0] and got.shape == twin.shape
+    _assert_close(got, want, dtypes[0])
+    if dtypes[0] == torch.float32:
+        np.testing.assert_allclose(got.numpy(), twin.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert half_rule(got, twin) <= 1.0
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES[:2] + ANY_MIXES[3:4],
+                         ids=_mix_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 256])
+def test_tf32x3_any_arithmetic_at_scores_of_hundreds(d, causal, dtypes):
+    """Inputs scaled by 8, at the route's kv tile: the f32 result (a half
+    q taken at its f32 values) within twice the twin's distance from the
+    f64 function, which the twin and the reference both miss by more than
+    1e-5; one TF32 product outside it; a half q's own output within one
+    rounding of the f64 function beyond that."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    bn = _any_plan(d)[1]
+    rng = np.random.default_rng(d + 5 * causal)
+    q, k, v = (torch.from_numpy(8 * rng.normal(size=(1, n, 100, d)).astype(
+        np.float32)).to(dt) for n, dt in zip((2, 1, 1), dtypes))
+    qf = q.float()
+    got = _tf32x3_emulation(qf, k, v, causal, bn=bn)
+    twin = fa.flash_attention_torch(qf, k, v, causal)
+    want = torch.from_numpy(np.array(ref_ops.flash_attention(
+        *(jnp.asarray(t.float().numpy()).astype(JAX_DTYPE[t.dtype])
+          for t in (qf, k, v)), causal=causal, bq=64, bk=64)))
+    exact = attention_f64(q, k, v, causal)
+    ours, theirs = f64_error(got, exact), f64_error(twin, exact)
+    assert theirs > 1e-5 and f64_error(want, exact) > 1e-5
+    assert ours <= 2 * theirs
+    # one TF32 product misses the rule; by far where an f32 q or k feeds
+    # the cross terms of the scores (with half q and k only P_lo V goes)
+    one = f64_error(_tf32x3_emulation(qf, k, v, causal, products=1, bn=bn),
+                    exact)
+    assert one > 2 * theirs
+    assert k.dtype != torch.float32 or one > 20 * ours
+    if dtypes[0] != torch.float32:
+        half = _tf32x3_emulation(q, k, v, causal, bn=bn)
+        assert half.dtype == dtypes[0]
+        assert rounded_f64_error(half, exact) <= 2 * theirs
+
+
+def _mma_m16n8k8(a_regs, b_regs):
+    """What one ``mma.sync.m16n8k8`` computes from the 32 lanes' fragments
+    (PTX's layouts; lane = 4 g + t): A (16 x 8) from a[0] (g, t), a[1]
+    (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4); B (8 x 8) from b0
+    (t, g), b1 (t + 4, g).  Returns the 32 lanes' D fragments: (g, 2t),
+    (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)."""
+    a = np.zeros((16, 8))
+    b = np.zeros((8, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = a_regs[lane]
+        b[t, g], b[t + 4, g] = b_regs[lane]
+    d = a @ b
+    return [(d[l // 4, 2 * (l % 4)], d[l // 4, 2 * (l % 4) + 1],
+             d[l // 4 + 8, 2 * (l % 4)], d[l // 4 + 8, 2 * (l % 4) + 1])
+            for l in range(32)]
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_mma_sync_units_compose_to_q_k_and_p_v(d):
+    """The kernel's shared-memory units, as its producer stores them and
+    its consumer warps read them, through m16n8k8's fragment layouts give
+    Q K^T and P V of one tile (one warp's 16 query rows, the tile's kv
+    rows, every column of DP): Q's unit (warp, slice, lane) is the A
+    fragment; K's (nt, slice, lane 4 g + t) holds K row 8 nt + g at columns
+    8 slice + t, + t + 4; P passes from the S accumulator to the A
+    fragment unshuffled, V's unit (j, nt, lane) holding V rows 8 j + 2t,
+    8 j + 2t + 1 (the row permutation (0, 2, 4, 6, 1, 3, 5, 7)) at column
+    8 nt + g; each unit at its swizzled place in its block.  Each quarter
+    warp of the producer's stores and of the consumer's loads touches
+    eight distinct 16-byte bank groups."""
+    dp, bn = _any_plan(d)
+    sl_n, nt_n = dp // 8, bn // 8
+    rng = np.random.default_rng(d)
+    qm = rng.normal(size=(16, dp))
+    km = rng.normal(size=(bn, dp))
+    vm = rng.normal(size=(bn, dp))
+    # the producer: K chunk c = (row 8 nt + g, slice) stores unit 4 g + t at
+    # step t; V chunk c = (j, nt, t) unit 4 g + t at step g; a unit lies at
+    # unit_k(l) = l ^ (l // 8) of its block, unit_v(l, nt) = unit_k(l) ^
+    # 4 (nt % 2)
+    def unit_k(l):
+        return l ^ (l >> 3)
+
+    def unit_v(l, nt):
+        return unit_k(l) ^ ((nt & 1) << 2)
+
+    k_units = np.full((nt_n * sl_n * 32, 2), np.nan)
+    v_units = np.full((nt_n * sl_n * 32, 2), np.nan)
+    k_waves, v_waves = {}, {}
+    for c in range(bn * sl_n):
+        g, sl, nt = c % 8, (c // 8) % sl_n, (c // 8) // sl_n
+        row = km[8 * nt + g, 8 * sl:8 * sl + 8]
+        for t in range(4):
+            u = (nt * sl_n + sl) * 32 + unit_k(4 * g + t)
+            k_units[u] = row[t], row[t + 4]
+            k_waves.setdefault((c // 8, t), []).append(u % 8)
+    for c in range(nt_n * sl_n * 4):
+        t, nt, j = c % 4, (c // 4) % sl_n, (c // 4) // sl_n
+        for g in range(8):
+            u = (j * sl_n + nt) * 32 + unit_v(4 * g + t, nt)
+            v_units[u] = vm[8 * j + 2 * t, 8 * nt + g], \
+                vm[8 * j + 2 * t + 1, 8 * nt + g]
+            v_waves.setdefault((c // 8, g), []).append(u % 8)
+    assert not np.isnan(k_units).any() and not np.isnan(v_units).any()
+    for waves in (k_waves, v_waves):        # quarter warps: lanes 8w..8w+7
+        assert all(sorted(w) == list(range(8)) for w in waves.values())
+    for w in range(4):                      # the consumer's loads
+        assert sorted(unit_k(l) % 8 for l in range(8 * w, 8 * w + 8)) \
+            == list(range(8))
+        assert sorted(unit_v(l, 1) % 8 for l in range(8 * w, 8 * w + 8)) \
+            == list(range(8))
+    # the consumer: S over the slices, n8 tile nt
+    s_frag = [[(0.0,) * 4] * 32 for _ in range(nt_n)]
+    for sl in range(sl_n):
+        a = [(qm[l // 4, 8 * sl + l % 4], qm[l // 4 + 8, 8 * sl + l % 4],
+              qm[l // 4, 8 * sl + l % 4 + 4],
+              qm[l // 4 + 8, 8 * sl + l % 4 + 4]) for l in range(32)]
+        for nt in range(nt_n):
+            b = [tuple(k_units[(nt * sl_n + sl) * 32 + unit_k(l)])
+                 for l in range(32)]
+            s_frag[nt] = [tuple(x + y for x, y in zip(acc, part)) for acc, part
+                          in zip(s_frag[nt], _mma_m16n8k8(a, b))]
+    s = np.zeros((16, bn))
+    for nt in range(nt_n):
+        for l in range(32):
+            g, t = l // 4, l % 4
+            (s[g, 8 * nt + 2 * t], s[g, 8 * nt + 2 * t + 1],
+             s[g + 8, 8 * nt + 2 * t], s[g + 8, 8 * nt + 2 * t + 1]) = \
+                s_frag[nt][l]
+    np.testing.assert_allclose(s, qm @ km.T, rtol=1e-12, atol=1e-12)
+    # P V: P's kv slice j is S's n8 tile j, (c0, c2, c1, c3) as (a0..a3)
+    p = rng.normal(size=(16, bn))
+    o = np.zeros((16, dp))
+    for j in range(nt_n):
+        a = []
+        for l in range(32):
+            g, t = l // 4, l % 4
+            c = (p[g, 8 * j + 2 * t], p[g, 8 * j + 2 * t + 1],
+                 p[g + 8, 8 * j + 2 * t], p[g + 8, 8 * j + 2 * t + 1])
+            a.append((c[0], c[2], c[1], c[3]))
+        for nt in range(sl_n):
+            b = [tuple(v_units[(j * sl_n + nt) * 32 + unit_v(l, nt)])
+                 for l in range(32)]
+            for l, part in enumerate(_mma_m16n8k8(a, b)):
+                g, t = l // 4, l % 4
+                o[g, 8 * nt + 2 * t] += part[0]
+                o[g, 8 * nt + 2 * t + 1] += part[1]
+                o[g + 8, 8 * nt + 2 * t] += part[2]
+                o[g + 8, 8 * nt + 2 * t + 1] += part[3]
+    np.testing.assert_allclose(o, p @ vm, rtol=1e-12, atol=1e-12)
+    # without the permutation (V rows 8 j + t, 8 j + t + 4): wrong
+    b_plain = [(vm[l % 4, l // 4], vm[l % 4 + 4, l // 4]) for l in range(32)]
+    a0 = [(p[l // 4, 2 * (l % 4)], p[l // 4 + 8, 2 * (l % 4)],
+           p[l // 4, 2 * (l % 4) + 1], p[l // 4 + 8, 2 * (l % 4) + 1])
+          for l in range(32)]
+    got = np.array(_mma_m16n8k8(a0, b_plain))
+    want = (p[:, :8] @ vm[:8, :8])
+    assert not np.allclose(got[:, 0], [want[l // 4, 2 * (l % 4)]
+                                       for l in range(32)])
