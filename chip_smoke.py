@@ -24,9 +24,10 @@ outputs either side of their tiles; K7 on vec4, vec8 and scalar, with
 offset views; K8 on each of its three routes, the
 wgmma route also
 with positive operands at K = 16384, where its own f32 sums are held to
-the rule, and offset views on the tile route; K9 on each of its three
+the rule, and offset views on the tile route; K9 on each of its four
 routes: f16/bf16 on wgmma, f32 and mixed operand dtypes on 3xTF32, head
-dims past 128 and rows TMA does not move on SIMT), then drives every
+dims past 128 and rows TMA does not move on tf32x3_any, head dims past
+256 on tf32x3_wide), then drives every
 engine of ``explore()``, the functional simulator and the attention path
 at full width, each with the launch counters zeroed just before it and
 read just after:
@@ -90,8 +91,10 @@ read just after:
   each one launch of the 3xTF32 route (counters zeroed just before),
   within 1e-5 of the twin (one bf16 rounding for the bf16 q), bit-equal
   on a second call, timed beside the twin and SDPA in f32 (TF32 off),
-  its bound beside the FP32 one; and K9's SIMT route checked and timed at
-  f32 with D = 160;
+  its bound beside the FP32 one; K9's route through registers
+  (tf32x3_any) at f32 D = 160 and gemma-2-9b's width, and its route past
+  D = 256 (tf32x3_wide) at f32 D = 320 and 512 and bf16 D = 320, each one
+  counted launch, checked and timed beside SDPA;
 * LM serving (P12a, ``repro_torch.models``; plain torch ops, no kernel of
   the port, every launch counter checked still 0) — qwen2-7b at its
   published width and depth (bf16, 7.07e9 parameters, 4 prompts of 1,024
@@ -341,8 +344,15 @@ ATTENTION_ANY = {
     "gemma2_9b_f32": (1, 16, 8, 4096, 256, True, torch.float32),
     "gemma2_9b_bf16": (1, 16, 8, 4096, 256, True, torch.bfloat16),
 }
-# the SIMT route past D = 256, f32, timed beside SDPA
-ATTENTION_SIMT = (1, 16, 16, 1500, 320, False)
+# K9's route past D = 256 (tf32x3_wide), (B, H, Hkv, S, D, causal, dtype):
+# whisper-medium's encoder shape with head dims no configured model has,
+# f32 at D = 320 (one 320-column slab), f32 at D = 512 (8-row kv tiles)
+# and bf16 at D = 320, each timed beside SDPA
+ATTENTION_WIDE = {
+    "d320_f32": (1, 16, 16, 1500, 320, False, torch.float32),
+    "d512_f32": (1, 16, 16, 1500, 512, False, torch.float32),
+    "d320_bf16": (1, 16, 16, 1500, 320, False, torch.bfloat16),
+}
 
 # the launch probe's device ms (both trees' kernels carry these names)
 PROBE_DEVICE = {"K1_fused_sweep_2^18": "fused_sweep_kernel",
@@ -2844,19 +2854,18 @@ def attention_ops(b, h, s, d, causal, dtype, route, n_half=0):
     products for each of q . k and p . v, ``12 D``, less ``2 D`` for each
     of the ``n_half`` half operands (its lo is zero); with all three
     operands half, the ``6 D`` left are products of half values (q . k
-    and the split p . v, as wgmma's), so half operations.  SIMT: ``2 D`` for
-    q . k, half operations with f16/bf16 operands, and ``2 D`` FP32 for
-    p . v (p in f32); all ``4 D`` FP32 in f32."""
+    and the split p . v, as wgmma's), so half operations; tf32x3_wide
+    counts the same.  ``"fp32"``: the function on the CUDA cores, ``2 D``
+    FP32 for each of q . k and p . v, the FP32 bound beside the route's."""
     per_d = d * attention_scores(b, h, s, causal)
     if route == "wgmma":
         return 0, 6 * per_d, 0
-    if route in ("tf32x3", "tf32x3_any"):
+    if route in ("tf32x3", "tf32x3_any", "tf32x3_wide"):
         if n_half == 3:
             return 0, 6 * per_d, 0
         return 0, 0, (12 - 2 * n_half) * per_d
-    if dtype == torch.float32:
-        return 4 * per_d, 0, 0
-    return 2 * per_d, 2 * per_d, 0
+    check(route == "fp32", f"attention_ops: no route {route!r}")
+    return 4 * per_d, 0, 0
 
 
 def half_rule(k, t):
@@ -2902,9 +2911,9 @@ def expected_route(dts, d, shifted=False):
     ``d`` (``shifted``: q's base off a 16-byte boundary): wgmma for one
     half dtype, tf32x3 for f32 and mixed operands, each up to D = 128 with
     rows TMA moves (16-byte multiples) and aligned bases; tf32x3_any for
-    every other call up to D = 256; SIMT past it."""
+    every other call up to D = 256; tf32x3_wide past it."""
     if d > 256:
-        return "simt"
+        return "tf32x3_wide"
     if d <= 128 and not shifted:
         if len(set(dts)) == 1 and dts[0] != torch.float32:
             if d % 8 == 0:
@@ -2918,14 +2927,15 @@ def attention_cases(fa):
     """K9 against its twin at each dtype, shape and mask, and in f32 at the
     attention path's shapes, each on the route the wrapper picks (f16/bf16
     on wgmma, f32 and mixed on tf32x3, the rest up to D = 256 on
-    tf32x3_any, past it on SIMT), checked by the route's launch
+    tf32x3_any, past it on tf32x3_wide), checked by the route's launch
     counter."""
     cases = [(dt, shape, causal) for dt in FA_TOL for shape in FA_SHAPES
              for causal in (True, False)]
     cases += [(torch.float32, shape[:5], shape[5])
               for shape in ATTENTION_MODELS.values()]
     # mixed operand dtypes (tf32x3); head dims past 128, rows TMA does not
-    # move and misaligned bases (tf32x3_any); head dims past 256 (SIMT)
+    # move and misaligned bases (tf32x3_any); head dims past 256
+    # (tf32x3_wide: one slab, 8-row tiles past 320, two slabs past 512)
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
     cases += [((bf16, f32, f16), (1, 4, 2, 200, 64), True),
               ((f32, bf16, bf16), (1, 4, 2, 200, 128), False),
@@ -2946,7 +2956,10 @@ def attention_cases(fa):
               (f32, (1, 4, 2, 200, 320), True),
               (bf16, (1, 4, 2, 130, 264), False),
               ((f32, bf16, bf16), (1, 4, 2, 130, 300), True),
-              (f16, (1, 4, 2, 130, 264), True, True)]
+              (f16, (1, 4, 2, 130, 264), True, True),
+              (f32, (1, 4, 2, 130, 520), True),
+              ((bf16, f32, f16), (1, 2, 1, 33, 1024), False),
+              (bf16, (1, 4, 2, 130, 384), True, True)]
     recs = []
     for dt, (b, h, hkv, s, d), causal, *shifted in cases:
         shifted = bool(shifted)
@@ -3050,9 +3063,8 @@ def attention_f32_path(fa, kernel_mods):
     (f32, TF32 off; no call takes mixed dtypes) times, the 3xTF32 bound
     and the FP32 one, and the route through registers (tf32x3_any, forced
     by ``flash_attention._run`` outside the counted call) checked and
-    timed on the same call.  Then :func:`attention_any_path`, and last the
-    SIMT route at f32 with D = 320 (no configured model has it: checked
-    and timed directly, beside SDPA)."""
+    timed on the same call.  Then :func:`attention_route_path` for the
+    route through registers and the route past D = 256."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -3133,7 +3145,7 @@ def attention_f32_path(fa, kernel_mods):
                               n_half),
                 "flash_attention_tf32x3_kernel", reps=5, plain_reps=2)
             fp32_ops = attention_ops(b, h, s, d, causal, torch.float32,
-                                     "simt")[0]
+                                     "fp32")[0]
             rec[key] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
                             q_dtype=dtype_name(q.dtype), route="tf32x3",
                             wall_s=wall, kernel_launches=launches,
@@ -3146,50 +3158,34 @@ def attention_f32_path(fa, kernel_mods):
                                 forced_any,
                                 "flash_attention_tf32x3_any_kernel", 5),
                             **times)
-    # the route through registers (tf32x3_any), then the SIMT route past
-    # D = 256
-    rec.update(attention_any_path(fa, kernel_mods))
-    b, h, hkv, s, d, causal = ATTENTION_SIMT
-    q, k, v = attention_inputs(b, h, hkv, s, d, 31, torch.float32)
-    check(fa.route(q, k, v) == "simt", f"f32 D = {d}: not on SIMT")
-    simt_case = close_case(
-        f"flash_{b}x{h}x{hkv}x{s}x{d}_full_float32",
-        lambda: fa.flash_attention(q, k, v, causal),
-        lambda: fa.flash_attention_torch(q, k, v, causal),
-        FA_TOL[torch.float32], route="simt")
-    rec[f"simt_d{d}"] = dict(
-        route="simt", max_abs_err=simt_case["max_abs_err"],
-        **timing_row(f"{b}x{h}x{hkv}x{s}x{d} full f32 (SIMT)",
-                     lambda: fa.flash_attention(q, k, v, causal),
-                     lambda: fa.flash_attention_torch(q, k, v, causal),
-                     lambda: F.scaled_dot_product_attention(
-                         q, k, v, is_causal=causal),
-                     q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                     attention_ops(b, h, s, d, causal, q.dtype, "simt"),
-                     "flash_attention_kernel_any", reps=3, plain_reps=2))
+    # the route through registers (tf32x3_any), then the route past D = 256
+    rec.update(attention_route_path(fa, kernel_mods, "tf32x3_any",
+                                    ATTENTION_ANY, 200))
+    rec.update(attention_route_path(fa, kernel_mods, "tf32x3_wide",
+                                    ATTENTION_WIDE, 31))
     emit({"attention_f32": rec})
     return rec
 
 
-def attention_any_path(fa, kernel_mods):
-    """K9's route through registers (tf32x3_any) at :data:`ATTENTION_ANY`,
-    through ``ops.flash_attention``, with the launch counters zeroed just
-    before each call and read just after: one launch, on tf32x3_any; the
-    output finite, of q's shape and dtype, within 1e-5 of the twin (f32)
-    or one rounding of it (bf16), bit-equal on a second call.  Then the
-    kernel's, the twin's, SDPA's (f32 with TF32 off; bf16) and the SIMT
-    kernel's times at the same inputs (the SIMT kernel forced by
-    ``flash_attention._run``, outside the counted call), the bound (3xTF32,
-    or half with all operands half) and the FP32 one."""
+def attention_route_path(fa, kernel_mods, route, cases, seed0):
+    """K9's routes through ``mma.sync`` (``route`` tf32x3_any or
+    tf32x3_wide) at ``cases`` (:data:`ATTENTION_ANY`,
+    :data:`ATTENTION_WIDE`), through ``ops.flash_attention``, with the
+    launch counters zeroed just before each call and read just after: one
+    launch, on ``route``; the output finite, of q's shape and dtype,
+    within 1e-5 of the twin (f32) or one rounding of it (bf16), bit-equal
+    on a second call.  Then the kernel's, the twin's and SDPA's (f32 with
+    TF32 off; bf16) times at the same inputs, the bound (3xTF32, or half
+    with all operands half) and the FP32 one."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     rec = {}
     for seed, (name, (b, h, hkv, s, d, causal, dt)) in enumerate(
-            ATTENTION_ANY.items()):
-        q, k, v = attention_inputs(b, h, hkv, s, d, 200 + 10 * seed, dt)
+            cases.items()):
+        q, k, v = attention_inputs(b, h, hkv, s, d, seed0 + 10 * seed, dt)
         mode = "causal" if causal else "full"
-        check(fa.route(q, k, v) == "tf32x3_any",
-              f"attention {name}: not on tf32x3_any")
+        check(fa.route(q, k, v) == route,
+              f"attention {name}: not on {route}")
         ops.flash_attention(q, k, v, causal=causal)     # warm-up
         reset_all(kernel_mods)
         torch.cuda.synchronize()
@@ -3198,12 +3194,12 @@ def attention_any_path(fa, kernel_mods):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = fa.COUNTS["kernel_launches"]
-        any_launches = fa.COUNTS["tf32x3_any_launches"]
+        on_route = fa.COUNTS[f"{route}_launches"]
         twins = sum(m.COUNTS[c] for m in kernel_mods for c in m.COUNTS
                     if "twin" in c)
-        check(launches == 1 and any_launches == 1 and twins == 0,
+        check(launches == 1 and on_route == 1 and twins == 0,
               f"attention {name}: {launches} kernel launches "
-              f"({any_launches} tf32x3_any), {twins} twin calls")
+              f"({on_route} {route}), {twins} twin calls")
         check(out.shape == q.shape and out.dtype == q.dtype
               and bool(torch.isfinite(out).all()),
               f"attention {name}: output not finite {tuple(q.shape)}")
@@ -3224,34 +3220,28 @@ def attention_any_path(fa, kernel_mods):
             ratio = half_rule(out, twin)
             check(ratio <= 1.0, f"attention {name}: off its twin by "
                   f"{float(err.max())}, {ratio} x one rounding")
-        del twin, out
+        del out, twin
 
         def sdpa():
             return F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
-
-        def simt():
-            return fa._run(q, k, v, causal, "simt")
         n_half = 3 * int(dt != torch.float32)
         times = timing_row(
             f"{b}x{h}x{hkv}x{s}x{d} {mode} {dtype_name(dt)}",
             lambda: fa.flash_attention(q, k, v, causal),
             lambda: fa.flash_attention_torch(q, k, v, causal), sdpa,
             q.element_size() * 2 * (q.numel() + k.numel()),
-            attention_ops(b, h, s, d, causal, dt, "tf32x3_any", n_half),
-            "flash_attention_tf32x3_any_kernel", reps=5, plain_reps=2)
+            attention_ops(b, h, s, d, causal, dt, route, n_half),
+            f"flash_attention_{route}_kernel", reps=5, plain_reps=2)
         fp32_ops = attention_ops(b, h, s, d, causal, torch.float32,
-                                 "simt")[0]
+                                 "fp32")[0]
         rec[name] = dict(b_h_hkv_s_d=[b, h, hkv, s, d], causal=causal,
-                         q_dtype=dtype_name(dt), route="tf32x3_any",
+                         q_dtype=dtype_name(dt), route=route,
                          wall_s=wall, kernel_launches=launches,
-                         tf32x3_any_launches=any_launches, twin_calls=twins,
+                         route_launches=on_route, twin_calls=twins,
                          max_abs_err=float(err.max()),
                          over_one_rounding=ratio,
                          fp32_bound_ms=fp32_ops / PEAK_FP32 * 1e3,
-                         simt_ms=time_ms(simt, 3, windows=3),
-                         simt_device_ms=device_ms(
-                             simt, "flash_attention_kernel_any", 3),
                          **times)
     return rec
 
@@ -5409,35 +5399,30 @@ def main() -> int:
         power_limit=power,
         **{k: v for k, v in t3_by_shape[0].items() if k != "max_abs_err"},
         by_shape=t3_by_shape))
-    any_keys = t3_keys + ("simt_ms", "simt_device_ms")
-    any_rows = [r for r in attn_f32.values() if r["route"] == "tf32x3_any"]
-    any_by_shape = [{k: r[k] for k in any_keys} for r in any_rows]
-    entries.append(dict(
-        name="flash_attention_tf32x3_any", route="cuda",
-        source=src + "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:35",
-        kernel="flash_attention_tf32x3_any_kernel (D <= 256 beyond the TMA "
-               "routes: 3xTF32 mma.sync, loads through registers)",
-        launches=sum(r["tf32x3_any_launches"] for r in any_rows),
-        path="attention at D = 160 (f32) and gemma-2-9b's width (f32, "
-             "bf16) (ops.flash_attention)",
-        max_abs_err=max([r["max_abs_err"] for r in k9
-                         if r["route"] == "tf32x3_any"]
-                        + [r["max_abs_err"] for r in any_rows
-                           if r["q_dtype"] == "float32"]),
-        power_limit=power,
-        **{k: v for k, v in any_by_shape[0].items() if k != "max_abs_err"},
-        by_shape=any_by_shape))
-    simt = attn_f32[f"simt_d{ATTENTION_SIMT[4]}"]
-    entries.append(dict(
-        name="flash_attention_simt", route="cuda",
-        source=src + "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:35",
-        kernel="flash_attention_kernel_any (D > 256)",
-        launches=0, path="none (D > 256; checked directly)",
-        max_abs_err=max(r["max_abs_err"] for r in k9
-                        if r["route"] == "simt"),
-        power_limit=power, **{k: simt[k] for k in keys}))
+    for route, kernel, path in (
+            ("tf32x3_any", "flash_attention_tf32x3_any_kernel (D <= 256 "
+             "beyond the TMA routes: 3xTF32 mma.sync, loads through "
+             "registers)", "attention at D = 160 (f32) and gemma-2-9b's "
+             "width (f32, bf16) (ops.flash_attention)"),
+            ("tf32x3_wide", "flash_attention_tf32x3_wide_kernel (D > 256: "
+             "3xTF32 mma.sync, O's columns over a pair of warps)",
+             "attention at D = 320 (f32, bf16) and 512 (f32) "
+             "(ops.flash_attention)")):
+        rows = [r for r in attn_f32.values() if r["route"] == route]
+        by_shape = [{k: r[k] for k in t3_keys} for r in rows]
+        entries.append(dict(
+            name=f"flash_attention_{route}", route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:35",
+            kernel=kernel, launches=sum(r["route_launches"] for r in rows),
+            path=path,
+            max_abs_err=max([r["max_abs_err"] for r in k9
+                             if r["route"] == route]
+                            + [r["max_abs_err"] for r in rows
+                               if r["q_dtype"] == "float32"]),
+            power_limit=power,
+            **{k: v for k, v in by_shape[0].items() if k != "max_abs_err"},
+            by_shape=by_shape))
     # ----- 10. the LM stack's serving path (P12a): no port kernel ----------
     lm = lm_path(power, kernel_mods)
     # ----- 11. the LM stack's training path (P12b): no port kernel ---------

@@ -17,7 +17,7 @@
 // and columns past S are masked in the kernel, not padded in memory, so any
 // S >= 1 is taken.  No atomics: each output row is written by one block,
 // so two runs agree bit for bit.  Four routes, picked by the wrapper
-// (repro_torch/kernels/flash_attention.py::route):
+// (repro_torch/kernels/flash_attention.py::route), all on the tensor cores:
 //
 // * the tensor-core route (repro_flash_attention_wgmma) for f16/bf16
 //   operands of one dtype with D a multiple of 8 up to 128 and
@@ -30,7 +30,8 @@
 // * the 3xTF32 route through registers (repro_flash_attention_tf32x3_any)
 //   for every other call with D up to 256, any dtype mix: D > 128, rows TMA
 //   does not move, misaligned bases;
-// * the SIMT route (repro_flash_attention) for D > 256.
+// * the 3xTF32 route for D > 256 (repro_flash_attention_tf32x3_wide), any
+//   dtype mix, alignment and D: O's columns split over a pair of warps.
 //
 // What bounds it on the card: the operations.  For qwen2-7b's attention at
 // S = 4096 (H = 28, Hkv = 4, D = 128, causal) the tensor-core route does
@@ -38,12 +39,14 @@
 // P V below), 1.80e11, 0.182 ms at 989 TFLOP/s; its 2.35e8 exps take
 // 0.056 ms at the SFU rate and the bytes ~0.02 ms.  The 3xTF32 route does
 // 12 D TF32 operations per score (2 D fewer for each half operand),
-// 3.61e11, 0.729 ms at 495 TFLOP/s.  The SIMT route does 4 D FP32
-// operations per score: 1.20e11, 1.80 ms at 67 TFLOP/s.  The route through
-// registers counts as the 3xTF32 one: at gemma-2-9b's width (H = 16, Hkv =
-// 8, D = 256, S = 4096, causal) 12 D TF32 operations per score, 4.12e11,
-// 0.833 ms in f32.  With every operand half, the 6 D left are products of
+// 3.61e11, 0.729 ms at 495 TFLOP/s.  The route through registers counts
+// as the 3xTF32 one: at gemma-2-9b's width (H = 16, Hkv = 8, D = 256,
+// S = 4096, causal) 12 D TF32 operations per score, 4.12e11, 0.833 ms in
+// f32.  With every operand half, the 6 D left are products of
 // half values, as the wgmma route's: 2.06e11, 0.208 ms at 989 TFLOP/s.
+// The route for D > 256 counts the same: f32 at D = 320 (1 x 16 x 16 x 1500,
+// full) 12 D TF32 operations per score, 1.38e11, 0.279 ms; 0.447 ms at
+// D = 512; bf16 at D = 320 6 D half ones, 0.0699 ms.
 //
 // The tensor-core route (flash_attention_wgmma_kernel): one block owns 192
 // (D <= 64) or 128 query rows of one (batch, head): three or two consumer
@@ -180,8 +183,8 @@
 //     fragment means (t, t + 4), so V's rows are permuted within each
 //     group of 8 as (0, 2, 4, 6, 1, 3, 5, 7): V's unit holds rows 2t and
 //     2t + 1.  O += P_lo V_hi + P_hi V_lo + P_hi V_hi, small terms first.
-//   * Registers (ptxas): 255 at DP = 256 (12 bytes spilled) and 192,
-//     244 at 160, 211 at 128; O takes DP / 2 of them.
+//   * Registers (ptxas): 254 at DP = 256 (8 bytes spilled), 255 at 192,
+//     244 at 160, 214 at 128; O takes DP / 2 of them.
 //   * Causal blocks stop at the diagonal tile, the longest query tiles
 //     first; a warp whose rows all lie above a tile skips it (it still
 //     waits for the tile and frees it).  No atomics.
@@ -191,29 +194,52 @@
 //     a second), each warp reads the whole K and V tile from shared memory,
 //     and the producer's split and stores take issue slots beside it.
 //
-// The SIMT kernel (flash_attention_kernel_any; the port's first design):
-// one block owns 64 query rows, 8 warps of 8 rows, K/V tiles of 64 rows
-// staged as f32 in dynamic shared memory, all arithmetic FP32 on the CUDA
-// cores.  Each operand is read through its runtime dtype code, and D is
-// tiled in chunks of 128 columns (zero-filled past D):
-//   * Q K^T: lane j scores kv rows j and j + 32 against the warp's 8 rows,
-//     explicit fmaf over d in order from 0 (the build has --fmad=false),
-//     chunk by chunk.  K rows are padded by one float, so the 32 lanes'
-//     reads of one column fall in 32 banks; the query rows are read as
-//     float4 broadcasts.
-//   * softmax: warp-shuffle max and sum (xor butterflies, the same order
-//     on every run), masked as above.  A warp whose 8 rows all lie above a
-//     kv tile skips that tile's arithmetic.
-//   * P V: the warp's probabilities go through shared memory; lane c owns
-//     columns c, c + 32, ... of the f32 accumulator of each of its rows.
-//     Each 128-column chunk of the output repeats the kv walk (so for
-//     D > 128 it computes the scores D / 128 times over; no configured
-//     model has such a head dim).
-// It takes D > 256, which no route on the tensor cores takes.
-
-// Plain C interfaces (repro_flash_attention, repro_flash_attention_wgmma,
-// repro_flash_attention_tf32x3, repro_flash_attention_tf32x3_any) for
-// ctypes; the Python wrapper is
+// The 3xTF32 route for D > 256 (flash_attention_tf32x3_wide_kernel, in
+// namespace ta, built from its units, swizzles, loads, splits, mbarrier
+// ring and softmax): O of DP columns takes DP / 2 registers a thread, more
+// than one warp has past DP = 256, so O's columns are split over a pair of
+// consumer warps for each group of 16 query rows.  One block owns 32 query
+// rows of one (batch, head): warps 2 p and 2 p + 1 share rows 16 p ..
+// 16 p + 15, warp 2 p + c owns columns [c W, (c + 1) W) of each slab, W =
+// DP / 2; one block an SM.
+//   * Producers: one warpgroup at DP = 320 (256 threads: a step's K and V
+//     take 88 registers a producer thread, so a second register set or a
+//     second warpgroup at setmaxnreg's 120 spills); two at 384 and 512
+//     (384 threads), each taking every second step into its own stage, so
+//     each step's loads are in flight through the other's step;
+//     setmaxnreg gives the producers 120 registers and the consumers 256.
+//   * Staged slab width DP: D rounded up to 320 or 384, else 512 (W = 160,
+//     192, 256: the widths the route through registers gives one warp).
+//     Past D = 512 O is written in slabs of 512 columns, one kv walk a
+//     slab, and every walk sums each score over all of D's slabs in order.
+//   * S = Q K^T over the halves: each warp multiplies its half of Q by its
+//     half of K (the route through registers' three chains, its units,
+//     swizzles and producer), writes its 16 x T partial to shared memory,
+//     and the pair meets at a named barrier (bar.sync 1 + p, 64); both
+//     warps add half 0's partial to half 1's, so both hold the same S bit
+//     for bit, take the same maxima and run the same softmax.  Each warp
+//     then multiplies P by its half of V.  Each warp reads half of each K
+//     and V tile, and Q's units of its half.
+//   * Shared memory: Q 4 * 32 * DP bytes, two stages of K_hi, K_lo, V_hi,
+//     V_lo of 16 T DP bytes each, the exchange (2 parities x 4 warps x
+//     16 x T floats) and 4 mbarriers: 213,024 bytes at DP = 320 (T = 16),
+//     151,584 at 384 (T = 8: T = 16 would take 240 KB), 200,736 at 512
+//     (T = 8), of the 232,448 a block may have.
+//   * Q is staged once up to D = 512, the largest D the plan takes without
+//     re-staging; past it each consumer thread re-stages its own units of
+//     Q's slab at each step (Q at full D does not fit beside the stages).
+//   * Registers (ptxas): 249 a thread at DP = 320, no spills; 168 at
+//     launch at 384 and 512 (setmaxnreg then 256 a consumer), spilling 12
+//     and 28 bytes.  O takes DP / 4 of a consumer's.
+//   * No atomics; a repeated launch is bit-equal.
+//   * What holds it back is not measured (no stall breakdown runs on this
+//     card); our guess: the producer (one warp an SM sub-partition loads,
+//     splits and stores a tile beside the consumer at DP = 320), then the
+//     consumers' Q K^T, which reads Q's units again every kv tile.
+//
+// Plain C interfaces (repro_flash_attention_wgmma,
+// repro_flash_attention_tf32x3, repro_flash_attention_tf32x3_any,
+// repro_flash_attention_tf32x3_wide) for ctypes; the Python wrapper is
 // repro_torch/kernels/flash_attention.py::flash_attention.  A launch is
 // refused (cudaErrorInvalidValue) past the caps or the grid's limits.
 
@@ -227,22 +253,12 @@
 
 namespace {
 
-constexpr int kRows = 64;                      // query rows / kv rows a tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kRows / kWarps;   // 8
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;                     // the TMA routes' largest D
 constexpr float kMaxInit = -1e30f;             // the reference's NEG_INF
 
-// f32 floats of shared memory one block of the SIMT kernel stages.
-constexpr size_t kSimtSmemFloats =
-    (size_t)kRows * kMaxD                // Q tile
-    + (size_t)kRows * (kMaxD + 1)        // K tile, rows padded by one
-    + (size_t)kRows * kMaxD              // V tile
-    + (size_t)kWarps * kRowsPerWarp * kRows;   // probabilities
-
-// Operand access of the SIMT kernel: each operand is read through its own
-// runtime dtype code (0 f32, 1 f16, 2 bf16) and the output written in q's.
+// Operand access of the routes through registers: each operand is read
+// through its own runtime dtype code (0 f32, 1 f16, 2 bf16) and the output
+// written in q's.
 struct AnyDtype {
   const void* p;
   int code;
@@ -275,201 +291,6 @@ __device__ __forceinline__ void store(AnyOut o, long long i, float x) {
 __device__ __forceinline__ AnyOut advance_out(AnyOut o, long long i) {
   return {static_cast<char*>(o.p) + i * (o.code == 0 ? 4 : 2), o.code};
 }
-
-// Rows [r0, r0 + 64) and columns [c0, c0 + kMaxD) of a [s, d] slab into
-// dst as f32 (row stride ld), zero past row s and past column d.
-__device__ __forceinline__ void stage(AnyDtype src, float* dst, int ld,
-                                      int r0, int s, int d, int c0) {
-  for (int i = threadIdx.x; i < kRows * kMaxD; i += kThreads) {
-    const int r = i / kMaxD;
-    const int c = i - r * kMaxD;
-    const int gr = r0 + r;
-    float x = 0.f;
-    if (gr < s && c0 + c < d) x = load(src, (long long)gr * d + c0 + c);
-    dst[r * ld + c] = x;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = x + __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// One block's 64 query rows, any d: the output is written kMaxD columns
-// at a time, each after its own kv walk, and every score sums its d
-// products over kMaxD-column chunks of Q and K in order from column 0, so
-// each walk sees the same scores and softmax.
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel_any(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out,
-                           int h, int hkv, int s, int d, float scale,
-                           int causal) {
-  constexpr int DP = kMaxD;
-  constexpr int kCols = DP / 32;               // accumulator columns a lane
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;
-  float* s_k = s_q + kRows * DP;
-  float* s_v = s_k + kRows * (DP + 1);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* s_p = s_v + kRows * DP + warp * kRowsPerWarp * kRows;
-
-  const long long bh = blockIdx.x;
-  const long long kvh = (bh / h) * hkv + (bh % h) / (h / hkv);
-  const int n_qt = (s + kRows - 1) / kRows;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;   // longest first
-  const long long slab = (long long)s * d;
-  const AnyDtype qp = advance(q, bh * slab);
-  const AnyDtype kp = advance(k, kvh * slab);
-  const AnyDtype vp = advance(v, kvh * slab);
-  const int n_dc = (d + DP - 1) / DP;          // column chunks of d
-  if (n_dc == 1) stage(qp, s_q, DP, q0, s, d, 0);
-
-  const int last_row = min(q0 + kRows, s) - 1;
-  const int n_kt = causal ? last_row / kRows + 1 : n_qt;
-  const int wr0 = q0 + warp * kRowsPerWarp;    // the warp's first row
-  const float* q_w = s_q + warp * kRowsPerWarp * DP;
-  const AnyOut o = advance_out(out, bh * slab);
-
-  for (int oc = 0; oc < n_dc; ++oc) {          // the output's column chunk
-    float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      m[r] = kMaxInit;
-      l[r] = 0.f;
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) acc[r][t] = 0.f;
-    }
-
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int k0 = kt * kRows;
-      const bool idle = wr0 >= s || (causal && wr0 + kRowsPerWarp - 1 < k0);
-      // scores of kv rows k0 + lane and k0 + lane + 32
-      float sc[kRowsPerWarp][2];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) sc[r][0] = sc[r][1] = 0.f;
-      for (int dc = 0; dc < n_dc; ++dc) {
-        __syncthreads();               // the last tile is consumed, Q staged
-        if (n_dc > 1) stage(qp, s_q, DP, q0, s, d, dc * DP);
-        stage(kp, s_k, DP + 1, k0, s, d, dc * DP);
-        if (dc == n_dc - 1) stage(vp, s_v, DP, k0, s, d, oc * DP);
-        __syncthreads();
-        if (idle) continue;
-        const float* k_a = s_k + lane * (DP + 1);
-        const float* k_b = s_k + (lane + 32) * (DP + 1);
-#pragma unroll 2
-        for (int c = 0; c < DP; c += 4) {
-          float ka[4], kb[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            ka[u] = k_a[c + u];
-            kb[u] = k_b[c + u];
-          }
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float4 qv =
-                *reinterpret_cast<const float4*>(q_w + r * DP + c);
-            sc[r][0] = fmaf(qv.x, ka[0], sc[r][0]);
-            sc[r][0] = fmaf(qv.y, ka[1], sc[r][0]);
-            sc[r][0] = fmaf(qv.z, ka[2], sc[r][0]);
-            sc[r][0] = fmaf(qv.w, ka[3], sc[r][0]);
-            sc[r][1] = fmaf(qv.x, kb[0], sc[r][1]);
-            sc[r][1] = fmaf(qv.y, kb[1], sc[r][1]);
-            sc[r][1] = fmaf(qv.z, kb[2], sc[r][1]);
-            sc[r][1] = fmaf(qv.w, kb[3], sc[r][1]);
-          }
-        }
-      }
-      if (idle) continue;
-
-      // online softmax, one row at a time across the warp
-      const int c0 = k0 + lane;
-      const int c1 = c0 + 32;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int row = wr0 + r;
-        float s0 = sc[r][0] * scale;
-        float s1 = sc[r][1] * scale;
-        if (c0 >= s || (causal && c0 > row)) s0 = -INFINITY;
-        if (c1 >= s || (causal && c1 > row)) s1 = -INFINITY;
-        const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-        const float p0 = expf(s0 - m_new);
-        const float p1 = expf(s1 - m_new);
-        const float alpha = expf(m[r] - m_new);
-        l[r] = l[r] * alpha + warp_sum(p0 + p1);
-        m[r] = m_new;
-        s_p[r * kRows + lane] = p0;
-        s_p[r * kRows + lane + 32] = p1;
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) acc[r][t] = acc[r][t] * alpha;
-      }
-      __syncwarp();
-
-      // acc += P V over the tile's 64 kv rows, in order
-#pragma unroll 2
-      for (int j = 0; j < kRows; j += 4) {
-        float vv[4][kCols];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int t = 0; t < kCols; ++t) {
-            vv[u][t] = s_v[(j + u) * DP + lane + 32 * t];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 pj =
-              *reinterpret_cast<const float4*>(s_p + r * kRows + j);
-#pragma unroll
-          for (int t = 0; t < kCols; ++t) {
-            acc[r][t] = fmaf(pj.x, vv[0][t], acc[r][t]);
-            acc[r][t] = fmaf(pj.y, vv[1][t], acc[r][t]);
-            acc[r][t] = fmaf(pj.z, vv[2][t], acc[r][t]);
-            acc[r][t] = fmaf(pj.w, vv[3][t], acc[r][t]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = wr0 + r;
-      if (row >= s) break;
-      const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        const int c = oc * DP + lane + 32 * t;
-        if (c < d) store(o, (long long)row * d + c, acc[r][t] / denom);
-      }
-    }
-  }
-}
-
-int launch_simt(long long bh, int s, cudaStream_t stream, AnyDtype q,
-                AnyDtype k, AnyDtype v, AnyOut out, int h, int hkv, int d,
-                float scale, int causal) {
-  constexpr size_t smem = sizeof(float) * kSimtSmemFloats;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel_any,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)bh, (unsigned)((s + kRows - 1) / kRows));
-  flash_attention_kernel_any<<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, h, hkv, s, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
 
 // ------------------------------------------------------ tensor-core route
 
@@ -1471,29 +1292,38 @@ constexpr int kBM = 64;            // query rows a block: 4 consumer warps
 constexpr int kThreads = 256;      // consumer warps 0-3, producer warps 4-7
 constexpr int kProducers = 128;
 
-// The tile plan at a staged head width DP (a multiple of 32; columns past
-// D are zero): kBN kv rows a tile, so that Q (256 DP bytes) and two stages
-// of K_hi, K_lo, V_hi, V_lo (16 kBN DP bytes each) fit the 227 KB a block
-// may have.  Shared memory is kept in units, each one thread's operand of
-// one mma.sync (16 bytes; 8 for a half operand): Q [4 warps][DP / 8
-// slices][32 lanes], and a K or V tile [kBN / 8][DP / 8][32 lanes].
-template <int DP>
-struct Plan {
-  static constexpr int kBN = DP <= 160 ? 32 : DP <= 192 ? 24 : 16;
+// The tiles of a kv walk at a staged head width DP (a multiple of 32;
+// columns past D are zero) and BN kv rows a tile.  Shared memory is kept
+// in units, each one thread's operand of one mma.sync (16 bytes; 8 for a
+// half operand): a K or V tile [kBN / 8][DP / 8][32 lanes].
+template <int DP, int BN>
+struct Tiles {
+  static constexpr int kBN = BN;
   static constexpr int kSlices = DP / 8;   // k8 slices of Q K^T, n8 of P V
-  static constexpr int kNT = kBN / 8;      // n8 tiles of S, k8 slices of P V
-  static constexpr int kQUnits = 4 * kSlices * 32;
+  static constexpr int kNT = BN / 8;       // n8 tiles of S, k8 slices of P V
   static constexpr int kTileUnits = kNT * kSlices * 32;
   // the producer's work a tile: K in (row, slice) chunks of 8 columns, V
   // in (kv slice, n8 tile, t) chunks of 2 rows by 8 columns
-  static constexpr int kKChunks = kBN * kSlices;
+  static constexpr int kKChunks = BN * kSlices;
   static constexpr int kVChunks = kNT * kSlices * 4;
   static constexpr int kKIters = (kKChunks + kProducers - 1) / kProducers;
   static constexpr int kVIters = (kVChunks + kProducers - 1) / kProducers;
+};
+
+// The tile plan of the route through registers (D up to 256): kBN kv rows
+// a tile, so that Q (256 DP bytes) and two stages of K_hi, K_lo, V_hi,
+// V_lo (16 kBN DP bytes each) fit the 227 KB a block may have; Q's units
+// are [4 warps][DP / 8 slices][32 lanes].
+constexpr int any_bn(int dp) { return dp <= 160 ? 32 : dp <= 192 ? 24 : 16; }
+
+template <int DP>
+struct Plan : Tiles<DP, any_bn(DP)> {
+  using Base = Tiles<DP, any_bn(DP)>;
+  static constexpr int kQUnits = 4 * Base::kSlices * 32;
   // units, then the barriers: full[2] (128 producer arrivals), empty[2]
   // (4 consumer warps)
   static constexpr size_t kBytes =
-      16 * (size_t)(kQUnits + 4 * kTileUnits) + 8 * 4;
+      16 * (size_t)(kQUnits + 4 * Base::kTileUnits) + 8 * 4;
 };
 
 // Columns c0 .. c0 + 7 of row `row` of a [s, d] slab, zero past row s and
@@ -1591,20 +1421,20 @@ __device__ __forceinline__ int unit_v(int l, int nt) {
   return l ^ (l >> 3) ^ ((nt & 1) << 2);
 }
 
-// K of one tile into registers: chunk c is row 8 nt + g, columns 8 sl ..
-// 8 sl + 7 (g = c % 8, then sl, then nt), so lanes 0-7 read the same
-// slice of eight rows.
-template <int DP>
-__device__ __forceinline__ void load_k(AnyDtype kp, int k0, int s, int d,
-                                       bool vec, int ptid,
-                                       Raw8 (&x)[Plan<DP>::kKIters]) {
-  using P = Plan<DP>;
+// K of one tile into registers: chunk c is row 8 nt + g, columns c0 + 8 sl
+// .. c0 + 8 sl + 7 (g = c % 8, then sl, then nt), so lanes 0-7 read the
+// same slice of eight rows; c0 is the staged slab's first column (0 but
+// for the wide route's slabs past 512 columns).
+template <class P>
+__device__ __forceinline__ void load_k(AnyDtype kp, int k0, int c0, int s,
+                                       int d, bool vec, int ptid,
+                                       Raw8 (&x)[P::kKIters]) {
 #pragma unroll
   for (int it = 0; it < P::kKIters; ++it) {
     const int c = ptid + kProducers * it;
     if (P::kKChunks % kProducers == 0 || c < P::kKChunks) {
       const int g = c % 8, sl = (c / 8) % P::kSlices, nt = (c / 8) / P::kSlices;
-      x[it] = load_raw(kp, k0 + 8 * nt + g, 8 * sl, s, d, vec);
+      x[it] = load_raw(kp, k0 + 8 * nt + g, c0 + 8 * sl, s, d, vec);
     }
   }
 }
@@ -1613,11 +1443,9 @@ __device__ __forceinline__ void load_k(AnyDtype kp, int k0, int s, int d,
 // 4 g + t) holds K row 8 nt + g at columns 8 sl + t and 8 sl + t + 4 (b0,
 // b1), at unit_k(4 g + t) of its block: an f32 K's hi then lo (16 bytes),
 // a half K's values alone (8 bytes; the tile's first half).
-template <int DP>
+template <class P>
 __device__ __forceinline__ void store_k(uint4* kt, int code, bool vec,
-                                        int ptid,
-                                        Raw8 (&r)[Plan<DP>::kKIters]) {
-  using P = Plan<DP>;
+                                        int ptid, Raw8 (&r)[P::kKIters]) {
 #pragma unroll
   for (int it = 0; it < P::kKIters; ++it) {
     const int c = ptid + kProducers * it;
@@ -1643,20 +1471,19 @@ __device__ __forceinline__ void store_k(uint4* kt, int code, bool vec,
 }
 
 // V of one tile into registers: chunk c is kv rows 8 j + 2 t and 8 j + 2 t
-// + 1, columns 8 nt .. 8 nt + 7 (t = c % 4, then nt, then j).
-template <int DP>
-__device__ __forceinline__ void load_v(AnyDtype vp, int k0, int s, int d,
-                                       bool vec, int ptid,
-                                       Raw8 (&x)[Plan<DP>::kVIters][2]) {
-  using P = Plan<DP>;
+// + 1, columns c0 + 8 nt .. c0 + 8 nt + 7 (t = c % 4, then nt, then j).
+template <class P>
+__device__ __forceinline__ void load_v(AnyDtype vp, int k0, int c0, int s,
+                                       int d, bool vec, int ptid,
+                                       Raw8 (&x)[P::kVIters][2]) {
 #pragma unroll
   for (int it = 0; it < P::kVIters; ++it) {
     const int c = ptid + kProducers * it;
     if (P::kVChunks % kProducers == 0 || c < P::kVChunks) {
       const int t = c % 4, nt = (c / 4) % P::kSlices, j = (c / 4) / P::kSlices;
       const int r = k0 + 8 * j + 2 * t;
-      x[it][0] = load_raw(vp, r, 8 * nt, s, d, vec);
-      x[it][1] = load_raw(vp, r + 1, 8 * nt, s, d, vec);
+      x[it][0] = load_raw(vp, r, c0 + 8 * nt, s, d, vec);
+      x[it][1] = load_raw(vp, r + 1, c0 + 8 * nt, s, d, vec);
     }
   }
 }
@@ -1669,11 +1496,9 @@ __device__ __forceinline__ void load_v(AnyDtype vp, int k0, int s, int d,
 // + t) holds V rows 8 j + 2 t and 8 j + 2 t + 1 (b0 = row perm(t), b1 = row
 // perm(t + 4)) at column 8 nt + g, at unit_v(4 g + t, nt) of its block: an
 // f32 V's hi then lo, a half V's values alone.
-template <int DP>
+template <class P>
 __device__ __forceinline__ void store_v(uint4* vt, int code, bool vec,
-                                        int ptid,
-                                        Raw8 (&r)[Plan<DP>::kVIters][2]) {
-  using P = Plan<DP>;
+                                        int ptid, Raw8 (&r)[P::kVIters][2]) {
 #pragma unroll
   for (int it = 0; it < P::kVIters; ++it) {
     const int c = ptid + kProducers * it;
@@ -1699,17 +1524,51 @@ __device__ __forceinline__ void store_v(uint4* vt, int code, bool vec,
   }
 }
 
-// S = Q K^T of one tile for a warp's 16 rows, n8 tile nt into x[4 nt ..
-// 4 nt + 3] (the m16n8 accumulator layout).  An f32 Q is split at each use
-// (its f32 unit is the A fragment); a half Q (dtype code QC) is widened
-// from its 8-byte unit.  Q_lo K_hi and Q_hi K_lo go to accumulators of
-// their own, added to each other and then to Q_hi K_hi once the slices are
-// done (small terms first).  A half operand's lo is zero and its product
-// is not issued; the accumulator it frees takes every second (or third)
-// slice's Q_hi K_hi, so that a tile always has three independent chains
-// for each n8 tile.
-template <int DP, int QC, bool kK32>
-__device__ __forceinline__ void scores(float (&x)[Plan<DP>::kNT * 4],
+// Q's A fragments of a warp's 16 rows at columns c0 .. c0 + 8 kSl - 1, one
+// unit a k8 slice, written and read by this thread alone: (row r0, col t),
+// (r0 + 8, t), (r0, t + 4), (r0 + 8, t + 4) of the slice, as f32 (16 bytes)
+// or, for a half q, as its 16-bit values (8 bytes); zero past row S and
+// column D.
+template <int kSl>
+__device__ __forceinline__ void stage_q(uint4* qw, AnyDtype qp, int r0,
+                                        int c0, int s, int d, int t,
+                                        int lane) {
+  const auto at = [&](int r, int c) { return (long long)r * d + c; };
+  const auto in = [&](int r, int c) { return r < s && c < d; };
+#pragma unroll 4
+  for (int sl = 0; sl < kSl; ++sl) {
+    const int c = c0 + 8 * sl + t;
+    const int c1 = c + 4;
+    if (qp.code == 0) {
+      const auto ld = [&](int r, int cc) {
+        return in(r, cc) ? __float_as_uint(load(qp, at(r, cc))) : 0u;
+      };
+      qw[sl * 32 + lane] = make_uint4(ld(r0, c), ld(r0 + 8, c),
+                                      ld(r0, c1), ld(r0 + 8, c1));
+    } else {
+      const uint16_t* q16 = static_cast<const uint16_t*>(qp.p);
+      const auto ld = [&](int r, int cc) {
+        return in(r, cc) ? (uint32_t)q16[at(r, cc)] : 0u;
+      };
+      reinterpret_cast<uint2*>(qw)[sl * 32 + lane] =
+          make_uint2(ld(r0, c) | ld(r0 + 8, c) << 16,
+                     ld(r0, c1) | ld(r0 + 8, c1) << 16);
+    }
+  }
+}
+
+// S = Q K^T of one tile for a warp's 16 rows over kSl k8 slices (its column
+// group: kt points at the group's first slice of the tile, whose n8 tiles
+// lie P::kSlices slices apart), n8 tile nt into x[4 nt .. 4 nt + 3] (the
+// m16n8 accumulator layout).  An f32 Q is split at each use (its f32 unit
+// is the A fragment); a half Q (dtype code QC) is widened from its 8-byte
+// unit.  Q_lo K_hi and Q_hi K_lo go to accumulators of their own, added to
+// each other and then to Q_hi K_hi once the slices are done (small terms
+// first).  A half operand's lo is zero and its product is not issued; the
+// accumulator it frees takes every second (or third) slice's Q_hi K_hi, so
+// that a tile always has three independent chains for each n8 tile.
+template <class P, int kSl, int QC, bool kK32>
+__device__ __forceinline__ void scores(float (&x)[P::kNT * 4],
                                        const uint4* qw, const uint4* kt,
                                        int lane) {
   constexpr bool kQ32 = QC == 0;
@@ -1717,7 +1576,6 @@ __device__ __forceinline__ void scores(float (&x)[Plan<DP>::kNT * 4],
   // then sb (a half K)
   constexpr int kTurns = 1 + !kQ32 + !kK32;
   const int uk = unit_k(lane);
-  using P = Plan<DP>;
   float sa[P::kNT][4], sb[P::kNT][4], sc[P::kNT][4];
 #pragma unroll
   for (int nt = 0; nt < P::kNT; ++nt) {
@@ -1725,7 +1583,7 @@ __device__ __forceinline__ void scores(float (&x)[Plan<DP>::kNT * 4],
     for (int e = 0; e < 4; ++e) sa[nt][e] = sb[nt][e] = sc[nt][e] = 0.f;
   }
 #pragma unroll
-  for (int sl = 0; sl < P::kSlices; ++sl) {
+  for (int sl = 0; sl < kSl; ++sl) {
     uint32_t qh[4], ql[4];
     if constexpr (kQ32) {
       const uint4 qv = qw[sl * 32 + lane];
@@ -1775,19 +1633,77 @@ __device__ __forceinline__ void scores(float (&x)[Plan<DP>::kNT * 4],
   }
 }
 
-// O += P_lo V_hi + P_hi V_lo + P_hi V_hi of one tile, small products first
+// scores() for the operands' dtype codes: q's, and whether K is f32.
+template <class P, int kSl>
+__device__ __forceinline__ void scores_any(float (&x)[P::kNT * 4],
+                                           int q_code, bool k32,
+                                           const uint4* qw, const uint4* kt,
+                                           int lane) {
+  if (q_code == 0) {
+    if (k32) {
+      scores<P, kSl, 0, true>(x, qw, kt, lane);
+    } else {
+      scores<P, kSl, 0, false>(x, qw, kt, lane);
+    }
+  } else if (q_code == 1) {
+    if (k32) {
+      scores<P, kSl, 1, true>(x, qw, kt, lane);
+    } else {
+      scores<P, kSl, 1, false>(x, qw, kt, lane);
+    }
+  } else if (k32) {
+    scores<P, kSl, 2, true>(x, qw, kt, lane);
+  } else {
+    scores<P, kSl, 2, false>(x, qw, kt, lane);
+  }
+}
+
+// P (the softmax's output in x) split into the A fragments of the tile's
+// kv slices: slice j takes accumulator columns 8 j + 2t, 8 j + 2t + 1 of
+// rows g, g + 8 as its a[0], a[2] and a[1], a[3].
+template <class P>
+__device__ __forceinline__ void split_p(const float (&x)[P::kNT * 4],
+                                        uint32_t (&ph)[P::kNT][4],
+                                        uint32_t (&pl)[P::kNT][4]) {
+#pragma unroll
+  for (int j = 0; j < P::kNT; ++j) {
+    t3::split1(x[4 * j], ph[j][0], pl[j][0]);
+    t3::split1(x[4 * j + 2], ph[j][1], pl[j][1]);
+    t3::split1(x[4 * j + 1], ph[j][2], pl[j][2]);
+    t3::split1(x[4 * j + 3], ph[j][3], pl[j][3]);
+  }
+}
+
+// O *= alpha (per row), skipped when no row of the warp changed its max
+// (alpha is exactly 1 then, so the result is the same).
+template <int kCols>
+__device__ __forceinline__ void rescale(float (&o)[kCols][4], float al0,
+                                        float al1) {
+  if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+    for (int nt = 0; nt < kCols; ++nt) {
+      o[nt][0] = o[nt][0] * al0;
+      o[nt][1] = o[nt][1] * al0;
+      o[nt][2] = o[nt][2] * al1;
+      o[nt][3] = o[nt][3] * al1;
+    }
+  }
+}
+
+// O += P_lo V_hi + P_hi V_lo + P_hi V_hi of one tile over kCols n8 tiles
+// of O (a column group: vt points at the group's first n8 tile, an even
+// one, so the swizzle's parity is the local tile's), small products first
 // (P_hi V_lo not issued for a half V): kv slice j's A fragments are P's
 // (ph[j], pl[j]); n8 tile nt of O its own accumulator.
-template <int DP, bool kV32>
-__device__ __forceinline__ void pv(float (&o)[DP / 8][4],
-                                   uint32_t (&ph)[Plan<DP>::kNT][4],
-                                   uint32_t (&pl)[Plan<DP>::kNT][4],
+template <class P, int kCols, bool kV32>
+__device__ __forceinline__ void pv(float (&o)[kCols][4],
+                                   uint32_t (&ph)[P::kNT][4],
+                                   uint32_t (&pl)[P::kNT][4],
                                    const uint4* vt, int lane) {
-  using P = Plan<DP>;
 #pragma unroll
   for (int j = 0; j < P::kNT; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < P::kSlices; ++nt) {
+    for (int nt = 0; nt < kCols; ++nt) {
       const int at = (j * P::kSlices + nt) * 32 + unit_v(lane, nt);
       if constexpr (kV32) {
         const uint4 vv = vt[at];
@@ -1798,6 +1714,28 @@ __device__ __forceinline__ void pv(float (&o)[DP / 8][4],
         const uint2 vv = reinterpret_cast<const uint2*>(vt)[at];
         mma_tf32_m16n8k8(o[nt], pl[j], vv.x, vv.y);
         mma_tf32_m16n8k8(o[nt], ph[j], vv.x, vv.y);
+      }
+    }
+  }
+}
+
+// O / l of a warp's rows r0, r0 + 8 at columns c0 + 8 nt + 2t + {0, 1},
+// rounded once to the output dtype, masked at row S and column D.
+template <int kCols>
+__device__ __forceinline__ void store_o(AnyOut ob, float (&o)[kCols][4],
+                                        int r0, int c0, int s, int d, int t,
+                                        float l0, float l1) {
+  const float den0 = fmaxf(l0, 1e-30f);
+  const float den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int nt = 0; nt < kCols; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + 8 * nt + 2 * t + e;
+      if (c >= d) continue;
+      if (r0 < s) store(ob, (long long)r0 * d + c, o[nt][e] / den0);
+      if (r0 + 8 < s) {
+        store(ob, (long long)(r0 + 8) * d + c, o[nt][2 + e] / den1);
       }
     }
   }
@@ -1842,17 +1780,17 @@ flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
     const AnyDtype kp = advance(k, kvh * slab);
     const AnyDtype vp = advance(v, kvh * slab);
     Raw8 kx[P::kKIters], vx[P::kVIters][2];
-    load_k<DP>(kp, 0, s, d, vec_k, ptid, kx);
-    load_v<DP>(vp, 0, s, d, vec_v, ptid, vx);
+    load_k<P>(kp, 0, 0, s, d, vec_k, ptid, kx);
+    load_v<P>(vp, 0, 0, s, d, vec_v, ptid, vx);
     for (int i = 0; i < n_kt; ++i) {
       const int st = i & 1;
       mbar_wait(bar_empty + 8 * st, ((i >> 1) & 1) ^ 1);
-      store_k<DP>(s_k + st * P::kTileUnits, k.code, vec_k, ptid, kx);
-      store_v<DP>(s_v + st * P::kTileUnits, v.code, vec_v, ptid, vx);
+      store_k<P>(s_k + st * P::kTileUnits, k.code, vec_k, ptid, kx);
+      store_v<P>(s_v + st * P::kTileUnits, v.code, vec_v, ptid, vx);
       mbar_arrive(bar_full + 8 * st);
       if (i + 1 < n_kt) {
-        load_k<DP>(kp, (i + 1) * T, s, d, vec_k, ptid, kx);
-        load_v<DP>(vp, (i + 1) * T, s, d, vec_v, ptid, vx);
+        load_k<P>(kp, (i + 1) * T, 0, s, d, vec_k, ptid, kx);
+        load_v<P>(vp, (i + 1) * T, 0, s, d, vec_v, ptid, vx);
       }
     }
     return;
@@ -1865,34 +1803,8 @@ flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
   const int g = lane / 4, t = lane % 4;
   const int w0 = q0 + 16 * warp;
   const int r0 = w0 + g;
-  // Q's A fragments, one unit a slice, written and read by this thread
-  // alone: (row r0, col t), (r0 + 8, t), (r0, t + 4), (r0 + 8, t + 4), as
-  // f32 (16 bytes) or, for a half q, as its 16-bit values (8 bytes)
   uint4* qw = s_q + warp * P::kSlices * 32;
-  {
-    const AnyDtype qp = advance(q, bh * slab);
-    const auto at = [&](int r, int c) { return (long long)r * d + c; };
-    const auto in = [&](int r, int c) { return r < s && c < d; };
-#pragma unroll 4
-    for (int sl = 0; sl < P::kSlices; ++sl) {
-      const int c = 8 * sl + t;
-      if (q.code == 0) {
-        const auto ld = [&](int r, int cc) {
-          return in(r, cc) ? __float_as_uint(load(qp, at(r, cc))) : 0u;
-        };
-        qw[sl * 32 + lane] = make_uint4(ld(r0, c), ld(r0 + 8, c),
-                                        ld(r0, c + 4), ld(r0 + 8, c + 4));
-      } else {
-        const uint16_t* q16 = static_cast<const uint16_t*>(qp.p);
-        const auto ld = [&](int r, int cc) {
-          return in(r, cc) ? (uint32_t)q16[at(r, cc)] : 0u;
-        };
-        reinterpret_cast<uint2*>(qw)[sl * 32 + lane] =
-            make_uint2(ld(r0, c) | ld(r0 + 8, c) << 16,
-                       ld(r0, c + 4) | ld(r0 + 8, c + 4) << 16);
-      }
-    }
-  }
+  stage_q<P::kSlices>(qw, advance(q, bh * slab), r0, 0, s, d, t, lane);
   const float scale2 = scale * 1.44269504088896341f;   // log2(e)
   const int lim0 = causal ? min(r0, s - 1) : s - 1;
   const int lim1 = causal ? min(r0 + 8, s - 1) : s - 1;
@@ -1912,25 +1824,9 @@ flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
     mbar_wait(bar_full + 8 * st, (i >> 1) & 1);
     // a warp whose rows all lie past S, or above a causal tile, skips it
     if (w0 < s && (!causal || k0 <= w0 + 15)) {
-      const uint4* kt = s_k + st * P::kTileUnits;
       float x[P::kNT * 4];
-      if (q.code == 0) {
-        if (k32) {
-          scores<DP, 0, true>(x, qw, kt, lane);
-        } else {
-          scores<DP, 0, false>(x, qw, kt, lane);
-        }
-      } else if (q.code == 1) {
-        if (k32) {
-          scores<DP, 1, true>(x, qw, kt, lane);
-        } else {
-          scores<DP, 1, false>(x, qw, kt, lane);
-        }
-      } else if (k32) {
-        scores<DP, 2, true>(x, qw, kt, lane);
-      } else {
-        scores<DP, 2, false>(x, qw, kt, lane);
-      }
+      scores_any<P, P::kSlices>(x, q.code, k32, qw, s_k + st * P::kTileUnits,
+                                lane);
       float al0, al1;
       if (k0 + T - 1 > lim_w) {
         tc::online_softmax<true>(x, k0, t, lim0, lim1, scale2, 1.f, m0, m1,
@@ -1939,33 +1835,14 @@ flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
         tc::online_softmax<false>(x, k0, t, lim0, lim1, scale2, 1.f, m0, m1,
                                   l0, l1, al0, al1);
       }
-      // O *= alpha, skipped when no row of the warp changed its max (alpha
-      // is exactly 1 then, so the result is the same)
-      if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
-#pragma unroll
-        for (int nt = 0; nt < DP / 8; ++nt) {
-          o[nt][0] = o[nt][0] * al0;
-          o[nt][1] = o[nt][1] * al0;
-          o[nt][2] = o[nt][2] * al1;
-          o[nt][3] = o[nt][3] * al1;
-        }
-      }
-      // P split into the A fragments of the tile's kv slices: slice j
-      // takes accumulator columns 8 j + 2t, 8 j + 2t + 1 of rows g, g + 8
-      // as its a[0], a[2] and a[1], a[3]
+      rescale(o, al0, al1);
       uint32_t ph[P::kNT][4], pl[P::kNT][4];
-#pragma unroll
-      for (int j = 0; j < P::kNT; ++j) {
-        t3::split1(x[4 * j], ph[j][0], pl[j][0]);
-        t3::split1(x[4 * j + 2], ph[j][1], pl[j][1]);
-        t3::split1(x[4 * j + 1], ph[j][2], pl[j][2]);
-        t3::split1(x[4 * j + 3], ph[j][3], pl[j][3]);
-      }
+      split_p<P>(x, ph, pl);
       const uint4* vt = s_v + st * P::kTileUnits;
       if (v32) {
-        pv<DP, true>(o, ph, pl, vt, lane);
+        pv<P, DP / 8, true>(o, ph, pl, vt, lane);
       } else {
-        pv<DP, false>(o, ph, pl, vt, lane);
+        pv<P, DP / 8, false>(o, ph, pl, vt, lane);
       }
     }
     __syncwarp();
@@ -1973,19 +1850,13 @@ flash_attention_tf32x3_any_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
   }
 
   if (w0 >= s) return;
-  const float den0 = fmaxf(l0, 1e-30f);
-  const float den1 = fmaxf(l1, 1e-30f);
-  const AnyOut ob = advance_out(out, bh * slab);
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = 8 * nt + 2 * t + e;
-      if (c >= d) continue;
-      if (r0 < s) store(ob, (long long)r0 * d + c, o[nt][e] / den0);
-      if (r0 + 8 < s) store(ob, (long long)(r0 + 8) * d + c, o[nt][2 + e] / den1);
-    }
-  }
+  store_o(advance_out(out, bh * slab), o, r0, 0, s, d, t, l0, l1);
+}
+
+// 16-byte loads: a 16-byte-aligned base and rows of a 16-byte multiple.
+inline int vec16(AnyDtype a, int d) {
+  return (int)(((unsigned long long)a.p & 15ull) == 0 &&
+               (long long)d * (a.code == 0 ? 4 : 2) % 16 == 0);
 }
 
 template <int DP>
@@ -1997,14 +1868,246 @@ int launch(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out, long long b,
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  // 16-byte loads: a 16-byte-aligned base and rows of a 16-byte multiple
-  const auto vec = [d](AnyDtype a) {
-    return (int)(((unsigned long long)a.p & 15ull) == 0 &&
-                 (long long)d * (a.code == 0 ? 4 : 2) % 16 == 0);
-  };
   const dim3 grid((unsigned)(b * h), (unsigned)((s + kBM - 1) / kBM));
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, h, hkv, s, d, scale,
-                                           causal, vec(k), vec(v));
+                                           causal, vec16(k, d), vec16(v, d));
+  return (int)cudaGetLastError();
+}
+
+// ------------------- 3xTF32 through registers, D > 256: O over a warp pair
+
+constexpr int kWideRows = 32;   // query rows a block: 2 row groups of 16
+// registers a thread after setmaxnreg where a plan has two producer
+// warpgroups (the block holds 384 x 168 at launch)
+constexpr int kWideProducerRegs = 120;
+constexpr int kWideConsumerRegs = 256;
+static_assert(128 * kWideConsumerRegs + 256 * kWideProducerRegs <= 384 * 168,
+              "the block's registers");
+
+// The plan of the wide route at a staged slab width DP (320, 384 or 512;
+// columns past D are zero): kv tiles of 16 rows at DP = 320 and of 8 at
+// 384 and 512, so that Q (4 * 32 * DP bytes) and two stages of K_hi, K_lo,
+// V_hi, V_lo (16 kBN DP bytes each) fit; the route through registers'
+// units and producer, one warpgroup of it or two.  A warp owns one column
+// half of its row group: kHalf k8 slices of Q K^T and n8 tiles of O.  Q's units are [4 warps][kHalf][32
+// lanes]; the exchange of partial scores [2 parities][4 warps][kNT][32
+// lanes] of float4.
+template <int DP>
+struct WidePlan : Tiles<DP, DP <= 320 ? 16 : 8> {
+  using Base = Tiles<DP, DP <= 320 ? 16 : 8>;
+  // producer warpgroups: one at 16-row tiles (a step's K and V take 88
+  // registers a thread), two at 8-row tiles, each taking every second
+  // step (setmaxnreg gives the consumers what they shed)
+  static constexpr int kProducerGroups = Base::kBN == 8 ? 2 : 1;
+  static constexpr int kThreads = 128 * (1 + kProducerGroups);
+  static constexpr int kHalf = DP / 16;
+  static constexpr int kQUnits = 4 * kHalf * 32;
+  static constexpr int kXUnits = 2 * 4 * Base::kNT * 32;
+  // units, then the barriers: full[2] (128 producer arrivals), empty[2]
+  // (4 consumer warps)
+  static constexpr size_t kBytes =
+      16 * (size_t)(kQUnits + 4 * Base::kTileUnits + kXUnits) + 8 * 4;
+  static_assert(kHalf % 2 == 0, "a half starts on an even n8 tile of O");
+  static_assert(kBytes <= 232448, "the plan fits the 227 KB of a block");
+};
+
+// Warps 2 p and 2 p + 1 own query rows [q0 + 16 p, q0 + 16 p + 16); warp
+// 2 p + c owns columns [c DP / 2, (c + 1) DP / 2) of each DP-column slab.
+// Each walk over the kv tiles writes one slab of O (one walk up to D = DP,
+// ceil(D / 512) past it); in each walk every score is the sum over the
+// slabs of Q and K in order, each warp adding its halves' partials and
+// the pair adding half 0's sum to half 1's, so every walk sees the same
+// scores and softmax.  A step is one (walk, kv tile, slab) in that order:
+// K's slab of the tile, and V's slab of the walk with the last slab.
+template <int DP>
+__global__ void __launch_bounds__(WidePlan<DP>::kThreads, 1)
+flash_attention_tf32x3_wide_kernel(AnyDtype q, AnyDtype k, AnyDtype v,
+                                   AnyOut out, int h, int hkv, int s, int d,
+                                   float scale, int causal, int vec_k,
+                                   int vec_v) {
+  using P = WidePlan<DP>;
+  constexpr int T = P::kBN;
+  constexpr int W = DP / 2;
+  extern __shared__ __align__(16) uint4 ta_smem[];
+  uint4* s_q = ta_smem;
+  uint4* s_k = s_q + P::kQUnits;                  // 2 stages
+  uint4* s_v = s_k + 2 * P::kTileUnits;           // 2 stages
+  float4* s_x = reinterpret_cast<float4*>(s_v + 2 * P::kTileUnits);
+  const uint32_t bar_full = smem_u32(s_x + P::kXUnits);
+  const uint32_t bar_empty = bar_full + 16;
+
+  const long long bh = blockIdx.x;
+  const long long kvh = (bh / h) * hkv + (bh % h) / (h / hkv);
+  const int n_qt = (s + kWideRows - 1) / kWideRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kWideRows;   // longest first
+  const int n_kt = causal ? (min(q0 + kWideRows, s) - 1) / T + 1
+                          : (s + T - 1) / T;
+  const int n_ds = (d + DP - 1) / DP;              // slabs of DP columns
+  const int n_steps = n_ds * n_kt * n_ds;
+  const long long slab = (long long)s * d;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bar_full + 8 * st, kProducers);   // every producer thread
+      mbar_init(bar_empty + 8 * st, 4);           // every consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warpgroup wg takes every kProducerGroups-th step from step
+    // wg: its next step's K (and V) slab is loaded into registers as soon
+    // as this one's is split and stored, so the loads are in flight while
+    // the consumers multiply (and the other warpgroup stores) and it waits
+    // for a free stage
+    constexpr int stride = P::kProducerGroups;
+    if constexpr (stride == 2) setmaxnreg_dec<kWideProducerRegs>();
+    const int wg = stride == 1 ? 0 : threadIdx.x / 128 - 1;
+    const int ptid = threadIdx.x % 128;
+    const AnyDtype kp = advance(k, kvh * slab);
+    const AnyDtype vp = advance(v, kvh * slab);
+    Raw8 kx[P::kKIters], vx[P::kVIters][2];
+    // step = (oc * n_kt + i) * n_ds + dc: K's columns of slab dc of kv
+    // tile i, with V's of slab oc at the last dc
+    const auto fetch = [&](int step) {
+      const int dc = step % n_ds;
+      const int k0 = (step / n_ds) % n_kt * T;
+      load_k<P>(kp, k0, dc * DP, s, d, vec_k, ptid, kx);
+      if (dc == n_ds - 1) {
+        load_v<P>(vp, k0, step / (n_ds * n_kt) * DP, s, d, vec_v, ptid, vx);
+      }
+    };
+    if (wg < n_steps) fetch(wg);
+    for (int step = wg; step < n_steps; step += stride) {
+      const int st = step & 1;
+      mbar_wait(bar_empty + 8 * st, ((step >> 1) & 1) ^ 1);
+      store_k<P>(s_k + st * P::kTileUnits, k.code, vec_k, ptid, kx);
+      if (step % n_ds == n_ds - 1) {
+        store_v<P>(s_v + st * P::kTileUnits, v.code, vec_v, ptid, vx);
+      }
+      mbar_arrive(bar_full + 8 * st);
+      if (step + stride < n_steps) fetch(step + stride);
+    }
+    return;
+  }
+  if constexpr (P::kProducerGroups == 2) setmaxnreg_inc<kWideConsumerRegs>();
+
+  // consumer warp 2 p + c: rows [w0, w0 + 16), column half c; this thread
+  // holds rows r0 and r0 + 8, columns 8 nt + 2 t + {0, 1} of S's n8 tiles
+  // and of its half's n8 tiles of O
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pair = warp >> 1, c = warp & 1;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * pair;
+  const int r0 = w0 + g;
+  const AnyDtype qp = advance(q, bh * slab);
+  uint4* qw = s_q + warp * P::kHalf * 32;
+  if (n_ds == 1) stage_q<P::kHalf>(qw, qp, r0, c * W, s, d, t, lane);
+  const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+  const int lim0 = causal ? min(r0, s - 1) : s - 1;
+  const int lim1 = causal ? min(r0 + 8, s - 1) : s - 1;
+  const int lim_w = causal ? min(w0, s - 1) : s - 1;   // the pair's least
+  const bool k32 = k.code == 0, v32 = v.code == 0;
+  const bool live = w0 < s;
+  const AnyOut ob = advance_out(out, bh * slab);
+  // this warp's half of a K or V tile: its first unit, 16 bytes (f32) or 8
+  // (a half operand) each
+  const auto group = [c](const uint4* tile, bool f32) {
+    return f32 ? tile + c * P::kHalf * 32
+               : reinterpret_cast<const uint4*>(
+                     reinterpret_cast<const uint2*>(tile) + c * P::kHalf * 32);
+  };
+  int step = 0, n_x = 0;
+  for (int oc = 0; oc < n_ds; ++oc) {
+    float o[P::kHalf][4];
+#pragma unroll
+    for (int nt = 0; nt < P::kHalf; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+    }
+    float m0 = kMaxInit, m1 = kMaxInit, l0 = 0.f, l1 = 0.f;
+    for (int i = 0; i < n_kt; ++i) {
+      const int k0 = i * T;
+      // a pair whose rows all lie past S, or above a causal tile, skips it
+      const bool act = live && (!causal || k0 <= w0 + 15);
+      float x[P::kNT * 4];
+      for (int dc = 0; dc < n_ds; ++dc, ++step) {
+        const int st = step & 1;
+        mbar_wait(bar_full + 8 * st, (step >> 1) & 1);
+        if (act) {
+          if (n_ds > 1) {
+            stage_q<P::kHalf>(qw, qp, r0, dc * DP + c * W, s, d, t, lane);
+          }
+          float part[P::kNT * 4];
+          scores_any<P, P::kHalf>(part, q.code, k32, qw,
+                                  group(s_k + st * P::kTileUnits, k32), lane);
+#pragma unroll
+          for (int e = 0; e < P::kNT * 4; ++e) {
+            x[e] = dc == 0 ? part[e] : x[e] + part[e];
+          }
+        }
+        if (act && dc == n_ds - 1) {
+          // the pair's exchange: each warp's partial into its buffer of
+          // this parity, then half 0's + half 1's in both warps
+          float4* xs = s_x + (n_x & 1) * 4 * P::kNT * 32;
+#pragma unroll
+          for (int nt = 0; nt < P::kNT; ++nt) {
+            xs[(warp * P::kNT + nt) * 32 + lane] = make_float4(
+                x[4 * nt], x[4 * nt + 1], x[4 * nt + 2], x[4 * nt + 3]);
+          }
+          named_bar_sync(1 + pair, 64);
+#pragma unroll
+          for (int nt = 0; nt < P::kNT; ++nt) {
+            const float4 y = xs[((warp ^ 1) * P::kNT + nt) * 32 + lane];
+            const float yy[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float mine = x[4 * nt + e];
+              x[4 * nt + e] = c == 0 ? mine + yy[e] : yy[e] + mine;
+            }
+          }
+          ++n_x;
+          float al0, al1;
+          if (k0 + T - 1 > lim_w) {
+            tc::online_softmax<true>(x, k0, t, lim0, lim1, scale2, 1.f, m0,
+                                     m1, l0, l1, al0, al1);
+          } else {
+            tc::online_softmax<false>(x, k0, t, lim0, lim1, scale2, 1.f, m0,
+                                      m1, l0, l1, al0, al1);
+          }
+          rescale(o, al0, al1);
+          uint32_t ph[P::kNT][4], pl[P::kNT][4];
+          split_p<P>(x, ph, pl);
+          const uint4* vt = group(s_v + st * P::kTileUnits, v32);
+          if (v32) {
+            pv<P, P::kHalf, true>(o, ph, pl, vt, lane);
+          } else {
+            pv<P, P::kHalf, false>(o, ph, pl, vt, lane);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      }
+    }
+    if (live) store_o(ob, o, r0, oc * DP + c * W, s, d, t, l0, l1);
+  }
+}
+
+template <int DP>
+int launch_wide(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out, long long b,
+                int h, int hkv, int s, int d, float scale, int causal,
+                cudaStream_t stream) {
+  constexpr size_t smem = WidePlan<DP>::kBytes;
+  auto kernel = flash_attention_tf32x3_wide_kernel<DP>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)(b * h),
+                  (unsigned)((s + kWideRows - 1) / kWideRows));
+  kernel<<<grid, WidePlan<DP>::kThreads, smem, stream>>>(
+      q, k, v, out, h, hkv, s, d, scale, causal, vec16(k, d), vec16(v, d));
   return (int)cudaGetLastError();
 }
 
@@ -2013,26 +2116,6 @@ int launch(AnyDtype q, AnyDtype k, AnyDtype v, AnyOut out, long long b,
 }  // namespace
 
 extern "C" {
-
-// out[b, h, s, d] = softmax(scale * q k^T (masked)) v over contiguous
-// device tensors q [b, h, s, d], k and v [b, hkv, s, d], out like q in q's
-// dtype; each operand's dtype code: 0 float32, 1 float16, 2 bfloat16.
-// bh = b * h; any d >= 1, any alignment.  Returns the cudaError_t of the
-// launch (0 on success).
-int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int q_dtype, int k_dtype, int v_dtype,
-                          long long bh, int h, int hkv, int s, int d,
-                          float scale, int causal, void* stream) {
-  const auto bad_code = [](int c) { return c < 0 || c > 2; };
-  if (bh < 1 || bh > 0x7fffffffLL || h < 1 || hkv < 1 || h % hkv ||
-      bh % h || s < 1 || (s + kRows - 1) / kRows > 65535 || d < 1 ||
-      bad_code(q_dtype) || bad_code(k_dtype) || bad_code(v_dtype)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch_simt(bh, s, (cudaStream_t)stream, AnyDtype{q, q_dtype},
-                     AnyDtype{k, k_dtype}, AnyDtype{v, v_dtype},
-                     AnyOut{out, q_dtype}, h, hkv, d, scale, causal);
-}
 
 // The tensor-core route: the same function over f16 (dtype 1) or bf16
 // (dtype 2) operands, q [b, h, s, d], k and v [b, hkv, s, d], out like q,
@@ -2136,6 +2219,39 @@ int repro_flash_attention_tf32x3_any(const void* q, const void* k,
                            st);
   }
   return ta::launch<256>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal, st);
+}
+
+// The 3xTF32 route for D > 256 (O's columns over a pair of warps): the
+// same function over operands of dtype codes q_dtype, k_dtype, v_dtype,
+// q [b, h, s, d], k and v [b, hkv, s, d], out like q in q's dtype,
+// contiguous, any alignment, any d >= 1 (the wrapper sends it d > 256).
+// Returns the cudaError_t of the launch (0 on success).
+int repro_flash_attention_tf32x3_wide(const void* q, const void* k,
+                                      const void* v, void* out, int q_dtype,
+                                      int k_dtype, int v_dtype, long long b,
+                                      int h, int hkv, int s, int d,
+                                      float scale, int causal, void* stream) {
+  const long long bh = b * h;
+  const auto bad_code = [](int c) { return c < 0 || c > 2; };
+  if (b < 1 || h < 1 || bh > 0x7fffffffLL || hkv < 1 || h % hkv || s < 1 ||
+      (s + ta::kWideRows - 1) / ta::kWideRows > 65535 || d < 1 ||
+      bad_code(q_dtype) || bad_code(k_dtype) || bad_code(v_dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const AnyDtype qa{q, q_dtype}, ka{k, k_dtype}, va{v, v_dtype};
+  const AnyOut oa{out, q_dtype};
+  cudaStream_t st = (cudaStream_t)stream;
+  // the staged slab width: d rounded up to 320 or 384, else slabs of 512
+  if (d <= 320) {
+    return ta::launch_wide<320>(qa, ka, va, oa, b, h, hkv, s, d, scale,
+                                causal, st);
+  }
+  if (d <= 384) {
+    return ta::launch_wide<384>(qa, ka, va, oa, b, h, hkv, s, d, scale,
+                                causal, st);
+  }
+  return ta::launch_wide<512>(qa, ka, va, oa, b, h, hkv, s, d, scale, causal,
+                              st);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
   kernels of ``repro_torch/csrc/flash_attention.cu``.  Each operand is
   f32, f16 or bf16 (the reference casts each to f32; the output is in
   ``q.dtype``), with any ``S >= 1`` and any head dim, and it picks one of
-  four routes (:func:`route`):
+  four routes (:func:`route`), all on Hopper's tensor cores:
 
   - ``"wgmma"``, f16/bf16 operands of one dtype with ``D % 8 == 0``,
     ``D <= 128`` and 16-byte-aligned bases: Hopper's tensor cores.  K/V
@@ -36,9 +36,14 @@ S, D]`` with ``H % Hkv == 0``, query head ``h`` reading kv head
     arithmetic in warp-level ``mma.sync`` products, the operands loaded
     through registers (16-byte loads where base and row allow), split by
     a producer warpgroup and staged in shared memory;
-  - ``"simt"``, ``D > 256``: one kernel, FP32 on the CUDA cores, each
-    operand read through its dtype code, K/V staged as f32 in shared
-    memory, D tiled in 128-column chunks.
+  - ``"tf32x3_wide"``, every call with ``D > 256``, any dtype mix and
+    alignment: the same 3xTF32 ``mma.sync`` arithmetic with O's columns
+    split over a pair of warps for each 16 query rows; each warp
+    multiplies its half of Q by its half of K, the pair adds the two
+    partial scores in one order (half 0 + half 1), and each warp
+    multiplies P by its half of V.  Past ``D = 512`` O is written in slabs
+    of 512 columns, one kv walk a slab, each walk summing every score over
+    all of D in the same order.
 
   For CUDA tensors it launches the route's kernel or raises; for CPU
   tensors it runs the twin.  It takes no block sizes: ``bq``/``bk`` were
@@ -67,8 +72,8 @@ per unmasked score (``2 D`` for ``Q K^T``, ``4 D`` for the split
 tf32x3 route does ``12 D`` TF32 operations (``2 D`` fewer for each
 half operand: ``10 D`` with a bf16 q) at 495 TFLOP/s: 3.61e11,
 0.729 ms; the tf32x3_any route counts the same, 0.140 ms at f32, D = 160,
-1x16x16x1500 full.  The SIMT route does ``4 D`` FP32 operations, 0.344 ms
-at 67 TFLOP/s on that case.
+1x16x16x1500 full, and the tf32x3_wide route 0.279 ms at D = 320 (0.0699
+ms with every operand bf16: ``6 D`` half operations at 989 TFLOP/s).
 
 :data:`COUNTS` counts kernel launches, in all and by route, and twin
 calls.
@@ -87,13 +92,13 @@ from .cuda_build import check_operands, launch, load_library
 #: calls of the torch twin since the last :func:`reset_counts`
 COUNTS: Dict[str, int] = {"kernel_launches": 0, "wgmma_launches": 0,
                           "tf32x3_launches": 0, "tf32x3_any_launches": 0,
-                          "simt_launches": 0, "twin_calls": 0}
+                          "tf32x3_wide_launches": 0, "twin_calls": 0}
 
 #: dtypes the kernel takes, with their codes in the C interface
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 #: the largest head dim of the TMA routes (``kMaxD`` in the .cu source)
 _MAX_D = 128
-#: the largest head dim of the tf32x3_any route; the SIMT kernel takes more
+#: the largest head dim of the tf32x3_any route; tf32x3_wide takes more
 _MAX_D_ANY = 256
 #: dtypes the wgmma route takes
 _HALF = (torch.float16, torch.bfloat16)
@@ -133,10 +138,10 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     ``"wgmma"`` f16/bf16 operands of one dtype (``D % 8 == 0``),
     ``"tf32x3"`` any other mix of f32, f16 and bf16 (``D % 4 == 0`` when
     all are f32, else ``D % 8 == 0``); ``"tf32x3_any"`` every other call
-    with ``D <= 256``; ``"simt"`` ``D > 256``."""
+    with ``D <= 256``; ``"tf32x3_wide"`` every call with ``D > 256``."""
     d = q.shape[-1]
     if d > _MAX_D_ANY:
-        return "simt"
+        return "tf32x3_wide"
     dtypes = {q.dtype, k.dtype, v.dtype}
     if d <= _MAX_D and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
         if len(dtypes) == 1 and q.dtype in _HALF:
@@ -187,12 +192,6 @@ def load_kernel_library() -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = load_library("flash_attention")
-    lib.repro_flash_attention.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention_wgmma.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -208,6 +207,9 @@ def load_kernel_library() -> ctypes.CDLL:
     lib.repro_flash_attention_tf32x3_any.argtypes = \
         lib.repro_flash_attention_tf32x3.argtypes
     lib.repro_flash_attention_tf32x3_any.restype = ctypes.c_int
+    lib.repro_flash_attention_tf32x3_wide.argtypes = \
+        lib.repro_flash_attention_tf32x3.argtypes
+    lib.repro_flash_attention_tf32x3_wide.restype = ctypes.c_int
     _LIB["lib"] = lib
     return lib
 
@@ -239,14 +241,13 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
          picked: str) -> torch.Tensor:
     """The kernel of route ``picked`` on CUDA operands, counted on that
     route: :func:`flash_attention` passes :func:`route`'s pick, and
-    ``chip_smoke.py`` forces a route that takes every input where it
-    times it beside the picked one.  Only :func:`route`'s pick,
-    ``"tf32x3_any"`` (``D <= 256``) and ``"simt"`` are taken: any other
-    raises ``ValueError`` (the TMA routes read operands of other dtypes
-    or alignments wrongly)."""
+    ``chip_smoke.py`` forces ``"tf32x3_any"`` where it times it beside
+    the picked one.  Only :func:`route`'s pick and ``"tf32x3_any"``
+    (``D <= 256``) are taken: any other raises ``ValueError`` (the TMA
+    routes read operands of other dtypes or alignments wrongly)."""
     b, h, hkv, s, d = _check_shapes(q, k, v)
     _check_dtypes(q, k, v)
-    takes = {route(q, k, v), "simt"} | (
+    takes = {route(q, k, v)} | (
         {"tf32x3_any"} if d <= _MAX_D_ANY else set())
     if picked not in takes:
         raise ValueError(f"flash_attention route {picked!r} does not take "
@@ -267,16 +268,11 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         launch("flash_attention", lib.repro_flash_attention_wgmma, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                codes[0], b, h, hkv, s, d, scale, int(bool(causal)))
-    elif picked in ("tf32x3", "tf32x3_any"):
-        entry = lib.repro_flash_attention_tf32x3 if picked == "tf32x3" \
-            else lib.repro_flash_attention_tf32x3_any
+    else:
+        entry = getattr(lib, f"repro_flash_attention_{picked}")
         launch("flash_attention", entry, dev,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                *codes, b, h, hkv, s, d, scale, int(bool(causal)))
-    else:
-        launch("flash_attention", lib.repro_flash_attention, dev,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               *codes, b * h, h, hkv, s, d, scale, int(bool(causal)))
     COUNTS[f"{picked}_launches"] += 1
     COUNTS["kernel_launches"] += 1
     return out

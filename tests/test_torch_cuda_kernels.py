@@ -727,7 +727,7 @@ def _wgmma_case(cuda, shape, causal, dtype):
     torch.cuda.synchronize()
     assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 1,
                          "tf32x3_launches": 0, "tf32x3_any_launches": 0,
-                         "simt_launches": 0, "twin_calls": 0}
+                         "tf32x3_wide_launches": 0, "twin_calls": 0}
     twin = fa.flash_attention_torch(q, k, v, causal)
     assert ker.dtype == dtype and ker.shape == q.shape
     tol = FA_TOL[dtype]
@@ -779,7 +779,8 @@ def _tf32x3_case(cuda, shape, causal, dtypes, scale=1.0, route="tf32x3",
     ker = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     want = {"kernel_launches": 1, "wgmma_launches": 0, "tf32x3_launches": 0,
-            "tf32x3_any_launches": 0, "simt_launches": 0, "twin_calls": 0}
+            "tf32x3_any_launches": 0, "tf32x3_wide_launches": 0,
+            "twin_calls": 0}
     want[f"{route}_launches"] = 1
     assert fa.COUNTS == want
     assert ker.dtype == dtypes[0] and ker.shape == q.shape
@@ -896,31 +897,42 @@ def test_flash_attention_tf32x3_any_scores_of_hundreds(cuda, shape, causal,
     _tf32x3_case(cuda, shape, causal, dtypes, scale=8.0, route="tf32x3_any")
 
 
-def test_flash_attention_simt_route(cuda):
-    """Head dims past 256 go through the SIMT kernel, aligned or not,
-    within FA_TOL of the twin."""
+def _wide_case(cuda, q, k, v, causal):
+    """One call on the wide route against the twin: one launch counted on
+    that route, within the output dtype's FA_TOL (and one rounding of a
+    half output), bit-equal from run to run."""
     fa = _mod("flash_attention")
-    cases = []
-    for dtype, d in ((torch.float32, 264), (torch.float32, 320),
-                     (torch.float16, 300), (torch.bfloat16, 264)):
-        cases.append(tuple(_rand(cuda, (1, heads, 130, d), heads + d, dtype)
-                           for heads in (4, 2, 2)))
-    for dtype, d in ((torch.float16, 264), (torch.float32, 320)):
-        q = _offset(cuda, _rand(cuda, (1, 4, 130, d), 7, dtype))
-        cases.append((q, *(_rand(cuda, (1, 2, 130, d), 8 + i, dtype)
-                           for i in range(2))))
-    for q, k, v in cases:
-        assert fa.route(q, k, v) == "simt"
-        fa.reset_counts()
-        ker = fa.flash_attention(q, k, v, True)
-        torch.cuda.synchronize()
-        assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                             "tf32x3_launches": 0, "tf32x3_any_launches": 0,
-                             "simt_launches": 1, "twin_calls": 0}
-        tol = FA_TOL[q.dtype]
-        torch.testing.assert_close(
-            ker.float(), fa.flash_attention_torch(q, k, v, True).float(),
-            rtol=tol, atol=tol)
+    assert fa.route(q, k, v) == "tf32x3_wide"
+    fa.reset_counts()
+    ker = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
+                         "tf32x3_launches": 0, "tf32x3_any_launches": 0,
+                         "tf32x3_wide_launches": 1, "twin_calls": 0}
+    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    assert ker.dtype == twin.dtype == q.dtype and ker.shape == q.shape
+    tol = FA_TOL[q.dtype]
+    torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
+    if q.dtype != torch.float32:
+        assert half_rule(ker, twin) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 7, 33, 130])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 264), (torch.float32, 320), (torch.float16, 300),
+    (torch.bfloat16, 264), (torch.float16, 264), (torch.float32, 512),
+    (torch.bfloat16, 520), (torch.float32, 1024)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_flash_attention_simt_route(cuda, dtype, d, s, causal):
+    """Head dims past 256 go through the wide 3xTF32 route, aligned or not
+    (q's base 2 or 4 bytes off a 16-byte boundary), GQA, ragged S, causal
+    and full, within FA_TOL of the twin."""
+    q, k, v = (_rand(cuda, (1, n, s, d), d + s + i, dtype)
+               for i, n in enumerate((4, 2, 2)))
+    _wide_case(cuda, q, k, v, causal)
+    _wide_case(cuda, _offset(cuda, q), k, v, causal)
 
 
 def test_flash_attention_refuses_what_it_does_not_stage(cuda):
@@ -939,30 +951,20 @@ def test_flash_attention_refuses_what_it_does_not_stage(cuda):
     ((torch.float32, torch.bfloat16, torch.bfloat16), 300),
     ((torch.float32,) * 3, 320), ((torch.bfloat16,) * 3, 264),
     ((torch.float16,) * 3, 320), ((torch.float32, torch.float16,
-                                   torch.float16), 288)],
+                                   torch.float16), 288),
+    ((torch.float32,) * 3, 384), ((torch.bfloat16, torch.float32,
+                                   torch.float32), 512),
+    ((torch.float16, torch.float16, torch.float32), 520),
+    ((torch.float32, torch.bfloat16, torch.float16), 1024)],
     ids=lambda x: str(x).replace("torch.", ""))
 def test_flash_attention_mixed_and_wide_on_simt(cuda, dtypes, d, causal):
-    """Head dims past 256, each operand in its own dtype, run the SIMT
-    route, within the output dtype's FA_TOL (and one rounding of a half
-    output) of the twin, the same from run to run."""
-    fa = _mod("flash_attention")
+    """Head dims past 256, each operand in its own dtype, run the wide
+    3xTF32 route (GQA, 200 rows), within the output dtype's FA_TOL (and
+    one rounding of a half output) of the twin, the same from run to run."""
     q = _rand(cuda, (1, 4, 200, d), d, dtypes[0])
     k = _rand(cuda, (1, 2, 200, d), d + 1, dtypes[1])
     v = _rand(cuda, (1, 2, 200, d), d + 2, dtypes[2])
-    assert fa.route(q, k, v) == "simt"
-    fa.reset_counts()
-    ker = fa.flash_attention(q, k, v, causal)
-    torch.cuda.synchronize()
-    assert fa.COUNTS == {"kernel_launches": 1, "wgmma_launches": 0,
-                         "tf32x3_launches": 0, "tf32x3_any_launches": 0,
-                         "simt_launches": 1, "twin_calls": 0}
-    twin = fa.flash_attention_torch(q, k, v, causal)
-    assert ker.dtype == twin.dtype == dtypes[0] and ker.shape == q.shape
-    tol = FA_TOL[dtypes[0]]
-    torch.testing.assert_close(ker.float(), twin.float(), rtol=tol, atol=tol)
-    if dtypes[0] != torch.float32:
-        assert half_rule(ker, twin) <= 1.0
-    assert torch.equal(ker, fa.flash_attention(q, k, v, causal))
+    _wide_case(cuda, q, k, v, causal)
 
 
 def test_functional_pipelines_on_cuda_match_cpu(cuda):

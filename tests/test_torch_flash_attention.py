@@ -135,18 +135,18 @@ def test_mixed_dtypes_match_reference_kernel(dtypes, causal):
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
-@pytest.mark.parametrize("d", [160, 256, 288])
+@pytest.mark.parametrize("d", [160, 256, 288, 320, 512, 520])
 def test_head_dims_past_128_match_reference_kernel(d, dtype):
     """Head dims the TMA routes do not take (D > 128) run the 3xTF32
-    route through registers up to 256 and the SIMT route past it on the
-    card; the twin takes them as the reference does."""
+    route through registers up to 256 and the wide 3xTF32 route past it
+    on the card; the twin takes them as the reference does."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import route
     shape = (1, 2, 1, 100, d)
     (q, qj), (k, kj), (v, vj) = _qkv(shape, d, dtype)
     want = ref_ops.flash_attention(qj, kj, vj, causal=True, bq=64, bk=64)
     _assert_close(ops.flash_attention(q, k, v, causal=True), want, dtype)
-    assert route(q, k, v) == ("simt" if d > 256 else "tf32x3_any")
+    assert route(q, k, v) == ("tf32x3_wide" if d > 256 else "tf32x3_any")
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -190,7 +190,7 @@ def test_wrapper_on_cpu_runs_the_twin_and_checks_its_input():
     out = fn(q, k, v)
     assert COUNTS == {"kernel_launches": 0, "wgmma_launches": 0,
                       "tf32x3_launches": 0, "tf32x3_any_launches": 0,
-                      "simt_launches": 0, "twin_calls": 1}
+                      "tf32x3_wide_launches": 0, "twin_calls": 1}
     assert out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError, match="not a multiple"):
         fn(q[:, :3], k, v)
@@ -282,15 +282,25 @@ def test_route_picks_the_tensor_cores_for_aligned_half_operands():
     (q, _), (k, _), (v, _) = _qkv((1, 4, 2, 16, 64), 4, torch.float32)
     # f32 operands with D <= 128 and TMA-movable rows: the 3xTF32 route;
     # the rest up to D = 256 the 3xTF32 route through registers; past 256
-    # the SIMT route
+    # the wide 3xTF32 route, whatever the dtypes and alignment
     assert route(q, k, v) == "tf32x3"
     for d, want in ((4, "tf32x3"), (100, "tf32x3"), (128, "tf32x3"),
                     (160, "tf32x3_any"), (18, "tf32x3_any"),
-                    (2, "tf32x3_any"), (256, "tf32x3_any"), (257, "simt"),
-                    (320, "simt")):
+                    (2, "tf32x3_any"), (256, "tf32x3_any")):
         f = torch.zeros(1, 2, 16, d)
         assert route(f, f[:, :1].contiguous(), f[:, :1].contiguous()) \
             == want, d
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    for d in (257, 264, 288, 320, 384, 512, 520, 1024):
+        for dts in ((f32,) * 3, (bf16,) * 3, (f16,) * 3, (bf16, f32, f16),
+                    (f32, bf16, bf16), (f16, f16, f32)):
+            f = torch.zeros(1, 2, 16, d, dtype=dts[0])
+            kv = (torch.zeros(1, 1, 16, d, dtype=dt) for dt in dts[1:])
+            assert route(f, *kv) == "tf32x3_wide", (d, dts)
+            flat = torch.empty(f.numel() + 1, dtype=dts[0])
+            shifted = flat[1:].view(f.shape)    # off a 16-byte boundary
+            assert route(shifted, *(torch.zeros(1, 1, 16, d, dtype=dt)
+                                    for dt in dts[1:])) == "tf32x3_wide"
     flat = torch.empty(q.numel() + 1, dtype=torch.float32)
     shifted = flat[1:].view(q.shape)            # 4 bytes past an aligned base
     assert shifted.is_contiguous() and route(shifted, k, v) == "tf32x3_any"
@@ -320,7 +330,7 @@ def test_route_picks_the_tensor_cores_for_aligned_half_operands():
             == "tf32x3_any"
         wide = torch.zeros(1, 2, 16, 264, dtype=dt)
         assert route(wide, wide[:, :1].contiguous(),
-                     wide[:, :1].float()) == "simt"
+                     wide[:, :1].float()) == "tf32x3_wide"
         ok = torch.zeros(1, 2, 16, 128, dtype=dt)
         assert route(ok, ok, ok) == "wgmma"
 
@@ -335,12 +345,23 @@ def test_route_picks_the_tensor_cores_for_aligned_half_operands():
     ((torch.float32,) * 3, 18, "tf32x3"),
     # the route through registers takes no D past 256
     ((torch.float32,) * 3, 264, "tf32x3_any"),
+    ((torch.bfloat16, torch.float32, torch.float16), 1024, "tf32x3_any"),
+    # the wide route is taken only where route() picks it (D > 256)
+    ((torch.float32,) * 3, 256, "tf32x3_wide"),
+    ((torch.bfloat16,) * 3, 64, "tf32x3_wide"),
+    # nor do the TMA routes take D past 256
+    ((torch.float32,) * 3, 320, "tf32x3"),
+    ((torch.bfloat16,) * 3, 520, "wgmma"),
     ((torch.float32,) * 3, 64, "cutlass"),
+    # the SIMT kernel is gone: no D takes it
+    ((torch.float32,) * 3, 320, "simt"),
+    ((torch.bfloat16, torch.float32, torch.float16), 64, "simt"),
 ])
 def test_forced_route_must_take_the_operands(dts, d, forced):
     """A route forced past :func:`route` is refused, before any device
-    check, unless it is the picked one, ``"tf32x3_any"`` at ``D <= 256``
-    or ``"simt"``: those take every input of their D."""
+    check, unless it is the picked one (``"tf32x3_wide"`` past D = 256)
+    or ``"tf32x3_any"`` at ``D <= 256``: those take every input of their
+    D."""
     from repro_torch.kernels.flash_attention import _run, route
     q = torch.zeros(1, 2, 16, d, dtype=dts[0])
     k = torch.zeros(1, 1, 16, d, dtype=dts[1])
@@ -348,7 +369,7 @@ def test_forced_route_must_take_the_operands(dts, d, forced):
     assert route(q, k, v) != forced
     with pytest.raises(ValueError, match="does not take"):
         _run(q, k, v, True, forced)
-    takes = {route(q, k, v), "simt"} | ({"tf32x3_any"} if d <= 256 else set())
+    takes = {route(q, k, v)} | ({"tf32x3_any"} if d <= 256 else set())
     for ok in takes:
         with pytest.raises(ValueError, match="runs on CUDA or CPU"):
             _run(q, k, v, True, ok)
@@ -373,38 +394,35 @@ def _tf32_parts(x):
     return hi, _rna_tf32(x.float() - hi)
 
 
-def _tf32x3_emulation(q, k, v, causal, products=3, bn=32):
-    """The 3xTF32 route of ``csrc/flash_attention.cu`` in plain torch, for
-    the tests only: each operand split into TF32 parts, the scores
-    ``q_lo k_hi + q_hi k_lo + q_hi k_hi`` (each product exact in f32,
-    summed in f64, rounded to f32) times ``scale * log2(e)``; an online
-    softmax in base 2 over tiles of ``bn`` kv rows from a running max of
-    -1e30; P split the same way and ``P_lo V_hi + P_hi V_lo + P_hi V_hi``
-    added to the f32 accumulator a tile at a time; ``acc / max(l,
-    1e-30)`` rounded once to q's dtype.  ``products=1`` keeps ``hi . hi``
-    alone: one TF32 product."""
-    b, h, s, d = q.shape
-    group = h // k.shape[1]
+def _tf32x3_prod(a, bt, products=3):
+    """``a @ bt`` as the 3xTF32 route multiplies: each operand split into
+    TF32 parts, ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (each product exact
+    in f32) summed in f64 and rounded to f32; ``products=1`` keeps ``hi .
+    hi`` alone."""
+    ah, al = (t.double() for t in _tf32_parts(a))
+    bh, bl = (t.double() for t in _tf32_parts(bt))
+    out = ah @ bh
+    if products == 3:
+        out = out + al @ bh + ah @ bl
+    return out.float()
 
-    def prod(a, bt):
-        ah, al = (t.double() for t in _tf32_parts(a))
-        bh, bl = (t.double() for t in _tf32_parts(bt))
-        out = ah @ bh
-        if products == 3:
-            out = out + al @ bh + ah @ bl
-        return out.float()
 
-    kf = k.float().repeat_interleave(group, dim=1)
+def _softmax_pv(x, v, causal, dtype, products=3, bn=32):
+    """The tensor-core routes' tail from base-2 scores ``x`` (``[B, H, S,
+    S]`` f32, already times ``scale * log2(e)``): masked under ``causal``,
+    an online softmax in base 2 over tiles of ``bn`` kv rows from a running
+    max of -1e30, P split into TF32 parts and ``P_lo V_hi + P_hi V_lo +
+    P_hi V_hi`` added to the f32 accumulator a tile at a time; ``acc /
+    max(l, 1e-30)`` rounded once to ``dtype``."""
+    b, h, s, _ = x.shape
+    group = h // v.shape[1]
     vf = v.float().repeat_interleave(group, dim=1)
-    scale2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
-        * torch.tensor(1.44269504088896341, dtype=torch.float32)
-    x = prod(q.float(), kf.transpose(-1, -2)) * scale2
     if causal:
         rows = torch.arange(s)
         x = x.masked_fill(rows[None, :] > rows[:, None], float("-inf"))
     m = torch.full((b, h, s, 1), -1e30)
     l = torch.zeros((b, h, s, 1))
-    acc = torch.zeros((b, h, s, d))
+    acc = torch.zeros((b, h, s, vf.shape[-1]))
     for k0 in range(0, s, bn):
         tile = x[..., k0:k0 + bn]
         m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
@@ -412,8 +430,28 @@ def _tf32x3_emulation(q, k, v, causal, products=3, bn=32):
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         m = m_new
-        acc = acc * alpha + prod(p, vf[..., k0:k0 + bn, :])
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+        acc = acc * alpha + _tf32x3_prod(p, vf[..., k0:k0 + bn, :], products)
+    return (acc / l.clamp_min(1e-30)).to(dtype)
+
+
+def _scale2(d):
+    """``scale * log2(e)`` in f32, as the kernels compute it."""
+    return torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) \
+        * torch.tensor(1.44269504088896341, dtype=torch.float32)
+
+
+def _tf32x3_emulation(q, k, v, causal, products=3, bn=32):
+    """The 3xTF32 route of ``csrc/flash_attention.cu`` in plain torch, for
+    the tests only: each operand split into TF32 parts, the scores
+    ``q_lo k_hi + q_hi k_lo + q_hi k_hi`` (each product exact in f32,
+    summed in f64, rounded to f32) times ``scale * log2(e)``; then
+    :func:`_softmax_pv` over tiles of ``bn`` kv rows.  ``products=1`` keeps
+    ``hi . hi`` alone: one TF32 product."""
+    group = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    x = _tf32x3_prod(q.float(), kf.transpose(-1, -2), products) \
+        * _scale2(q.shape[-1])
+    return _softmax_pv(x, v, causal, q.dtype, products, bn)
 
 
 def test_rna_tf32_rounds_as_cvt_rna():
@@ -653,6 +691,80 @@ def _mma_m16n8k8(a_regs, b_regs):
             for l in range(32)]
 
 
+def _unit_k(l):
+    """Where lane l's unit lies in its 32-unit block (``unit_k``)."""
+    return l ^ (l >> 3)
+
+
+def _unit_v(l, nt):
+    """Lane l's unit of V's n8 tile nt (``unit_v``)."""
+    return _unit_k(l) ^ ((nt & 1) << 2)
+
+
+def _stored_units(km, vm):
+    """K (``[bn, dp]``) and V tiles as the producer of the routes through
+    registers stores them: K chunk c = (row 8 nt + g, slice) stores unit 4
+    g + t at step t; V chunk c = (j, nt, t) unit 4 g + t at step g; a unit
+    lies at ``_unit_k(l)`` of its block, V's at ``_unit_v(l, nt)``.  Each
+    quarter warp of a store step (128 producer threads) falls on eight
+    distinct 16-byte bank groups."""
+    bn, dp = km.shape
+    sl_n, nt_n = dp // 8, bn // 8
+    k_units = np.full((nt_n * sl_n * 32, 2), np.nan)
+    v_units = np.full((nt_n * sl_n * 32, 2), np.nan)
+    k_waves, v_waves = {}, {}
+    for c in range(bn * sl_n):
+        g, sl, nt = c % 8, (c // 8) % sl_n, (c // 8) // sl_n
+        row = km[8 * nt + g, 8 * sl:8 * sl + 8]
+        for t in range(4):
+            u = (nt * sl_n + sl) * 32 + _unit_k(4 * g + t)
+            k_units[u] = row[t], row[t + 4]
+            k_waves.setdefault((c // 8, t), []).append(u % 8)
+    for c in range(nt_n * sl_n * 4):
+        t, nt, j = c % 4, (c // 4) % sl_n, (c // 4) // sl_n
+        for g in range(8):
+            u = (j * sl_n + nt) * 32 + _unit_v(4 * g + t, nt)
+            v_units[u] = vm[8 * j + 2 * t, 8 * nt + g], \
+                vm[8 * j + 2 * t + 1, 8 * nt + g]
+            v_waves.setdefault((c // 8, g), []).append(u % 8)
+    assert not np.isnan(k_units).any() and not np.isnan(v_units).any()
+    for waves in (k_waves, v_waves):        # quarter warps: lanes 8w..8w+7
+        assert all(sorted(w) == list(range(8)) for w in waves.values())
+    return k_units, v_units
+
+
+def _q_frags(qm, sl):
+    """The 32 lanes' A fragments of Q's k8 slice sl (its unit)."""
+    return [(qm[l // 4, 8 * sl + l % 4], qm[l // 4 + 8, 8 * sl + l % 4],
+             qm[l // 4, 8 * sl + l % 4 + 4],
+             qm[l // 4 + 8, 8 * sl + l % 4 + 4]) for l in range(32)]
+
+
+def _p_frags(p, j):
+    """kv slice j's A fragments of P, straight from the S accumulator:
+    (c0, c2, c1, c3) of n8 tile j as (a0 .. a3)."""
+    a = []
+    for l in range(32):
+        g, t = l // 4, l % 4
+        c = (p[g, 8 * j + 2 * t], p[g, 8 * j + 2 * t + 1],
+             p[g + 8, 8 * j + 2 * t], p[g + 8, 8 * j + 2 * t + 1])
+        a.append((c[0], c[2], c[1], c[3]))
+    return a
+
+
+def _frag_matrix(frags, cols):
+    """An m16n8 accumulator's lanes (per n8 tile) as a ``[16, 8 n]``
+    matrix."""
+    out = np.zeros((16, 8 * len(frags)))
+    for nt, frag in enumerate(frags):
+        for l in range(32):
+            g, t = l // 4, l % 4
+            (out[g, 8 * nt + 2 * t], out[g, 8 * nt + 2 * t + 1],
+             out[g + 8, 8 * nt + 2 * t], out[g + 8, 8 * nt + 2 * t + 1]) = \
+                frag[l]
+    return out[:, :cols]
+
+
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_mma_sync_units_compose_to_q_k_and_p_v(d):
     """The kernel's shared-memory units, as its producer stores them and
@@ -672,72 +784,30 @@ def test_mma_sync_units_compose_to_q_k_and_p_v(d):
     qm = rng.normal(size=(16, dp))
     km = rng.normal(size=(bn, dp))
     vm = rng.normal(size=(bn, dp))
-    # the producer: K chunk c = (row 8 nt + g, slice) stores unit 4 g + t at
-    # step t; V chunk c = (j, nt, t) unit 4 g + t at step g; a unit lies at
-    # unit_k(l) = l ^ (l // 8) of its block, unit_v(l, nt) = unit_k(l) ^
-    # 4 (nt % 2)
-    def unit_k(l):
-        return l ^ (l >> 3)
-
-    def unit_v(l, nt):
-        return unit_k(l) ^ ((nt & 1) << 2)
-
-    k_units = np.full((nt_n * sl_n * 32, 2), np.nan)
-    v_units = np.full((nt_n * sl_n * 32, 2), np.nan)
-    k_waves, v_waves = {}, {}
-    for c in range(bn * sl_n):
-        g, sl, nt = c % 8, (c // 8) % sl_n, (c // 8) // sl_n
-        row = km[8 * nt + g, 8 * sl:8 * sl + 8]
-        for t in range(4):
-            u = (nt * sl_n + sl) * 32 + unit_k(4 * g + t)
-            k_units[u] = row[t], row[t + 4]
-            k_waves.setdefault((c // 8, t), []).append(u % 8)
-    for c in range(nt_n * sl_n * 4):
-        t, nt, j = c % 4, (c // 4) % sl_n, (c // 4) // sl_n
-        for g in range(8):
-            u = (j * sl_n + nt) * 32 + unit_v(4 * g + t, nt)
-            v_units[u] = vm[8 * j + 2 * t, 8 * nt + g], \
-                vm[8 * j + 2 * t + 1, 8 * nt + g]
-            v_waves.setdefault((c // 8, g), []).append(u % 8)
-    assert not np.isnan(k_units).any() and not np.isnan(v_units).any()
-    for waves in (k_waves, v_waves):        # quarter warps: lanes 8w..8w+7
-        assert all(sorted(w) == list(range(8)) for w in waves.values())
+    k_units, v_units = _stored_units(km, vm)
     for w in range(4):                      # the consumer's loads
-        assert sorted(unit_k(l) % 8 for l in range(8 * w, 8 * w + 8)) \
+        assert sorted(_unit_k(l) % 8 for l in range(8 * w, 8 * w + 8)) \
             == list(range(8))
-        assert sorted(unit_v(l, 1) % 8 for l in range(8 * w, 8 * w + 8)) \
+        assert sorted(_unit_v(l, 1) % 8 for l in range(8 * w, 8 * w + 8)) \
             == list(range(8))
     # the consumer: S over the slices, n8 tile nt
     s_frag = [[(0.0,) * 4] * 32 for _ in range(nt_n)]
     for sl in range(sl_n):
-        a = [(qm[l // 4, 8 * sl + l % 4], qm[l // 4 + 8, 8 * sl + l % 4],
-              qm[l // 4, 8 * sl + l % 4 + 4],
-              qm[l // 4 + 8, 8 * sl + l % 4 + 4]) for l in range(32)]
+        a = _q_frags(qm, sl)
         for nt in range(nt_n):
-            b = [tuple(k_units[(nt * sl_n + sl) * 32 + unit_k(l)])
+            b = [tuple(k_units[(nt * sl_n + sl) * 32 + _unit_k(l)])
                  for l in range(32)]
             s_frag[nt] = [tuple(x + y for x, y in zip(acc, part)) for acc, part
                           in zip(s_frag[nt], _mma_m16n8k8(a, b))]
-    s = np.zeros((16, bn))
-    for nt in range(nt_n):
-        for l in range(32):
-            g, t = l // 4, l % 4
-            (s[g, 8 * nt + 2 * t], s[g, 8 * nt + 2 * t + 1],
-             s[g + 8, 8 * nt + 2 * t], s[g + 8, 8 * nt + 2 * t + 1]) = \
-                s_frag[nt][l]
+    s = _frag_matrix(s_frag, bn)
     np.testing.assert_allclose(s, qm @ km.T, rtol=1e-12, atol=1e-12)
     # P V: P's kv slice j is S's n8 tile j, (c0, c2, c1, c3) as (a0..a3)
     p = rng.normal(size=(16, bn))
     o = np.zeros((16, dp))
     for j in range(nt_n):
-        a = []
-        for l in range(32):
-            g, t = l // 4, l % 4
-            c = (p[g, 8 * j + 2 * t], p[g, 8 * j + 2 * t + 1],
-                 p[g + 8, 8 * j + 2 * t], p[g + 8, 8 * j + 2 * t + 1])
-            a.append((c[0], c[2], c[1], c[3]))
+        a = _p_frags(p, j)
         for nt in range(sl_n):
-            b = [tuple(v_units[(j * sl_n + nt) * 32 + unit_v(l, nt)])
+            b = [tuple(v_units[(j * sl_n + nt) * 32 + _unit_v(l, nt)])
                  for l in range(32)]
             for l, part in enumerate(_mma_m16n8k8(a, b)):
                 g, t = l // 4, l % 4
@@ -755,3 +825,187 @@ def test_mma_sync_units_compose_to_q_k_and_p_v(d):
     want = (p[:, :8] @ vm[:8, :8])
     assert not np.allclose(got[:, 0], [want[l // 4, 2 * (l % 4)]
                                        for l in range(32)])
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 route past D = 256 (tf32x3_wide), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _wide_plan(d):
+    """``csrc/flash_attention.cu``'s ``ta::WidePlan`` for head dim ``d``
+    past 256: the staged slab width DP (320, 384, else slabs of 512), kv
+    rows a tile (16 at DP = 320, 8 at 384 and 512) and the slab count."""
+    dp = 320 if d <= 320 else 384 if d <= 384 else 512
+    return dp, 16 if dp == 320 else 8, -(-d // dp)
+
+
+def _wide_emulation(q, k, v, causal, products=3):
+    """The tf32x3_wide route in plain torch, for the tests only: O's
+    columns over a pair of warps.  Warp c of the pair takes columns [c W,
+    (c + 1) W) of each DP-column slab (W = DP / 2, D zero-padded to the
+    slabs): each slab's partial scores of that half are the 3xTF32 products
+    (:func:`_tf32x3_prod`, rounded to f32), added in f32 in slab order;
+    the pair's exchange adds half 0's sum to half 1's in f32.  Then
+    :func:`_softmax_pv` over the plan's kv tiles (each O column is one
+    warp's, so P V is the route through registers' arithmetic)."""
+    b, h, s, d = q.shape
+    dp, bn, n_ds = _wide_plan(d)
+    pad = n_ds * dp - d
+    group = h // k.shape[1]
+    qf = torch.nn.functional.pad(q.float(), (0, pad))
+    kf = torch.nn.functional.pad(k.float(), (0, pad)).repeat_interleave(
+        group, dim=1)
+    halves = []
+    for c in (0, 1):
+        acc = None
+        for dc in range(n_ds):
+            cols = slice(dc * dp + c * dp // 2, dc * dp + (c + 1) * dp // 2)
+            part = _tf32x3_prod(qf[..., cols],
+                                kf[..., cols].transpose(-1, -2), products)
+            acc = part if acc is None else acc + part
+        halves.append(acc)
+    x = (halves[0] + halves[1]) * _scale2(d)
+    return _softmax_pv(x, v, causal, q.dtype, products, bn)
+
+
+def test_wide_emulation_adds_the_halves_not_the_whole_row():
+    """The pair's two f32 partials, added, are another rounding than one
+    f32 sum over all of D: the emulation models the exchange, not the
+    route through registers' single sum."""
+    (q, _), (k, _), (v, _) = _qkv((1, 2, 1, 64, 320), 3, torch.float32)
+    assert not torch.equal(_wide_emulation(q, k, v, False),
+                           _tf32x3_emulation(q, k, v, False, bn=16))
+
+
+#: the one operand mix a head dim's wide-route case also holds to the
+#: reference kernel in interpret mode (the twin is held to it above)
+WIDE_REF_MIX = {320: ANY_MIXES[0], 384: ANY_MIXES[3], 520: ANY_MIXES[1]}
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES, ids=_mix_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [320, 384, 520])
+def test_tf32x3_wide_arithmetic_within_tolerance(d, causal, dtypes):
+    """The wide route's arithmetic (the column pair, half 0 + half 1, its
+    kv tile, the slab walk at D = 520) against the twin: an f32 output
+    within 1e-5, a half output within one rounding; for one mix a head
+    dim (:data:`WIDE_REF_MIX`), also within its dtype's tolerance of the
+    reference kernel (interpret mode)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    shape = (1, 2, 1, 100, d)
+    (q, qj), (k, kj), (v, vj) = _qkv_dtypes(shape, d + causal, dtypes)
+    assert fa.route(q, k, v) == "tf32x3_wide"
+    got = _wide_emulation(q, k, v, causal)
+    twin = fa.flash_attention_torch(q, k, v, causal)
+    assert got.dtype == dtypes[0] and got.shape == twin.shape
+    if dtypes == WIDE_REF_MIX[d]:
+        want = ref_ops.flash_attention(qj, kj, vj, causal=causal, bq=64,
+                                       bk=64)
+        _assert_close(got, want, dtypes[0])
+    if dtypes[0] == torch.float32:
+        np.testing.assert_allclose(got.numpy(), twin.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert half_rule(got, twin) <= 1.0
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES[:2] + ANY_MIXES[3:4],
+                         ids=_mix_id)
+@pytest.mark.parametrize("d", [264, 512, 1024])
+def test_tf32x3_wide_slab_walk_matches_twin(d, dtypes):
+    """The slab walk past 512 columns (D = 1024: two slabs; each walk sums
+    every score over both in order) and the plans at 264 and 512, held to
+    the twin: f32 within 1e-5, a half output within one rounding."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    (q, _), (k, _), (v, _) = _qkv_dtypes((1, 2, 1, 40, d), d, dtypes)
+    got = _wide_emulation(q, k, v, True)
+    twin = fa.flash_attention_torch(q, k, v, True)
+    if dtypes[0] == torch.float32:
+        np.testing.assert_allclose(got.numpy(), twin.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert half_rule(got, twin) <= 1.0
+
+
+@pytest.mark.parametrize("dtypes", ANY_MIXES[:2] + ANY_MIXES[3:4],
+                         ids=_mix_id)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [320, 520])
+def test_tf32x3_wide_arithmetic_at_scores_of_hundreds(d, causal, dtypes):
+    """Inputs scaled by 8: the wide route's f32 result (a half q taken at
+    its f32 values) within twice the twin's distance from the f64
+    function, which the twin misses by more than 1e-5 (and so does the
+    reference, run for the first mix of each head dim); one TF32 product
+    outside it; a half q's own output within one rounding of the f64
+    function beyond that."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rng = np.random.default_rng(d + 5 * causal)
+    q, k, v = (torch.from_numpy(8 * rng.normal(size=(1, n, 100, d)).astype(
+        np.float32)).to(dt) for n, dt in zip((2, 1, 1), dtypes))
+    qf = q.float()
+    got = _wide_emulation(qf, k, v, causal)
+    twin = fa.flash_attention_torch(qf, k, v, causal)
+    exact = attention_f64(q, k, v, causal)
+    ours, theirs = f64_error(got, exact), f64_error(twin, exact)
+    assert theirs > 1e-5 and ours <= 2 * theirs
+    if dtypes == ANY_MIXES[0]:
+        want = torch.from_numpy(np.array(ref_ops.flash_attention(
+            *(jnp.asarray(t.float().numpy()).astype(JAX_DTYPE[t.dtype])
+              for t in (qf, k, v)), causal=causal, bq=64, bk=64)))
+        assert f64_error(want, exact) > 1e-5
+    one = f64_error(_wide_emulation(qf, k, v, causal, products=1), exact)
+    assert one > 2 * theirs
+    assert k.dtype != torch.float32 or one > 20 * ours
+    if dtypes[0] != torch.float32:
+        half = _wide_emulation(q, k, v, causal)
+        assert half.dtype == dtypes[0]
+        assert rounded_f64_error(half, exact) <= 2 * theirs
+
+
+@pytest.mark.parametrize("d", [320, 384, 512])
+def test_mma_sync_units_compose_across_the_column_pair(d):
+    """The wide route's split halves: the producer stores a whole tile of
+    DP columns as the route through registers does (its stores free of
+    bank conflicts at the wide plan's tiles too); warp c of the pair reads
+    Q's units of columns [c W, (c + 1) W) and K's blocks of slices c W / 8
+    onward, and its m16n8k8 partials, half 0's + half 1's, give Q K^T of
+    the tile; each warp's P V over V's n8 tiles c W / 8 onward (an even
+    first tile, so the swizzle's parity holds) gives its columns of P V."""
+    dp, bn, _ = _wide_plan(d)
+    sl_n, nt_n, half = dp // 8, bn // 8, dp // 16
+    assert half % 2 == 0
+    rng = np.random.default_rng(d)
+    qm = rng.normal(size=(16, dp))
+    km = rng.normal(size=(bn, dp))
+    vm = rng.normal(size=(bn, dp))
+    k_units, v_units = _stored_units(km, vm)
+    partials = []
+    for c in (0, 1):
+        s_frag = [[(0.0,) * 4] * 32 for _ in range(nt_n)]
+        for sl in range(half):
+            a = _q_frags(qm[:, c * dp // 2:(c + 1) * dp // 2], sl)
+            for nt in range(nt_n):
+                b = [tuple(k_units[(nt * sl_n + c * half + sl) * 32
+                                   + _unit_k(l)]) for l in range(32)]
+                s_frag[nt] = [tuple(x + y for x, y in zip(acc, part))
+                              for acc, part in zip(s_frag[nt],
+                                                   _mma_m16n8k8(a, b))]
+        partials.append(_frag_matrix(s_frag, bn))
+        cols = slice(c * dp // 2, (c + 1) * dp // 2)
+        np.testing.assert_allclose(partials[c], qm[:, cols] @ km[:, cols].T,
+                                   rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(partials[0] + partials[1], qm @ km.T,
+                               rtol=1e-12, atol=1e-12)
+    p = rng.normal(size=(16, bn))
+    for c in (0, 1):
+        o_frag = [[(0.0,) * 4] * 32 for _ in range(half)]
+        for j in range(nt_n):
+            a = _p_frags(p, j)
+            for nt in range(half):
+                b = [tuple(v_units[(j * sl_n + c * half + nt) * 32
+                                   + _unit_v(l, nt)]) for l in range(32)]
+                o_frag[nt] = [tuple(x + y for x, y in zip(acc, part))
+                              for acc, part in zip(o_frag[nt],
+                                                   _mma_m16n8k8(a, b))]
+        cols = slice(c * dp // 2, (c + 1) * dp // 2)
+        np.testing.assert_allclose(_frag_matrix(o_frag, dp // 2),
+                                   p @ vm[:, cols], rtol=1e-12, atol=1e-12)
