@@ -1,0 +1,9 @@
+"""The checkout's ``src`` (the program) and the benchmark importable,
+as ``run.py`` makes them."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
