@@ -18,6 +18,7 @@ import torch
 
 from ..distributed.ops import einsum, merge_dims, repeat_heads, split_dim
 from ..distributed.shardctx import constrain
+from ..spans import span
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -58,9 +59,10 @@ def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def norm(cfg: ModelConfig, x: torch.Tensor,
          weight: Optional[torch.Tensor]) -> torch.Tensor:
-    if cfg.non_parametric_ln:
-        return layernorm_np(x)
-    return rmsnorm(x, weight)
+    with span("norm"):
+        if cfg.non_parametric_ln:
+            return layernorm_np(x)
+        return rmsnorm(x, weight)
 
 
 # ---------------------------------------------------------------------------

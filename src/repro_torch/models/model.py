@@ -43,6 +43,7 @@ from ..distributed.ops import add_bias, index_copy_, lookup, merge_dims, \
     roll, split_dim, tied_logits
 from ..distributed.shardctx import constrain
 from ..kernels.runtime import resolve_device
+from ..spans import span
 from ..tree import unflatten
 from .common import apply_rope, chunked_attention, decode_attention, \
     dense_init, norm, rmsnorm, silu
@@ -216,28 +217,37 @@ def _layer(stacked: Params, i) -> Params:
 # ===========================================================================
 def _proj_qkv(w, x, cfg: ModelConfig, positions):
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = torch.einsum("bsd,dq->bsq", x, w["wq"])
-    k = torch.einsum("bsd,dq->bsq", x, w["wk"])
-    v = torch.einsum("bsd,dq->bsq", x, w["wv"])
-    if cfg.qkv_bias:
-        q, k, v = (add_bias(q, w["bq"]), add_bias(k, w["bk"]),
-                   add_bias(v, w["bv"]))
-    q = split_dim(q, 2, (H, hd))
-    k = split_dim(k, 2, (KV, hd))
-    v = split_dim(v, 2, (KV, hd))
-    if cfg.qk_norm:
-        q = rmsnorm(q, w["q_norm"])
-        k = rmsnorm(k, w["k_norm"])
-    q = constrain(apply_rope(q, positions, cfg.rope_theta),
-                  "data", None, "model", None)
-    return q, apply_rope(k, positions, cfg.rope_theta), v
+    with span("attn_proj"):
+        q = torch.einsum("bsd,dq->bsq", x, w["wq"])
+        k = torch.einsum("bsd,dq->bsq", x, w["wk"])
+        v = torch.einsum("bsd,dq->bsq", x, w["wv"])
+        if cfg.qkv_bias:
+            q, k, v = (add_bias(q, w["bq"]), add_bias(k, w["bk"]),
+                       add_bias(v, w["bv"]))
+        q = split_dim(q, 2, (H, hd))
+        k = split_dim(k, 2, (KV, hd))
+        v = split_dim(v, 2, (KV, hd))
+        if cfg.qk_norm:
+            q = rmsnorm(q, w["q_norm"])
+            k = rmsnorm(k, w["k_norm"])
+    with span("rope"):
+        q = constrain(apply_rope(q, positions, cfg.rope_theta),
+                      "data", None, "model", None)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(w, o):
+    """The heads of ``o`` merged and projected by ``w["wo"]``."""
+    with span("attn_proj"):
+        return torch.einsum("bsq,qd->bsd", merge_dims(o, 2), w["wo"])
 
 
 def _attend(w, q, k, v, cfg: ModelConfig, causal=True, window=0):
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          q_chunk=cfg.attn_q_chunk)
-    o = merge_dims(o, 2)
-    return torch.einsum("bsq,qd->bsd", o, w["wo"])
+    with span("attention"):
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              q_chunk=cfg.attn_q_chunk)
+    return _out_proj(w, o)
 
 
 def self_attention(w, x, cfg: ModelConfig, positions, causal=True,
@@ -258,17 +268,19 @@ def cross_attention(w, x, memory, cfg: ModelConfig) -> torch.Tensor:
 
 
 def mlp_ffn(w, x, cfg: ModelConfig) -> torch.Tensor:
-    h = torch.einsum("bsd,df->bsf", x, w["w_gate"])
-    u = torch.einsum("bsd,df->bsf", x, w["w_up"])
-    h = constrain(h, "data", None, "model")
-    h = silu(h.float()).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, w["w_down"])
+    with span("mlp"):
+        h = torch.einsum("bsd,df->bsf", x, w["w_gate"])
+        u = torch.einsum("bsd,df->bsf", x, w["w_up"])
+        h = constrain(h, "data", None, "model")
+        h = silu(h.float()).to(x.dtype) * u
+        return torch.einsum("bsf,fd->bsd", h, w["w_down"])
 
 
 def _ffn(w, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """The MoE FFN on an MoE layer, else the dense one."""
     if cfg.family == "moe" and "router" in w:
-        return moe_ffn(w, x, cfg)
+        with span("mlp"):
+            return moe_ffn(w, x, cfg)
     return mlp_ffn(w, x, cfg), {}
 
 
@@ -304,17 +316,19 @@ def mamba_layer(w, x, cfg: ModelConfig) -> torch.Tensor:
 # Forward
 # ===========================================================================
 def _embed_in(params, batch, cfg: ModelConfig):
-    if "embeds" in batch:                       # vlm stub frontend
-        x = batch["embeds"]
-    else:
-        x = lookup(params["embed"], batch["tokens"])
-    return constrain(x.to(_dtype(cfg)), "data", None, "model")
+    with span("embed"):
+        if "embeds" in batch:                   # vlm stub frontend
+            x = batch["embeds"]
+        else:
+            x = lookup(params["embed"], batch["tokens"])
+        return constrain(x.to(_dtype(cfg)), "data", None, "model")
 
 
 def _logits_out(params, x, cfg: ModelConfig):
-    x = norm(cfg, x, params.get("final_norm"))
-    logits = tied_logits(x, params["embed"])
-    return constrain(logits, "data", None, "model")
+    with span("logits"):
+        x = norm(cfg, x, params.get("final_norm"))
+        logits = tied_logits(x, params["embed"])
+        return constrain(logits, "data", None, "model")
 
 
 def _n_layers(stacked: Params) -> int:
@@ -507,7 +521,7 @@ def _attn_decode_one(w, x, k_cache, v_cache, pos, cfg: ModelConfig,
     o = decode_attention(q, split_dim(k_cache, 2, (KV, hd)),
                          split_dim(v_cache, 2, (KV, hd)), cache_len=pos + 1,
                          window=window, no_repeat=cfg.decode_no_repeat)
-    return torch.einsum("bsq,qd->bsd", merge_dims(o, 2), w["wo"])
+    return _out_proj(w, o)
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Dict,
@@ -599,20 +613,22 @@ def prefill(params: Params, batch: Dict, cache: Dict,
         writes (slot = pos % Sc) evict exactly the token that falls out
         of the window."""
         KVhd = cfg.n_kv_heads * cfg.head_dim
-        kf = merge_dims(k, 2)
-        vf = merge_dims(v, 2)
-        if S >= Sc:
-            kf, vf = kf[:, S - Sc:], vf[:, S - Sc:]
-            shift = (S - Sc) % Sc
-            if shift:
-                kf = roll(kf, shift, 1)
-                vf = roll(vf, shift, 1)
-            return kf, vf
-        # zeros after the prompt (a cat, not F.pad: torch 2.11's DTensor
-        # fails to place F.pad's output)
-        zeros = torch.zeros((B, Sc - S, KVhd), dtype=kf.dtype,
-                            device=kf.device)
-        return torch.cat([kf, zeros], dim=1), torch.cat([vf, zeros], dim=1)
+        with span("kv_cache"):
+            kf = merge_dims(k, 2)
+            vf = merge_dims(v, 2)
+            if S >= Sc:
+                kf, vf = kf[:, S - Sc:], vf[:, S - Sc:]
+                shift = (S - Sc) % Sc
+                if shift:
+                    kf = roll(kf, shift, 1)
+                    vf = roll(vf, shift, 1)
+                return kf, vf
+            # zeros after the prompt (a cat, not F.pad: torch 2.11's
+            # DTensor fails to place F.pad's output)
+            zeros = torch.zeros((B, Sc - S, KVhd), dtype=kf.dtype,
+                                device=kf.device)
+            return torch.cat([kf, zeros], dim=1), \
+                torch.cat([vf, zeros], dim=1)
 
     if fam in ("dense", "vlm", "moe", "encdec"):
         memory = None
@@ -633,8 +649,9 @@ def prefill(params: Params, batch: Dict, cache: Dict,
             kc, vc = kv_into_cache(k, v)
             ks.append(kc)
             vs.append(vc)
-        new_cache["kv_k"], new_cache["kv_v"] = torch.stack(ks), \
-            torch.stack(vs)
+        with span("kv_cache"):
+            new_cache["kv_k"], new_cache["kv_v"] = torch.stack(ks), \
+                torch.stack(vs)
 
     elif fam == "ssm":
         x, convs, ssms = _ssm_prefill(params, x, cfg)

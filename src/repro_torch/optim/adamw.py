@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..spans import span
 from ..tree import leaves as tree_leaves
 from ..tree import tree_map
 
@@ -86,33 +87,34 @@ def adamw_update(grads: Any, state: OptState, params: Any, lr,
     ``state``'s moments in place and returns ``(params, state,
     {"grad_norm": norm})``; ``state["count"]`` is replaced by
     ``count + 1``.  ``lr`` is a float or a 0-d f32 tensor."""
-    flat_p = tree_leaves(params)
-    flat_g = tree_leaves(grads)
-    if len(flat_g) != len(flat_p):
-        raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} "
-                         f"parameters")
-    flat_m = tree_leaves(state["m"])
-    flat_v = tree_leaves(state["v"])
-    gnorm = global_norm(flat_g)
-    scale = _clip_scale(gnorm, max_grad_norm)
-    count = state["count"] + 1
-    c = count.float()
-    bc1 = 1.0 - b1 ** c
-    bc2 = 1.0 - b2 ** c
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g32 = (torch.zeros_like(p, dtype=torch.float32)
-               if g is None else _scaled(g, scale))
-        m.mul_(b1).add_((1 - b1) * g32)
-        v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
-        del g32
-        step = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if p.ndim >= 2:
-            step.add_(weight_decay * p.float())
-        step.mul_(lr)
-        if p.dtype == torch.float32:
-            p.sub_(step)
-        else:
-            p.copy_(p.float().sub_(step))
-    state["count"] = count
-    return params, state, {"grad_norm": gnorm}
+    with span("adamw"):
+        flat_p = tree_leaves(params)
+        flat_g = tree_leaves(grads)
+        if len(flat_g) != len(flat_p):
+            raise ValueError(f"{len(flat_g)} gradients for {len(flat_p)} "
+                             f"parameters")
+        flat_m = tree_leaves(state["m"])
+        flat_v = tree_leaves(state["v"])
+        gnorm = global_norm(flat_g)
+        scale = _clip_scale(gnorm, max_grad_norm)
+        count = state["count"] + 1
+        c = count.float()
+        bc1 = 1.0 - b1 ** c
+        bc2 = 1.0 - b2 ** c
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            g32 = (torch.zeros_like(p, dtype=torch.float32)
+                   if g is None else _scaled(g, scale))
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
+            del g32
+            step = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
+            # decoupled weight decay on matrices only (ndim >= 2)
+            if p.ndim >= 2:
+                step.add_(weight_decay * p.float())
+            step.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(step)
+            else:
+                p.copy_(p.float().sub_(step))
+        state["count"] = count
+        return params, state, {"grad_norm": gnorm}

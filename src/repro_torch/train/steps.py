@@ -37,6 +37,7 @@ from ..distributed.shardctx import current_mesh
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw_update, linear_warmup_cosine
+from ..spans import span
 from ..tree import leaves, paths, unflatten
 
 
@@ -70,11 +71,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 def _loss_fn(params, batch: Dict, cfg: ModelConfig, vocab_chunk: int = 0,
              remat: bool = True):
     logits = M.forward(params, batch, cfg, remat=remat)
-    labels = batch.get("labels")
-    if labels is None:
-        # next-token objective on the input stream
-        labels = roll(batch["tokens"], -1, 1)
-    loss = cross_entropy_loss(logits, labels, vocab_chunk)
+    with span("loss"):
+        labels = batch.get("labels")
+        if labels is None:
+            # next-token objective on the input stream
+            labels = roll(batch["tokens"], -1, 1)
+        loss = cross_entropy_loss(logits, labels, vocab_chunk)
     aux = {"loss": loss}
     return loss, aux
 
@@ -116,8 +118,9 @@ def build_train_step(cfg: ModelConfig, base_lr: float = 3e-4,
         device = leaves(params)[0].device
         (loss, aux), grads = value_and_grad(
             params, _on_device(batch, device), cfg, vocab_chunk, remat)
-        lr = linear_warmup_cosine(step, base_lr, warmup_steps, total_steps,
-                                  device=device)
+        with span("schedule"):
+            lr = linear_warmup_cosine(step, base_lr, warmup_steps,
+                                      total_steps, device=device)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr)
         metrics = {k: replicated(v) for k, v in
                    {"loss": loss, "lr": lr, **om}.items()}
